@@ -4,22 +4,31 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It builds the four CUDA kernels from ``src/repro_torch/csrc``, holds each
-against its plain PyTorch version on the card (fp32 and bf16) at the
-shapes the main path gives it, drives the main path through the entry
-points a user calls — the paper's profiled conv rows through
-``repro_torch.conv2d`` and ``resnet_like`` served by ``CnnServeEngine``
-at 32x32 (buckets 1 and 4) and 224x224 (bucket 1) — and shows from the
-launch counters that the path ran the kernels.  It then times served
-latency over windows of a few hundred requests per geometry, times each
-kernel (CUDA graph replays between CUDA events, so host dispatch is
+It builds the seven CUDA kernels from ``src/repro_torch/csrc``, holds
+each against its plain PyTorch version on the card (fp32 and bf16, int8
+for the int8 GEMM) at the shapes the main paths give it, and drives the
+paths through the entry points a user calls:
+
+- the paper's conv rows through ``repro_torch.conv2d``: the profiled
+  rows (tables 3-5), resnet50's two 3x3 layers at batch 8 on the
+  Winograd kernel (F(4,3) and F(2,3)), and forced ``algorithm="direct"``
+  rows (t3_A, t4_B, t5_B and a stride-2 layer at 224x224);
+- ``resnet_like`` served by ``CnnServeEngine`` at 32x32 (buckets 1 and
+  4) and 224x224 (bucket 1) in fp32, where no conv node may run on a
+  library executor;
+- ``resnet_like`` calibrated through ``GraphPlan.warmup(calibrate=...)``
+  and served in int8 (``precision=QuantPolicy()``) at 32x32, against the
+  CPU int8 engine and against the fp32 engine's 0.05 accuracy bound.
+
+The launch counters show that each path ran its kernels.  It then times
+served latency over windows of a few hundred requests per engine, times
+each kernel (CUDA graph replays between CUDA events, so host dispatch is
 left out; eager times and the host's time per call are kept beside)
 with its plain version, one library call and its bound, and prints one
-``{"kernels": [...]}`` line, the card's name
-and power limit, and as its last line the device record.  Details go
-to ``chiprun_out/chip_smoke.json``.  Any failed phase exits non-zero.
-Without CUDA, or without the repository beside it, it exits non-zero
-and prints no result.
+``{"kernels": [...]}`` line, the card's name and power limit, and as its
+last line the device record.  Details go to ``chiprun_out/chip_smoke.json``.
+Any failed phase exits non-zero.  Without CUDA, or without the repository
+beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -35,12 +44,32 @@ ROOT = Path(__file__).resolve().parent
 # the card's published peaks (H100 SXM data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
+INT8_OP_PER_S = 1979e12          # int8 tensor cores, dense
 
 FP32_TOL, BF16_TOL = 2e-5, 3e-2  # kernel vs plain: x * max(1, max|plain|)
+# Winograd sums over another domain than its plain version: the
+# reference's own Winograd bounds (tests/test_winograd.py:43,73)
+WINOGRAD_FP32_TOL = {2: 1e-4, 4: 2e-3}
 SERVE_TOL = 3e-4                 # card vs CPU engine: x * max|cpu output|
+INT8_ACCURACY = 0.05             # int8 vs fp32 (quant/accuracy.py)
 
-WINDOWS, WINDOW_REQUESTS = 3, 300   # served-latency windows per geometry
+WINDOWS, WINDOW_REQUESTS = 3, 300   # served-latency windows per engine
 GRAPH_CALLS, GRAPH_REPLAYS = 20, 10  # calls captured per graph, replays
+
+# resnet50's 3x3 layers of configs/cnn_paper.py NETWORKS, (H=W, K, M, C)
+# at batch 8, with the launch config the JAX package's planner picks for
+# them at backend "tpu" (tests/test_torch_graph.py pins both)
+WINOGRAD_ROWS = {"r50_56x56x64": ((56, 3, 64, 64),
+                                  {"m": 4, "tt": 256, "tm": 64, "tc": 64}),
+                 "r50_28x28x128": ((28, 3, 128, 128),
+                                   {"m": 2, "tt": 256, "tm": 128,
+                                    "tc": 128})}
+# forced algorithm="direct" rows: three profiled rows and resnet_like's
+# b2c1 geometry at 224x224 (stride 2)
+DIRECT_ROWS = ("t3_A", "t4_B", "t5_B")
+DIRECT_STRIDED = ("b2c1@224", (1, 112, 112, 16), (3, 3, 16, 32), 2)
+
+_PHASE = {"name": None, "t0": 0.0, "times": {}}
 
 
 def fail(msg: str) -> None:
@@ -48,8 +77,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+def phase(name) -> None:
+    """Close the running phase (printing its wall time) and open
+    ``name`` (None closes the last one)."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        secs = now - _PHASE["t0"]
+        _PHASE["times"][_PHASE["name"]] = secs
+        print(f"   ({_PHASE['name']}: {secs:.1f} s)", flush=True)
+    _PHASE["name"], _PHASE["t0"] = name, now
+    if name is not None:
+        print(f"== {name}", flush=True)
 
 
 def main() -> None:
@@ -61,8 +99,6 @@ def main() -> None:
         import repro_torch  # noqa: F401
     except ImportError as e:
         fail(f"cannot import repro_torch from {ROOT / 'src'}: {e}")
-    if "jax" in sys.modules or "repro" in sys.modules:
-        fail("the port pulled in jax or the JAX package")
     os.environ["REPRO_CACHE_DIR"] = str(ROOT / "build" / "chip_smoke_cache")
     import shutil
     shutil.rmtree(os.environ["REPRO_CACHE_DIR"], ignore_errors=True)
@@ -73,9 +109,13 @@ def main() -> None:
     from repro_torch.configs.serve import SMOKE_FRONTEND
     from repro_torch.core import convspec, cuconv, executors
     from repro_torch.kernels import (_build, conv1x1, cuconv_fused,
-                                     cuconv_stage1, cuconv_stage2)
+                                     cuconv_stage1, cuconv_stage2,
+                                     direct_conv, int8_gemm, winograd_fused)
     from repro_torch.models.cnn import resnet_like
+    from repro_torch.quant import Calibrator, QuantPolicy
     from repro_torch.serve.cnn import CnnServeEngine, ImageRequest
+    if "jax" in sys.modules or "repro" in sys.modules:
+        fail("the port pulled in jax or the JAX package")
 
     dev = torch.device("cuda")
     report = {"kernels": {}, "shapes": [], "serve": {}}
@@ -105,39 +145,91 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    # -- the main path's shapes, from the port's own plans ------------------
+    # -- the main paths' shapes, from the port's own plans ------------------
+    phase("plans, and int8 calibration through GraphPlan.warmup")
     gen = torch.Generator().manual_seed(0)
 
     def randn(shape, dtype=torch.float32):
         return torch.randn(tuple(shape), generator=gen).to(dev, dtype)
 
     model = resnet_like(num_classes=10)
-    geometries = [((32, 32, 3), SMOKE_FRONTEND.geometry_map()[(32, 32, 3)]),
+    params = model.init(torch.Generator().manual_seed(0), device=dev)
+    params_cpu = {n: {k: v.cpu() for k, v in p.items()}
+                  for n, p in params.items()}
+    rng = np.random.default_rng(0)
+    small = (32, 32, 3)
+    geometries = [(small, SMOKE_FRONTEND.geometry_map()[small]),
                   ((224, 224, 3), (1,))]
+    # calibrate once on one seeded sample batch of 4 at 32x32: the
+    # entries serve every bucket (batch-normalized keys)
+    calib_x = rng.standard_normal((4,) + small, dtype=np.float32)
+    calib = model.graph_plan((4,) + small, backend="cuda").warmup(
+        calibrate=Calibrator(calib_x, params))["calibration"]
+    print(f"  calibrated {sorted(calib)}: amax "
+          f"{ {n: round(e['amax'], 4) for n, e in calib.items()} }")
+    int8_geometry = (small, geometries[0][1])
+    serve_policies = [("fp32", shape, buckets, None)
+                      for shape, buckets in geometries]
+    serve_policies.append(("int8",) + int8_geometry + (QuantPolicy(),))
     node_plans = []        # (label, ConvPlan) of every served conv node
-    for shape, buckets in geometries:
+    for kind, shape, buckets, pol in serve_policies:
         for b in buckets:
-            gp = model.graph_plan((b,) + shape, backend="cuda")
+            gp = model.graph_plan((b,) + shape, backend="cuda",
+                                  precision=pol)
+            tag = f"resnet{shape[0]}b{b}" + (":int8" if pol else "")
             for name, p in gp.conv_plans.items():
-                node_plans.append((f"resnet{shape[0]}b{b}:{name}", p))
-    paper_plans = []       # (label, ConvPlan, forced) of the profiled rows
+                node_plans.append((f"{tag}:{name}", p))
+
+    paper_plans = []       # (label, ConvPlan, call(x, w) through the API)
     for label, (hw, n, k, m, c) in PROFILED.items():
         spec = convspec.ConvSpec((n, hw, hw, c), (k, k, c, m),
                                  padding=((k - 1) // 2, (k - 1) // 2))
         paper_plans.append((label, convspec.plan(spec, backend="cuda"),
-                            None))
+                            lambda x, w: rt.conv2d(x, w, padding="same")))
         if label in ("t4_A", "t5_A"):
             paper_plans.append((f"{label}:two_stage", convspec.plan(
                 spec, force="cuconv_two_stage_pallas", backend="cuda"),
-                "cuconv_two_stage_pallas"))
+                lambda x, w: rt.conv2d(
+                    x, w, padding="same",
+                    algorithm="cuconv_two_stage_pallas")))
+        if label in DIRECT_ROWS:
+            paper_plans.append((f"{label}:direct", convspec.plan(
+                spec, force="direct", backend="cuda"),
+                lambda x, w: rt.conv2d(x, w, padding="same",
+                                       algorithm="direct")))
+    label, in_shape, w_shape, stride = DIRECT_STRIDED
+    spec = convspec.ConvSpec(in_shape, w_shape, (stride, stride), (1, 1))
+    paper_plans.append((f"{label}:direct", convspec.plan(
+        spec, force="direct", backend="cuda"),
+        lambda x, w: rt.conv2d(x, w, stride=stride, padding=(1, 1),
+                               algorithm="direct")))
+    variants = set()
+    for label, ((hw, k, m, c), ref_cfg) in WINOGRAD_ROWS.items():
+        spec = convspec.ConvSpec((8, hw, hw, c), (k, k, c, m),
+                                 padding=(1, 1))
+        p = convspec.plan(spec, backend="cuda")
+        if p.algorithm != "winograd_pallas":
+            fail(f"{label}: planned {p.algorithm}, not winograd_pallas")
+        if p.config.as_dict() == ref_cfg:
+            call = (lambda x, w: rt.conv2d(x, w, padding="same"))
+        else:
+            print(f"  {label}: the port's default config "
+                  f"{p.config.as_dict()} differs from the reference's "
+                  f"{ref_cfg}; forcing the reference's through "
+                  f"plan(..., config=...)")
+            p = convspec.plan(spec, backend="cuda", config=ref_cfg)
+            call = p
+        variants.add(p.config["m"])
+        paper_plans.append((label, p, call))
+    if variants != {2, 4}:
+        fail(f"the Winograd rows run F(m,3) variants {variants}, not both")
     for label, p, _ in paper_plans:
         print(f"  {label}: {p.explain()}")
 
     def fused_args(p, dtype):
         s = p.spec
-        cfg = p.config
         kw = dict(stride=s.stride, padding=s.padding,
-                  tm=cfg.get("tm", 128), rows=cfg.get("rows", 1))
+                  tm=p.config.get("tm", 128), rows=p.config.get("rows", 1))
         relu = (s.fused_add == "add_relu" if s.fused_add != "none"
                 else s.wants_relu)
         kw["activation"] = "relu" if relu else None
@@ -164,124 +256,193 @@ def main() -> None:
                          0).contiguous()
         return xs, randn((kh * kw_, c, m), dtype)
 
-    # every kernel call of the main path: (kernel, label, kernel fn,
-    # plain fn, args, kernel kwargs, plain kwargs, flops)
+    def case(kernel, label, kfn, pfn, args, kw, pkw, ops, tol,
+             peak=FP32_FLOP_PER_S):
+        return dict(kernel=kernel, label=label, kfn=kfn, pfn=pfn,
+                    args=args, kw=kw, pkw=pkw, ops=ops, tol=tol, peak=peak)
+
+    # every kernel call of the main paths at one dtype
     def cases(dtype):
         out = []
+        base_tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
         for label, p in node_plans + [(lb, p) for lb, p, _ in paper_plans]:
             s = p.spec
             n, oh, ow, m = s.out_shape
             kh, kw_, c, _ = s.filter_shape
+            direct_flops = 2 * n * oh * ow * m * kh * kw_ * c
             if p.algorithm == "cuconv_pallas":
                 args, kw = fused_args(p, dtype)
-                out.append(("cuconv_fused", label, cuconv_fused.cuconv_fused,
-                            cuconv_fused.cuconv_fused_plain, args, kw,
-                            {k: v for k, v in kw.items()
-                             if k not in ("tm", "rows")},
-                            2 * n * oh * ow * m * kh * kw_ * c))
+                out.append(case("cuconv_fused", label,
+                                cuconv_fused.cuconv_fused,
+                                cuconv_fused.cuconv_fused_plain, args, kw,
+                                {k: v for k, v in kw.items()
+                                 if k not in ("tm", "rows")},
+                                direct_flops, base_tol))
             elif p.algorithm == "conv1x1_pallas":
                 args = (randn((n * oh * ow, c), dtype), randn((c, m), dtype))
-                out.append(("conv1x1_gemm", label, conv1x1.conv1x1_gemm,
-                            conv1x1.conv1x1_gemm_plain, args, gemm_tiles(p),
-                            {}, 2 * n * oh * ow * m * c))
+                out.append(case("conv1x1_gemm", label, conv1x1.conv1x1_gemm,
+                                conv1x1.conv1x1_gemm_plain, args,
+                                gemm_tiles(p), {}, direct_flops, base_tol))
             elif p.algorithm == "cuconv_two_stage_pallas":
                 xs, wt = two_stage_inputs(p, dtype)
-                out.append(("stage1_tap_gemm", label,
-                            cuconv_stage1.stage1_tap_gemm,
-                            cuconv_stage1.stage1_tap_gemm_plain, (xs, wt),
-                            gemm_tiles(p), {},
-                            2 * kh * kw_ * n * oh * ow * m * c))
+                out.append(case("stage1_tap_gemm", label,
+                                cuconv_stage1.stage1_tap_gemm,
+                                cuconv_stage1.stage1_tap_gemm_plain,
+                                (xs, wt), gemm_tiles(p), {}, direct_flops,
+                                base_tol))
                 temps = randn((kh * kw_, n * oh * ow, m))
-                out.append(("stage2_tap_sum", label,
-                            cuconv_stage2.stage2_tap_sum,
-                            cuconv_stage2.stage2_tap_sum_plain, (temps,),
-                            {"out_dtype": dtype}, {"out_dtype": dtype},
-                            (kh * kw_ - 1) * n * oh * ow * m))
+                out.append(case("stage2_tap_sum", label,
+                                cuconv_stage2.stage2_tap_sum,
+                                cuconv_stage2.stage2_tap_sum_plain, (temps,),
+                                {"out_dtype": dtype}, {"out_dtype": dtype},
+                                (kh * kw_ - 1) * n * oh * ow * m, base_tol))
+            elif p.algorithm == "winograd_pallas":
+                fm = p.config["m"]
+                pkw = dict(padding=s.padding, m=fm,
+                           activation="relu" if s.wants_relu else None,
+                           bias=(randn((m,), dtype) if s.has_bias
+                                 else None))
+                kw = dict(pkw, tt=p.config["tt"], tm=p.config["tm"],
+                          tc=p.config["tc"])
+                tiles = n * -(-oh // fm) * -(-ow // fm)
+                out.append(case(
+                    "winograd_fused", label, winograd_fused.winograd_fused,
+                    winograd_fused.winograd_fused_plain,
+                    (randn(s.in_shape, dtype), randn(s.filter_shape, dtype)),
+                    kw, pkw, 2 * (fm + 2) ** 2 * tiles * c * m,
+                    WINOGRAD_FP32_TOL[fm] if dtype == torch.float32
+                    else BF16_TOL))
+            elif p.algorithm == "direct":
+                pkw = dict(padding=s.padding, stride=s.stride)
+                out.append(case(
+                    "direct_conv", label, direct_conv.direct_conv,
+                    direct_conv.direct_conv_plain,
+                    (randn(s.in_shape, dtype), randn(s.filter_shape, dtype)),
+                    dict(pkw, tm=p.config["tm"], tc=p.config["tc"]), pkw,
+                    direct_flops, base_tol))
+        return out
+
+    def int8_cases():
+        out = []
+        for label, p in node_plans:
+            if p.algorithm != "cuconv_int8":
+                continue
+            n, oh, ow, m = p.spec.out_shape
+            kh, kw_, c, _ = p.spec.filter_shape
+            P, K = n * oh * ow, kh * kw_ * c
+            codes = (torch.randint(-127, 128, (P, K), generator=gen,
+                                   dtype=torch.int8).to(dev),
+                     torch.randint(-127, 128, (K, m), generator=gen,
+                                   dtype=torch.int8).to(dev))
+            out.append(case("int8_gemm", label, int8_gemm.int8_gemm,
+                            int8_gemm.int8_gemm_plain, codes, gemm_tiles(p),
+                            {}, 2 * P * K * m, 0.0, peak=INT8_OP_PER_S))
         return out
 
     # -- 3. kernel vs plain --------------------------------------------------
     phase("kernel vs plain")
     max_err = {}
-    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-        for kname, label, kfn, pfn, args, kw, pkw, _ in cases(dtype):
-            got = kfn(*args, **kw)
-            want = pfn(*args, **pkw)
+    for dtype, cs in ((torch.float32, cases(torch.float32)),
+                      (torch.bfloat16, cases(torch.bfloat16)),
+                      (torch.int8, int8_cases())):
+        for c in cs:
+            kname, label = c["kernel"], c["label"]
+            got = c["kfn"](*c["args"], **c["kw"])
+            want = c["pfn"](*c["args"], **c["pkw"])
             torch.cuda.synchronize()
             if got.shape != want.shape or got.dtype != want.dtype:
                 fail(f"{kname} {label}: {tuple(got.shape)}/{got.dtype} vs "
                      f"plain {tuple(want.shape)}/{want.dtype}")
-            err = (got.float() - want.float()).abs().max().item()
-            bound = tol * max(1.0, want.float().abs().max().item())
-            ok = bool(torch.isfinite(got.float()).all()) and err <= bound
+            err = (got.double() - want.double()).abs().max().item()
+            bound = c["tol"] * max(1.0, want.double().abs().max().item())
+            ok = bool(torch.isfinite(got.double()).all()) and err <= bound
             print(f"  {kname:16s} {label:28s} {str(dtype)[6:]:8s} "
                   f"max|k-p|={err:.3e} bound={bound:.3e} "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"{kname} {label} {dtype}: kernel disagrees with its "
                      f"plain version ({err:.3e} > {bound:.3e})")
-            if dtype == torch.float32:
+            if dtype != torch.bfloat16:
                 max_err[kname] = max(max_err.get(kname, 0.0), err)
 
-    # -- 4a. the per-call conv path: the paper's profiled rows ---------------
+    # -- 4a. the per-call conv path: the paper's rows ------------------------
     phase("main path: paper rows through repro_torch.conv2d")
     launches = {k: 0 for k in _build.LAUNCHES}
-    rows_in = {}
-    for label, p, forced in paper_plans:
-        s = p.spec
-        rows_in[label] = (randn(s.in_shape), randn(s.filter_shape))
+    rows_in = {label: (randn(p.spec.in_shape), randn(p.spec.filter_shape))
+               for label, p, _ in paper_plans}
     torch.cuda.synchronize()
     _build.reset_launches()
-    rows_out = {label: rt.conv2d(*rows_in[label], padding="same",
-                                 algorithm=forced or "auto")
-                for label, p, forced in paper_plans}
+    rows_out = {label: call(*rows_in[label])
+                for label, p, call in paper_plans}
     torch.cuda.synchronize()
     path_counts = dict(_build.LAUNCHES)
     for k, v in path_counts.items():
         launches[k] += v
     print(f"  launches: {path_counts}")
-    for label, y in rows_out.items():
-        want = cuconv.conv_lax(*rows_in[label], padding="same")
+    for label, p, _ in paper_plans:
+        y = rows_out[label]
+        want = cuconv.conv_lax(*rows_in[label], stride=p.spec.stride,
+                               padding=p.spec.padding)
         err = (y - want).abs().max().item()
-        bound = 3e-4 * max(1.0, want.abs().max().item())
+        tol = 2e-3 if p.config.get("m") == 4 else 3e-4
+        bound = tol * max(1.0, want.abs().max().item())
         if y.shape != want.shape or not err <= bound:
             fail(f"conv2d {label}: {err:.3e} from F.conv2d > {bound:.3e}")
-        print(f"  {label:16s} out {tuple(y.shape)} max|y-F.conv2d|="
-              f"{err:.3e} ok")
-    need = {"conv1x1_gemm": 3, "cuconv_fused": 4, "stage1_tap_gemm": 2,
-            "stage2_tap_sum": 2}
+        print(f"  {label:18s} out {tuple(y.shape)} max|y-F.conv2d|="
+              f"{err:.3e} (bound {bound:.3e}) ok")
+    need = {}
+    for _, p, _ in paper_plans:
+        for k in p.executor.kernels:
+            need[k] = need.get(k, 0) + 1
     for k, n in need.items():
-        if path_counts[k] < n:
+        if path_counts[k] != n:
             fail(f"paper rows: {k} launched {path_counts[k]} times, "
-                 f"expected >= {n}")
+                 f"planned {n}")
 
-    # -- 4b. serving resnet_like ----------------------------------------------
-    phase("main path: resnet_like served by CnnServeEngine")
-    params = model.init(torch.Generator().manual_seed(0), device=dev)
-    params_cpu = {n: {k: v.cpu() for k, v in p.items()}
-                  for n, p in params.items()}
-    rng = np.random.default_rng(0)
-    traffic = {(32, 32, 3): [1, 3, 2, 4, 1], (224, 224, 3): [1, 2]}
-    kernel_executors = ("cuconv_pallas", "conv1x1_pallas",
-                        "cuconv_two_stage_pallas")
+    # -- 4b. serving resnet_like, fp32 and int8 ------------------------------
+    phase("main path: resnet_like served by CnnServeEngine (fp32, int8)")
+    # the same requests for every engine of a geometry
+    traffic = {shape: [rng.normal(size=(n,) + shape).astype(np.float32)
+                       for n in sizes]
+               for shape, sizes in (((32, 32, 3), [1, 3, 2, 4, 1]),
+                                    ((224, 224, 3), [1, 2]))}
     engines = {}
-    for shape, buckets in geometries:
-        eng = CnnServeEngine(model, params, shape, buckets=buckets)
+    served = {}
+    for kind, shape, buckets, pol in serve_policies:
+        eng = CnnServeEngine(model, params, shape, buckets=buckets,
+                             precision=pol)
         ref = CnnServeEngine(model, params_cpu, shape, buckets=buckets,
-                             device="cpu", backend="cuda")
-        engines[shape] = eng
+                             device="cpu", backend="cuda", precision=pol)
+        engines[(kind, shape)] = eng
         eng.warmup()
-        library_nodes = {}
+        library_nodes, per_batch = {}, {}
         for b in eng.buckets:
             gp = eng.programs.plan(b)
             print(gp.explain())
             library_nodes[str(b)] = {
                 n: p.algorithm for n, p in gp.conv_plans.items()
-                if p.algorithm not in kernel_executors}
-            print(f"  {shape} bucket {b}: nodes on a library executor: "
+                if not p.executor.kernels}
+            per_batch[b] = {}
+            for p in gp.conv_plans.values():
+                for k in p.executor.kernels:
+                    per_batch[b][k] = per_batch[b].get(k, 0) + 1
+            print(f"  {kind} {shape} bucket {b}: serves "
+                  f"{eng.programs.serve_dtype(b)}; launches per batch "
+                  f"{per_batch[b]}; nodes on a library executor: "
                   f"{library_nodes[str(b)] or 'none'}")
-        reqs = [rng.normal(size=(n,) + shape).astype(np.float32)
-                for n in traffic[shape]]
-        for i, im in enumerate(reqs):
+            if library_nodes[str(b)]:
+                fail(f"{kind} {shape} bucket {b}: conv nodes on a library "
+                     f"executor: {library_nodes[str(b)]}")
+        if kind == "fp32" and shape == small and per_batch[4] != {
+                "winograd_fused": 1, "cuconv_fused": 5}:
+            fail(f"fp32 32x32 bucket 4 plans {per_batch[4]}, not one "
+                 f"winograd_fused and five cuconv_fused launches")
+        if kind == "int8" and any(
+                v != {"int8_gemm": 4, "cuconv_fused": 2}
+                for v in per_batch.values()):
+            fail(f"int8 buckets plan {per_batch}, not four int8_gemm and "
+                 f"two cuconv_fused launches per batch")
+        for i, im in enumerate(traffic[shape]):
             eng.submit(ImageRequest(i, im))
             ref.submit(ImageRequest(i, im))
         torch.cuda.synchronize()
@@ -294,33 +455,45 @@ def main() -> None:
         counts = dict(_build.LAUNCHES)
         for k, v in counts.items():
             launches[k] += v
-        want_fused = sum(
-            n_batches * sum(p.algorithm == "cuconv_pallas"
-                            for p in eng.programs.plan(b).conv_plans.values())
-            for b, n_batches in eng.stats["batches"].items())
-        print(f"  {shape}: {eng.stats['images']} images in "
+        want = {}
+        for b, n_batches in eng.stats["batches"].items():
+            for k, v in per_batch[b].items():
+                if n_batches:
+                    want[k] = want.get(k, 0) + n_batches * v
+        print(f"  {kind} {shape}: {eng.stats['images']} images in "
               f"{sum(eng.stats['batches'].values())} batches "
               f"{eng.stats['batches']}, {secs * 1e3:.2f} ms; launches "
-              f"{counts}; cuconv_fused expected >= {want_fused}; "
-              f"plan() resolutions {convspec.PLAN_STATS['resolutions']}")
-        if counts["cuconv_fused"] < want_fused or want_fused == 0:
-            fail(f"serving {shape}: cuconv_fused launched "
-                 f"{counts['cuconv_fused']} < {want_fused} planned")
+              f"{counts}; planned {want}; plan() resolutions "
+              f"{convspec.PLAN_STATS['resolutions']}")
+        if {k: v for k, v in counts.items() if v} != want:
+            fail(f"serving {kind} {shape}: launches {counts} != planned "
+                 f"{want}")
         ref_done = ref.run()
+        served[(kind, shape)] = done
         for a, r in zip(done, ref_done):
             if a.out.shape != r.out.shape or not np.isfinite(a.out).all():
-                fail(f"serving {shape} request {a.rid}: bad output")
+                fail(f"serving {kind} {shape} request {a.rid}: bad output")
             err = float(np.abs(a.out - r.out).max())
             bound = SERVE_TOL * float(np.abs(r.out).max())
             if not err <= bound:
-                fail(f"serving {shape} request {a.rid}: card vs CPU "
+                fail(f"serving {kind} {shape} request {a.rid}: card vs CPU "
                      f"{err:.3e} > {bound:.3e}")
-        print(f"  {shape}: outputs match the CPU engine within "
+        print(f"  {kind} {shape}: outputs match the CPU engine within "
               f"{SERVE_TOL} of their abs max")
-        report["serve"][str(shape)] = {
+        report["serve"][f"{kind} {shape}"] = {
             "batches": {str(k): v for k, v in eng.stats["batches"].items()},
             "images": eng.stats["images"], "run_ms": secs * 1e3,
-            "launches": counts, "library_nodes": library_nodes}
+            "launches": counts, "library_nodes": library_nodes,
+            "serve_dtypes": {str(b): eng.programs.serve_dtype(b)
+                             for b in eng.buckets}}
+    q_out = np.concatenate([r.out for r in served[("int8", small)]])
+    f_out = np.concatenate([r.out for r in served[("fp32", small)]])
+    rel = float(np.abs(q_out - f_out).max() / np.abs(f_out).max())
+    print(f"  int8 vs fp32 at 32x32: max|q - fp| / max|fp| = {rel:.4e} "
+          f"(bound {INT8_ACCURACY})")
+    if not rel <= INT8_ACCURACY:
+        fail(f"int8 serving is {rel:.4e} from fp32 > {INT8_ACCURACY}")
+    report["serve"]["int8_vs_fp32_rel_err"] = rel
     for k, v in launches.items():
         if v < 1:
             fail(f"{k} was not launched on the main path")
@@ -331,8 +504,8 @@ def main() -> None:
     # through the warm engine; ms per batch is the window's wall time
     # over its batches (every batch ends in a copy to the host).
     phase(f"served latency: {WINDOWS} windows of {WINDOW_REQUESTS} requests")
-    for shape, buckets in geometries:
-        eng = engines[shape]
+    for kind, shape, buckets, _ in serve_policies:
+        eng = engines[(kind, shape)]
         sizes = rng.integers(1, max(buckets) + 1, size=WINDOW_REQUESTS)
         pool = rng.standard_normal((int(sizes.max()),) + shape,
                                    dtype=np.float32)
@@ -353,14 +526,14 @@ def main() -> None:
                             {str(b): v for b, v in batches.items()},
                             "wall_ms": ms, "ms_per_batch": ms / n_b,
                             "images_per_s": sizes.sum() / ms * 1e3})
-            print(f"  {shape}: {WINDOW_REQUESTS} requests, {sizes.sum()} "
-                  f"images in {n_b} batches {batches}: {ms:.4f} ms, "
-                  f"{ms / n_b:.6f} ms per batch, "
+            print(f"  {kind} {shape}: {WINDOW_REQUESTS} requests, "
+                  f"{sizes.sum()} images in {n_b} batches {batches}: "
+                  f"{ms:.4f} ms, {ms / n_b:.6f} ms per batch, "
                   f"{sizes.sum() / ms * 1e3:.1f} images/s")
-        report["serve"][str(shape)]["windows"] = windows
+        report["serve"][f"{kind} {shape}"]["windows"] = windows
 
     # -- 5. timing -------------------------------------------------------------
-    phase("timing (fp32, CUDA graph replays between CUDA events)")
+    phase("timing (CUDA graph replays between CUDA events)")
     assert not torch.backends.cuda.matmul.allow_tf32
 
     def time_ms(fn):
@@ -410,49 +583,72 @@ def main() -> None:
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
-    def library_call(kname, args, kw):
-        if kname == "cuconv_fused":
-            x, w = args
-            xn = x.permute(0, 3, 1, 2)
-            wn = w.permute(3, 2, 0, 1).contiguous()
-            s, pd, b = kw["stride"], kw["padding"], kw["bias"]
+    def conv_call(x, w, stride, padding, bias):
+        xn = x.permute(0, 3, 1, 2)
+        wn = w.permute(3, 2, 0, 1).contiguous()
 
-            def conv():
-                with torch.backends.cudnn.flags(enabled=True,
-                                                allow_tf32=False):
-                    return torch.nn.functional.conv2d(xn, wn, b, s, pd)
-            return conv
+        def conv():
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return torch.nn.functional.conv2d(xn, wn, bias, stride,
+                                                  padding)
+        return conv
+
+    def library_call(c):
+        """One PyTorch call computing the kernel's function (without a
+        fused pool or add), or None where there is none."""
+        kname, args, kw = c["kernel"], c["args"], c["kw"]
+        if kname in ("cuconv_fused", "winograd_fused", "direct_conv"):
+            return conv_call(*args, kw.get("stride", (1, 1)), kw["padding"],
+                             kw.get("bias"))
         if kname in ("conv1x1_gemm", "stage1_tap_gemm"):
             return lambda: torch.matmul(*args)
+        if kname == "int8_gemm":
+            (P, K), M = args[0].shape, args[1].shape[1]
+            if P > 16 and K % 8 == 0 and M % 8 == 0:
+                return lambda: torch._int_mm(*args)
+            return None
         return lambda: torch.sum(args[0], dim=0)
 
-    timed = [c for c in cases(torch.float32)
-             if not c[1].startswith("resnet32")]
+    new_kernels = ("winograd_fused", "direct_conv", "int8_gemm")
+    timed = [c for c in cases(torch.float32) + int8_cases()
+             if c["kernel"] in new_kernels
+             or not c["label"].startswith("resnet32")]
     totals = {}
-    for kname, label, kfn, pfn, args, kw, pkw, flops in timed:
+    for c in timed:
+        kname, label, kfn, args, kw = (c["kernel"], c["label"], c["kfn"],
+                                       c["args"], c["kw"])
         out = kfn(*args, **kw)
         moved = nbytes(*args, out, kw.get("bias"), kw.get("addend"))
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        t_ops = c["ops"] / c["peak"] * 1e3
         eager, host = eager_ms(lambda: kfn(*args, **kw))
+        lib = library_call(c)
         row = {"kernel": kname, "shape": label,
+               "config": {k: v for k, v in kw.items()
+                          if k in ("m", "tt", "tm", "tc", "tp", "rows")},
                "ms": time_ms(lambda: kfn(*args, **kw)),
                "eager_ms": eager, "host_ms_per_call": host,
-               "plain_ms": time_ms(lambda: pfn(*args, **pkw)),
-               "library_ms": time_ms(library_call(kname, args, kw)),
-               "bytes": moved, "flops": flops,
+               "plain_ms": time_ms(lambda: c["pfn"](*args, **c["pkw"])),
+               "library_ms": time_ms(lib) if lib is not None else None,
+               "bytes": moved, "ops": c["ops"],
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         report["shapes"].append(row)
+        lib_s = (f"{row['library_ms']:.6f}" if lib is not None
+                 else "none")
         print(f"  {kname:16s} {label:28s} {row['ms']:.6f} ms  eager "
               f"{eager:.6f} (host {host:.6f})  plain {row['plain_ms']:.6f}"
-              f"  library {row['library_ms']:.6f}  bound "
-              f"{row['bound_ms']:.6f} ({row['bound_by']})")
+              f"  library {lib_s}  bound {row['bound_ms']:.6f} "
+              f"({row['bound_by']})  {row['config']}")
         tot = totals.setdefault(kname, {"ms": 0.0, "plain_ms": 0.0,
-                                        "library_ms": 0.0, "bytes": 0,
-                                        "flops": 0, "n": 0})
-        for k in ("ms", "plain_ms", "library_ms", "bytes", "flops"):
+                                        "library_ms": 0.0, "library_n": 0,
+                                        "bytes": 0, "ops": 0, "n": 0,
+                                        "peak": c["peak"]})
+        for k in ("ms", "plain_ms", "bytes", "ops"):
             tot[k] += row[k]
+        if lib is not None:
+            tot["library_ms"] += row["library_ms"]
+            tot["library_n"] += 1
         tot["n"] += 1
 
     sources = {"cuconv_fused": ("src/repro_torch/csrc/cuconv_fused.cu",
@@ -462,12 +658,19 @@ def main() -> None:
                "stage1_tap_gemm": ("src/repro_torch/csrc/cuconv_stage1.cu",
                                    "src/repro/kernels/cuconv_stage1.py:42"),
                "stage2_tap_sum": ("src/repro_torch/csrc/cuconv_stage2.cu",
-                                  "src/repro/kernels/cuconv_stage2.py:28")}
+                                  "src/repro/kernels/cuconv_stage2.py:28"),
+               "winograd_fused": ("src/repro_torch/csrc/winograd_fused.cu",
+                                  "src/repro/kernels/winograd_pallas.py:148"),
+               "direct_conv": ("src/repro_torch/csrc/direct_conv.cu",
+                               "src/repro/kernels/direct_conv.py:84"),
+               "int8_gemm": ("src/repro_torch/csrc/int8_gemm.cu",
+                             "src/repro/kernels/int8_gemm.py:46")}
     line = []
     for kname, (src, replaces) in sources.items():
         tot = totals[kname]
         t_bytes = tot["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = tot["flops"] / FP32_FLOP_PER_S * 1e3
+        t_ops = tot["ops"] / tot["peak"] * 1e3
+        work = "int8" if kname == "int8_gemm" else "fp32"
         line.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[kname],
                      "max_abs_err": max_err[kname], "ms": tot["ms"],
@@ -475,8 +678,11 @@ def main() -> None:
                      max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations",
-                     "library_ms": tot["library_ms"],
-                     "work": f"fp32, sum over {tot['n']} main-path shapes"})
+                     "library_ms": (tot["library_ms"] if tot["library_n"]
+                                    else None),
+                     "work": f"{work}, sum over {tot['n']} main-path shapes"
+                             + (f" (library call at {tot['library_n']})"
+                                if tot["library_n"] != tot["n"] else "")})
     report["kernels"] = line
 
     # -- 6. launch-config probe: the fused kernel under every feasible
@@ -503,6 +709,8 @@ def main() -> None:
             print(f"  {label:20s} tm={tm:<4d} rows={rows:<3d} "
                   f"blocks={blocks:<5d} {ms:.6f} ms"
                   f"{'  <- default' if default else ''}")
+    phase(None)
+    report["phase_seconds"] = _PHASE["times"]
 
     out_dir = ROOT / "chiprun_out"
     try:

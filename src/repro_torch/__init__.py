@@ -3,9 +3,10 @@
 The PyTorch port of the ``repro`` package.  Public functions keep the
 reference's layouts (NHWC activations, HWIO filters, name-keyed params)
 so the two packages compute the same thing on the same inputs.  The
-four conv kernels are CUDA C++ for ``sm_90a`` (``repro_torch/csrc``),
-built at first use and bound with ``ctypes``; on a CPU tensor each
-kernel wrapper runs its plain PyTorch version instead.
+seven kernels are CUDA C++ for ``sm_90a`` (``repro_torch/csrc``), built
+at first use and bound with ``ctypes``; on a CPU tensor each kernel wrapper runs its
+plain PyTorch version instead.  Int8 inference lives in
+``repro_torch.quant``.
 """
 __version__ = "0.1.0"
 from repro_torch.core.cuconv import conv2d  # noqa: F401

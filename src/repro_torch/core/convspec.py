@@ -320,6 +320,11 @@ class ConvPlan:
     #: untunable executors) and its provenance
     config: Optional[object] = None
     config_source: str = "default"    # default | measured | forced
+    #: quantization payload (quant.policy.QuantInfo) for int8 specs: the
+    #: calibrated per-tensor activation scale + its provenance.  None on
+    #: fp plans and on int8 plans resolved outside the quantize pass (the
+    #: executor then takes a dynamic scale)
+    quant: Optional[object] = None
 
     @property
     def executor(self):
@@ -331,8 +336,9 @@ class ConvPlan:
         ex = self.executor
         cfg = (f" cfg[{self.config_source}]={self.config.key()}"
                if self.config else "")
+        q = f" quant[{self.quant.key()}]" if self.quant else ""
         return (f"{self.spec.key()} -> {self.algorithm} "
-                f"[{self.source}]{cfg} dtype={self.spec.dtype} "
+                f"[{self.source}]{cfg}{q} dtype={self.spec.dtype} "
                 f"accum={ex.accum} {self.reason}")
 
     def __call__(self, x, w, bias=None, addend=None):
@@ -345,9 +351,14 @@ class ConvPlan:
         if spec.fused_add == "none" and addend is not None:
             raise ValueError(f"plan for spec {spec.key()} does not take an "
                              f"addend (fused_add='none')")
+        kwargs = {}
+        if self.quant is not None:
+            # only the int8 executor receives the payload: the quantize
+            # pass attaches it only to plans of int8 specs
+            kwargs["quant"] = self.quant
         return self.executor.execute(
             spec, x, w, bias=bias if spec.has_bias else None,
-            addend=addend, config=self.config)
+            addend=addend, config=self.config, **kwargs)
 
 
 def resolve_config(spec: ConvSpec, algorithm: str,

@@ -17,7 +17,9 @@ back to the input dtype.
   im2col           explicit patch matrix + one GEMM
   cuconv_two_stage faithful paper algorithm in plain PyTorch
   cuconv           fused tap accumulation in plain PyTorch
-  *_pallas         the CUDA kernels (``kernels/``) under the JAX
+  winograd         F(2x2,3x3) Winograd in plain PyTorch (3x3 stride 1;
+                   ``F.conv2d`` elsewhere)
+  *_pallas, direct the CUDA kernels (``kernels/``) under the JAX
                    package's registry names
 """
 from __future__ import annotations
@@ -156,6 +158,36 @@ def conv_cuconv_two_stage_pallas(x, w, stride=1, padding: Pad = "same"):
     from repro_torch.kernels import ops
     kh, kw = w.shape[0], w.shape[1]
     return ops.cuconv_two_stage(x, w, _norm_pad(padding, kh, kw))
+
+
+def conv_winograd_pallas(x, w, stride=1, padding: Pad = "same"):
+    """The Winograd F(m,3) CUDA kernel (3x3 stride 1 only; the variant
+    and tiles come from the plan's launch config, default F(2x2,3x3))."""
+    if (w.shape[0] != 3 or w.shape[1] != 3
+            or _norm_stride(stride) != (1, 1)):
+        raise ValueError("winograd_pallas needs 3x3 stride-1; "
+                         "plan() routes other specs elsewhere")
+    from repro_torch.kernels import ops
+    return ops.winograd_fused(x, w, _norm_pad(padding, 3, 3))
+
+
+def conv_direct(x, w, stride=1, padding: Pad = "same"):
+    """The im2col-free direct-conv CUDA kernel (Li et al. 1610.03618):
+    no patch matrix, any stride."""
+    from repro_torch.kernels import ops
+    kh, kw = w.shape[0], w.shape[1]
+    return ops.direct_conv(x, w, _norm_pad(padding, kh, kw),
+                           _norm_stride(stride))
+
+
+def conv_winograd_or_fallback(x, w, stride=1, padding: Pad = "same"):
+    """Winograd F(2x2,3x3) for 3x3/stride-1, library conv otherwise —
+    as cuDNN exposes Winograd only where it is defined."""
+    if (w.shape[0] == 3 and w.shape[1] == 3
+            and _norm_stride(stride) == (1, 1)):
+        from repro_torch.core.winograd import conv_winograd
+        return conv_winograd(x, w, 1, padding)
+    return conv_lax(x, w, stride, padding)
 
 
 def conv2d(x, w, stride=1, padding: Pad = "same", algorithm="auto",

@@ -6,7 +6,8 @@ Every algorithm is a registered ``Executor`` declaring:
                    ``conv2d(algorithm=...)`` and the persisted
                    autotune/graphplans entries resolve through.  The
                    names are the JAX package's: ``cuconv_pallas``,
-                   ``conv1x1_pallas`` and ``cuconv_two_stage_pallas``
+                   ``conv1x1_pallas``, ``cuconv_two_stage_pallas``,
+                   ``winograd_pallas``, ``direct`` and ``cuconv_int8``
                    denote the CUDA kernels here.
   dtypes / accum   supported input dtypes and accumulation behaviour
   supports(spec)   exact capability over stride / groups / kernel size /
@@ -30,6 +31,7 @@ Every algorithm is a registered ``Executor`` declaring:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections.abc import Mapping as _MappingABC
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
@@ -137,6 +139,9 @@ class Executor:
     fuses_epilogue: bool = False
     #: names of the launch-config dims this executor can tune
     tunable: Tuple[str, ...] = ()
+    #: the hand-written CUDA kernels one execution launches (empty for
+    #: library calls and plain PyTorch); names of ``_build.LAUNCHES``
+    kernels: Tuple[str, ...] = ()
 
     # -- capability ------------------------------------------------------
     def supports(self, spec) -> Tuple[bool, str]:
@@ -245,13 +250,16 @@ class Executor:
         return "lax", "library conv covers all geometries"
 
     # -- execution -------------------------------------------------------
-    def execute(self, spec, x, w, bias=None, addend=None, config=None):
+    def execute(self, spec, x, w, bias=None, addend=None, config=None,
+                quant=None):
         """Run ``spec`` on ``(x, w, bias[, addend])``, epilogue included.
 
         Operands are cast to the spec dtype first (master weights stay
         fp32).  Non-fusing executors apply the bias/ReLU epilogue and any
         cross-layer fusion after the bare conv; ``fuses_epilogue``
-        executors absorb everything in-kernel.
+        executors absorb everything in-kernel.  ``quant`` is the
+        quantization payload ConvPlan forwards on int8 plans — ignored
+        here; the int8 executor overrides ``execute`` and consumes it.
         """
         dtype = torch_dtype(spec.dtype)
         x = x if x.dtype == dtype else x.to(dtype)
@@ -429,6 +437,38 @@ class Im2colExecutor(Executor):
         return 2.0 * n * oh * ow * kh * kw * cpg * _itemsize(spec)
 
 
+class WinogradExecutor(Executor):
+    """F(2x2, 3x3) minimal filtering in plain PyTorch — the paper's
+    strongest competitor in the large-3x3 region."""
+    name = "winograd"
+
+    def _supports(self, spec):
+        if spec.filter_shape[:2] != (3, 3) or not spec.unit_stride:
+            return False, "Winograd F(2x2,3x3) needs 3x3 stride-1"
+        return True, "3x3 stride-1: Winograd region"
+
+    def heuristic_claim(self, spec, backend):
+        if not _is_small(spec):
+            return 70, "large 3x3: Winograd region in the paper"
+        return None
+
+    def flop_cost(self, spec):
+        # 2.25x fewer multiplies than direct
+        return super().flop_cost(spec) / 2.25
+
+    def extra_hbm_bytes(self, spec):
+        n, oh, ow, m = spec.out_shape
+        c = spec.in_shape[3]
+        # 16 positions per 2x2 output block: tiles transit at the spec
+        # dtype, the Winograd-domain tensors in fp32
+        tiles = n * ((oh + 1) // 2) * ((ow + 1) // 2) * 16
+        return tiles * (c + m) * (_itemsize(spec) + 4.0)
+
+    def _execute(self, spec, x, w, bias, config=None):
+        from repro_torch.core.winograd import conv_winograd
+        return conv_winograd(x, w, 1, spec.padding)
+
+
 class TwoStageExecutor(Executor):
     """Faithful paper pipeline in plain PyTorch: stage-1 temporaries
     materialized (KH*KW, N, OH, OW, M), stage-2 sum."""
@@ -497,6 +537,7 @@ class Conv1x1PallasExecutor(Executor):
     the paper's best-case region on its natural kernel."""
     name = "conv1x1_pallas"
     tunable = ("tp", "tm", "tc")
+    kernels = ("conv1x1_gemm",)
 
     def _supports(self, spec):
         if (not spec.is_1x1 or not spec.unit_stride
@@ -536,6 +577,7 @@ class TwoStagePallasExecutor(Executor):
     the fused kernel's declared fallback."""
     name = "cuconv_two_stage_pallas"
     tunable = ("tp", "tm", "tc")
+    kernels = ("stage1_tap_gemm", "stage2_tap_sum")
 
     def _supports(self, spec):
         if not spec.unit_stride:
@@ -586,6 +628,7 @@ class FusedPallasExecutor(Executor):
     name = "cuconv_pallas"
     fuses_epilogue = True
     tunable = ("tm", "rows")
+    kernels = ("cuconv_fused",)
 
     @staticmethod
     def _pool3(spec):
@@ -711,21 +754,338 @@ class FusedPallasExecutor(Executor):
             tm=cfg.get("tm", 128), rows=cfg.get("rows", 1))
 
 
+# Winograd launch candidates: (tt, tm, tc) tile triples tried under both
+# F(m,3) variants — the JAX package's list, so plans read alike.
+_WINO_TILES = (
+    (128, 128, 128),
+    (256, 128, 128),
+    (128, 256, 128),
+    (128, 128, 256),
+    (128, 128, 64),
+    (64, 128, 64),
+    (64, 256, 128),
+)
+
+
+class WinogradPallasExecutor(Executor):
+    """The Winograd F(m,3) CUDA kernel (``kernels/winograd_fused.py``;
+    the registry name is the JAX package's): B^T d B, the per-position
+    channel products with fp32 accumulators in registers, A^T m A and the
+    bias / residual / ReLU epilogue in one kernel.
+
+    Tuning space: ``m`` (F(2x2,3x3), 16 positions and 2.25x fewer
+    multiplies, or F(4x4,3x3), 36 positions and 4x, at looser numerics),
+    ``tt`` (tiles per block), ``tm`` (output channels per block) and
+    ``tc``, the reference's contraction tile, which the kernel does not
+    use (it runs all of C inside a block) but the config cost still
+    counts, so plans read like the reference's.  The kernel stages at
+    most 54 KB of shared memory, so no candidate is pruned by the
+    budget: where the reference's VMEM budget pruned the cheapest
+    candidate, the port's default config differs from the reference's.
+    """
+    name = "winograd_pallas"
+    fuses_epilogue = True
+    tunable = ("m", "tt", "tm", "tc")
+    kernels = ("winograd_fused",)
+
+    def fusions(self, spec):
+        # the residual add folds into the epilogue; pool does not
+        return ("add",)
+
+    def _supports(self, spec):
+        if spec.filter_shape[:2] != (3, 3) or not spec.unit_stride:
+            return False, "Winograd F(m,3) needs 3x3 stride-1"
+        if not any(self.config_supports(spec, c)[0]
+                   for c in self.configs(spec)):
+            return False, ("no Winograd candidate fits the shared-memory "
+                           "budget for this spec")
+        return True, "3x3 stride-1: Winograd CUDA kernel"
+
+    def _tile_counts(self, spec, fm):
+        n, oh, ow, m = spec.out_shape
+        return n * (-(-oh // fm)) * (-(-ow // fm)), m, spec.filter_shape[2]
+
+    def configs(self, spec):
+        cands = []
+        for fm in (2, 4):
+            p, m, c = self._tile_counts(spec, fm)
+            for tt, tm, tc in _WINO_TILES:
+                cands.append({"m": fm, "tt": min(tt, p),
+                              "tm": min(tm, m), "tc": min(tc, c)})
+        return _dedup_configs(cands)
+
+    def _config_supports(self, spec, config):
+        fm = config.get("m", 2)
+        if fm not in (2, 4):
+            return False, (f"F(m,3) variant must be m=2 or m=4; "
+                           f"got m={fm}")
+        return True, "config geometry ok"
+
+    def vmem_bytes(self, spec, config=None):
+        from repro_torch.kernels.winograd_fused import smem_bytes
+        cfg = LaunchConfig.of(config)
+        fm = cfg.get("m", 2)
+        if fm not in (2, 4):
+            return None              # refused by _config_supports first
+        return smem_bytes(fm, min(cfg.get("tm", 128), spec.filter_shape[3]))
+
+    def config_cost(self, spec, config):
+        fm = config.get("m", 2)
+        p, m, c = self._tile_counts(spec, fm)
+        tt = min(config.get("tt", 128), p)
+        tm = min(config.get("tm", 128), m)
+        tc = min(config.get("tc", 128), c)
+        steps = (-(-p // tt)) * (-(-m // tm)) * (-(-c // tc))
+        # (m+2)^2 per-position products per step (the reference's model)
+        return steps * (fm + 2) ** 2
+
+    def flop_cost(self, spec):
+        # 2.25x fewer multiplies than direct under F(2,3)
+        return super().flop_cost(spec) / 2.25
+
+    def extra_hbm_bytes(self, spec):
+        n, oh, ow, m = spec.out_shape
+        c = spec.filter_shape[2]
+        itemsize = _itemsize(spec)
+        p = n * ((oh + 1) // 2) * ((ow + 1) // 2)
+        # the reference's model (gathered tiles, output tiles, fp32 U), so
+        # negotiation ranks alike; the CUDA kernel gathers in the kernel
+        return (2.0 * p * 16 * c * itemsize + 2.0 * 16 * c * m * 4
+                + 2.0 * p * 4 * m * itemsize)
+
+    def heuristic_claim(self, spec, backend):
+        if backend != "cuda" or spec.has_fusion:
+            return None
+        if not _is_small(spec):
+            return 82, "large 3x3: Winograd CUDA kernel (fig. 6 region)"
+        return None
+
+    def _execute(self, spec, x, w, bias, config=None, addend=None):
+        from repro_torch.kernels import ops
+        cfg = LaunchConfig.of(config)
+        if spec.fused_add != "none":
+            relu = spec.fused_add == "add_relu"    # post-add activation
+        else:
+            relu = spec.wants_relu
+        return ops.winograd_fused(
+            x, w, spec.padding, bias=bias if spec.has_bias else None,
+            activation="relu" if relu else None, addend=addend,
+            m=cfg.get("m", 2), tt=cfg.get("tt", 128), tm=cfg.get("tm", 128),
+            tc=cfg.get("tc", 128))
+
+
+# Direct-conv launch candidates: (tm, tc) output/input channel tiles —
+# the JAX package's list.
+_DIRECT_TILES = (
+    (128, 256),
+    (128, 128),
+    (256, 128),
+    (128, 512),
+    (256, 256),
+    (64, 64),
+    (512, 128),
+)
+
+
+class DirectConvExecutor(Executor):
+    """The im2col-free direct-conv CUDA kernel (Li et al. 1610.03618;
+    ``kernels/direct_conv.py``): no patch matrix and no per-tap
+    temporaries — each block stages its output tile's input halo once
+    per channel chunk and runs every tap out of shared memory.
+
+    Tuning space: ``tm`` (output channels per block) and ``tc``, the
+    reference's channel slice, which the kernel does not use (it runs
+    all of C inside a block) but the config cost still counts.  Shared
+    memory grows with the filter and the stride, not with C, so the
+    large-C region stays feasible.
+    """
+    name = "direct"
+    tunable = ("tm", "tc")
+    kernels = ("direct_conv",)
+
+    def _supports(self, spec):
+        if not any(self.config_supports(spec, c)[0]
+                   for c in self.configs(spec)):
+            return False, ("no candidate's filter slice and input halo fit "
+                           "the shared-memory budget")
+        return True, "im2col-free direct conv (spatial and channel tiles)"
+
+    def configs(self, spec):
+        m, c = spec.filter_shape[3], spec.filter_shape[2]
+        return _dedup_configs({"tm": min(tm, m), "tc": min(tc, c)}
+                              for tm, tc in _DIRECT_TILES)
+
+    def vmem_bytes(self, spec, config=None):
+        from repro_torch.kernels.direct_conv import smem_bytes
+        cfg = LaunchConfig.of(config)
+        return smem_bytes(spec.filter_shape, tm=cfg.get("tm", 128),
+                          stride=spec.stride)
+
+    def config_cost(self, spec, config):
+        n = spec.in_shape[0]
+        kh, kw, c, m = spec.filter_shape
+        tm = min(config.get("tm", 128), m)
+        tc = min(config.get("tc", 256), c)
+        return n * (-(-m // tm)) * (-(-c // tc)) * kh * kw
+
+    def extra_hbm_bytes(self, spec):
+        n, h, w_, c = spec.in_shape
+        # the input is re-read once per output-channel tile beyond the
+        # first (default tm=128)
+        retiles = -(-spec.filter_shape[3] // 128) - 1
+        return float(retiles * n * h * w_ * c * _itemsize(spec))
+
+    def heuristic_claim(self, spec, backend):
+        if backend != "cuda" or spec.has_fusion or spec.is_1x1:
+            return None
+        if spec.filter_shape[2] >= 256:
+            # a modest claim: wins the large-C region only where no
+            # higher-priority kernel claims
+            return 45, "large-C: im2col-free direct path (Li et al.)"
+        return None
+
+    def _execute(self, spec, x, w, bias, config=None):
+        from repro_torch.kernels import ops
+        cfg = LaunchConfig.of(config)
+        return ops.direct_conv(x, w, spec.padding, stride=spec.stride,
+                               tm=cfg.get("tm", 128), tc=cfg.get("tc", 256))
+
+
+@functools.lru_cache(maxsize=256)
+def _scale_on(x_scale: float, device: torch.device):
+    """A calibrated scale as an fp32 tensor on ``device``, copied there
+    once.  A tensor, not a Python float: a float divisor takes PyTorch's
+    multiply-by-reciprocal path on the card, which rounds differently
+    from the reference's division."""
+    return torch.tensor(x_scale, dtype=torch.float32, device=device)
+
+
+class Int8PallasExecutor(Executor):
+    """Int8 inference executor: symmetric quantization in, int8 x int8 ->
+    int32 accumulation in the CUDA kernel (``kernels/int8_gemm.py``),
+    fp32 requantization in the epilogue.
+
+    The only executor declaring ``dtypes=("int8",)``: the quantize pass
+    flips eligible conv specs to int8 and negotiation lands here.
+    Weights get per-output-channel symmetric scales computed from the
+    weight values; activations use the per-tensor calibrated scale riding
+    in the plan's ``quant`` payload, else a dynamic ``max|x|/127``.
+    Epilogue order: dequantize the int32 accumulator through
+    ``x_scale * w_scale[m]`` (the scale product first), then bias +
+    residual + activation + pool in fp32.
+
+    Tuning space: the shared tiled-GEMM tiles over the im2col dims
+    (N*OH*OW, M, KH*KW*C).
+    """
+    name = "cuconv_int8"
+    dtypes = ("int8",)
+    accum = "int32"
+    tunable = ("tp", "tm", "tc")
+    kernels = ("int8_gemm",)
+
+    def _supports(self, spec):
+        return True, "int8 im2col GEMM, int32 accumulation"
+
+    def heuristic_claim(self, spec, backend):
+        if backend == "cuda":
+            return 95, "int8: quantized GEMM kernel, int32 accumulation"
+        return None
+
+    def extra_hbm_bytes(self, spec):
+        # the materialized int8 patch matrix (1 byte/elem)
+        n, oh, ow, _ = spec.out_shape
+        kh, kw, c, _ = spec.filter_shape
+        return float(n * oh * ow * kh * kw * c)
+
+    def _gemm_dims(self, spec):
+        n, oh, ow, m = spec.out_shape
+        kh, kw, c, _ = spec.filter_shape
+        return n * oh * ow, m, kh * kw * c
+
+    def configs(self, spec):
+        return _gemm_tile_configs(*self._gemm_dims(spec))
+
+    def vmem_bytes(self, spec, config=None):
+        from repro_torch.kernels.int8_gemm import smem_bytes
+        k = self._gemm_dims(spec)[2]
+        return smem_bytes(min(LaunchConfig.of(config).get("tc", 512), k))
+
+    def config_cost(self, spec, config):
+        return _gemm_tile_steps(*self._gemm_dims(spec), config)
+
+    def execute(self, spec, x, w, bias=None, addend=None, config=None,
+                quant=None):
+        # full override: the base cast-to-spec-dtype would truncate float
+        # operands to int8 — quantization IS the cast here
+        from repro_torch.quant import symmetric
+        if spec.fused_add != "none" and addend is None:
+            raise ValueError(f"fused-add spec {spec.key()} needs an addend")
+        x, w = x.float(), w.float()
+        if quant is not None and getattr(quant, "x_scale", 0) > 0:
+            x_scale = _scale_on(quant.x_scale, x.device)
+        else:
+            x_scale = symmetric.scale_for(symmetric.abs_max(x))
+        w_scales = symmetric.channel_scales(w)          # (M,) per-channel
+        xq = symmetric.quantize_to_int8(x, x_scale)
+        wq = symmetric.quantize_to_int8(w, w_scales)
+        acc = self._execute(spec, xq, wq, None,
+                            config=LaunchConfig.of(config))
+        # fp32 requantization epilogue: the int32 accumulator times the
+        # outer product of scales, THEN bias / residual / activation / pool
+        y = acc.float() * (x_scale * w_scales)
+        if spec.has_bias:
+            y = y + bias.float()
+        if spec.fused_add != "none":
+            y = y + addend.float()
+            if spec.fused_add == "add_relu":
+                y = torch.relu(y)
+        elif spec.wants_relu:
+            y = torch.relu(y)
+        if spec.fused_pool:
+            from repro_torch.kernels import ops
+            kind, pkh, pkw, psh, psw, pph, ppw = spec.fused_pool
+            y = ops.pool2d(y, kind=kind, window=(pkh, pkw),
+                           stride=(psh, psw), padding=(pph, ppw))
+        return y
+
+    def _execute(self, spec, x, w, bias, config=None):
+        # bare int8 conv: the int8 patch matrix (zero padding is exact
+        # under symmetric quantization) -> the int8 GEMM kernel -> int32
+        from repro_torch.core.cuconv import _pad_input, _tap_views
+        from repro_torch.kernels import ops
+        cfg = LaunchConfig.of(config)
+        kh, kw, c, m = spec.filter_shape
+        n, oh, ow, _ = spec.out_shape
+        xp = _pad_input(x, *spec.padding)
+        patches = torch.stack(
+            _tap_views(xp, kh, kw, oh, ow, spec.stride),
+            dim=3).reshape(n * oh * ow, kh * kw * c)
+        acc = ops.int8_gemm(patches, w.reshape(kh * kw * c, m),
+                            tp=cfg.get("tp", 256), tm=cfg.get("tm", 128),
+                            tc=cfg.get("tc", 512))
+        return acc.reshape(n, oh, ow, m)
+
+
 def _register_builtins() -> None:
-    # registration order is the JAX package's (winograd, winograd_pallas,
-    # direct and cuconv_int8 are not ported yet); iteration order decides
+    # registration order is the JAX package's; iteration order decides
     # ties in negotiation
     from repro_torch.core import cuconv
     for ex, fn in (
             (LaxExecutor(), cuconv.conv_lax),
             (Im2colExecutor(), cuconv.conv_im2col),
+            (WinogradExecutor(), cuconv.conv_winograd_or_fallback),
             (TwoStageExecutor(), cuconv.conv_cuconv_two_stage),
             (Conv1x1PallasExecutor(), cuconv.conv_conv1x1_pallas),
             (TwoStagePallasExecutor(), cuconv.conv_cuconv_two_stage_pallas),
             (CuconvExecutor(), cuconv.conv_cuconv),
-            (FusedPallasExecutor(), cuconv.conv_cuconv_pallas)):
+            (FusedPallasExecutor(), cuconv.conv_cuconv_pallas),
+            (WinogradPallasExecutor(), cuconv.conv_winograd_pallas),
+            (DirectConvExecutor(), cuconv.conv_direct)):
         ex.fn = fn
         register(ex)
+    # no bare-fn surface: the quantize/dequantize epilogue only makes
+    # sense through ConvPlan
+    register(Int8PallasExecutor())
 
 
 _register_builtins()

@@ -20,7 +20,9 @@
               program with ZERO per-node plan() resolutions.
   PrecisionPolicy
               graph-wide compute dtype (default + per-node overrides)
-              landing in each conv node's ``ConvSpec.dtype``.
+              landing in each conv node's ``ConvSpec.dtype``; its
+              subclass ``quant.QuantPolicy`` also quantizes conv nodes to
+              int8 (``plan_graph(quant=...)``).
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ import dataclasses
 import hashlib
 import re
 import time
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 
@@ -83,8 +86,11 @@ class PrecisionPolicy:
         return f"{self.default}[{ovr}]"
 
     def quantizer(self):
-        """The quantization policy riding this policy: None (int8 serving
-        is not ported yet)."""
+        """The quantization policy riding this precision policy, or None.
+
+        Plain precision policies never quantize; ``quant.QuantPolicy``
+        (a subclass) returns itself, and ``GraphModel.graph_plan`` hands
+        it to ``plan_graph(quant=...)``."""
         return None
 
 
@@ -599,6 +605,10 @@ class GraphPlan:
     # the pre-fusion IR (None when the pass was disabled): the persisted
     # cache key stays the UNFUSED signature
     base_graph: Optional[Graph] = None
+    # quantization provenance: {conv node: quant.policy.NodeQuant} —
+    # covers every conv node when a QuantPolicy planned this graph; empty
+    # on fp plans
+    quant: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     @property
     def node_plans(self) -> Tuple[ConvPlan, ...]:
@@ -624,10 +634,13 @@ class GraphPlan:
                 if prov:
                     kind, _, consumed = prov.partition(":")
                     fz = f" fused[{kind}]={consumed}"
+                nq = self.quant.get(node.name)
+                qz = f" quant[{nq.label()}]" if nq is not None else ""
                 lines.append(
                     f"  {node.name:>8s}  {h:>3d}x{w:<3d} c{c:<4d} {kh}x{kw}/"
                     f"{s.stride[0]}{grp} m{m:<4d} {s.dtype:>9s} -> "
-                    f"{p.algorithm:24s} [{p.source}]{cfg}{fz} {p.reason}")
+                    f"{p.algorithm:24s} [{p.source}]{cfg}{fz}{qz} "
+                    f"{p.reason}")
             else:
                 out = self.graph.shapes[node.name]
                 lines.append(f"  {node.name:>8s}  {node.descriptor():50s} "
@@ -649,15 +662,19 @@ class GraphPlan:
                              f"but params carry none")
         return p
 
-    def run(self, x, params):
+    def run(self, x, params, observe: Optional[Callable] = None):
         """Execute the DAG on ``x`` with ``{node_name: {"w": ..., "b":
         ...}}`` params, on the device of ``x``.  No plan() resolution
-        happens here."""
+        happens here.  ``observe``, when given, is called as
+        ``observe(name, value)`` with every conv node's INPUT activation
+        (the calibration collector rides this hook)."""
         from repro_torch.kernels import ops
         values = {self.graph.input_name: x}
         for node in self.graph.nodes:
             ins = [values[e] for e in node.inputs]
             if isinstance(node, ConvOp):
+                if observe is not None:
+                    observe(node.name, ins[0])
                 p = self._node_params(params, node, node.spec.has_bias)
                 a = ins[1] if node.spec.fused_add != "none" else None
                 y = self.conv_plans[node.name](
@@ -688,18 +705,40 @@ class GraphPlan:
             values[node.name] = y
         return values[self.graph.output]
 
+    def _attach_quant(self) -> None:
+        """Attach the quantization payload (calibrated activation scale)
+        to the int8 node plans — plan() knows nothing of calibration."""
+        from repro_torch.quant.policy import QuantInfo
+        for name, nq in self.quant.items():
+            if nq.quantized and name in self.conv_plans:
+                self.conv_plans[name] = dataclasses.replace(
+                    self.conv_plans[name],
+                    quant=QuantInfo(nq.x_scale, nq.source))
+
     # -- warmup ------------------------------------------------------------
-    def warmup(self, *, tune: Optional[str] = None, device=None) -> Dict:
+    def warmup(self, *, tune: Optional[str] = None, device=None,
+               calibrate: Optional[object] = None) -> Dict:
         """Run every conv node once on zeros on ``device`` (default: the
         card, which raises where there is none), building its kernel on
-        first use.  ``tune`` (the measured sweep) is not ported yet and
-        raises.  Returns ``{"nodes": [...], "total_ms": float}``."""
+        first use.
+
+        ``calibrate`` takes a ``quant.Calibrator`` (sample batch + params
+        + observer choice): the plan runs over the batch first, on the
+        params' device, recording every conv node's input activation
+        range into the persisted ``calibration.json`` — the scales a
+        later ``QuantPolicy``-planned graph quantizes with.  ``tune``
+        (the measured sweep) is not ported yet and raises.  Returns
+        ``{"nodes": [...], "total_ms": float}``, plus the
+        ``"calibration"`` entries when ``calibrate`` ran."""
         if tune is not None:
             raise NotImplementedError(
                 f"tune={tune!r}: the measured autotune sweep is not ported "
                 f"to repro_torch yet")
         device = resolve_device(device)
         t_start = time.perf_counter()
+        calib_entries = None
+        if calibrate is not None:
+            calib_entries = calibrate.collect(self)
         rows = []
         for node in self.graph.conv_nodes:
             p = self.conv_plans[node.name]
@@ -720,8 +759,11 @@ class GraphPlan:
                          "config": (p.config.as_dict() if p.config else {}),
                          "config_source": p.config_source,
                          "first_call_ms": (time.perf_counter() - t0) * 1e3})
-        return {"nodes": rows,
-                "total_ms": (time.perf_counter() - t_start) * 1e3}
+        out = {"nodes": rows,
+               "total_ms": (time.perf_counter() - t_start) * 1e3}
+        if calib_entries is not None:
+            out["calibration"] = calib_entries
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -729,11 +771,16 @@ class GraphPlan:
 
 def plan_graph(graph: Graph, *, backend: Optional[str] = None,
                force: Optional[str] = None,
-               use_cache: bool = True, fuse: bool = True) -> GraphPlan:
+               use_cache: bool = True, fuse: bool = True,
+               quant: Optional[object] = None) -> GraphPlan:
     """Resolve a whole-network plan once.
 
-    The cross-layer fusion pass (``fuse_graph``) rewrites the IR first —
-    ``fuse=False`` serves the unfused program.  Forced plans bypass the
+    A ``quant`` policy (``quant.QuantPolicy``) runs the int8 quantize
+    pass over the IR first — eligible conv nodes' specs flip to int8 —
+    so everything downstream (fusion, cache keys) sees the quantized
+    graph and is dtype-distinct by construction.  The cross-layer fusion
+    pass (``fuse_graph``) rewrites the IR next — ``fuse=False`` serves
+    the unfused program.  Forced plans bypass the
     persisted cache in both directions.  Otherwise a persisted entry
     keyed by backend + the PRE-fusion graph signature reconstructs the
     program with zero per-node plan() resolutions; entries that are
@@ -741,6 +788,10 @@ def plan_graph(graph: Graph, *, backend: Optional[str] = None,
     capable algorithms are dropped and re-resolved.
     """
     backend = backend or default_backend()
+    qprov: Dict[str, object] = {}
+    if quant is not None:
+        from repro_torch.quant.policy import quantize_graph
+        graph, qprov = quantize_graph(graph, quant, backend)
     fmap: Dict[str, str] = {}
     base = graph if fuse else None
     prog = graph
@@ -749,18 +800,21 @@ def plan_graph(graph: Graph, *, backend: Optional[str] = None,
     if force is not None:
         plans = {n.name: plan(n.spec, force=force, backend=backend)
                  for n in prog.conv_nodes}
-        return GraphPlan(prog, plans, backend, "forced", fused=fmap,
-                         base_graph=base)
-    if use_cache:
-        cached = _plans_from_cache(prog, backend, key_graph=graph)
-        if cached is not None:
-            return GraphPlan(prog, cached, backend, "graph_cache",
-                             fused=fmap, base_graph=base)
-    plans = {n.name: plan(n.spec, backend=backend) for n in prog.conv_nodes}
-    if use_cache:       # use_cache=False means no cache interaction AT ALL
-        _persist(graph, backend, plans, alias=prog)
-    return GraphPlan(prog, plans, backend, "resolved", fused=fmap,
-                     base_graph=base)
+        source = "forced"
+    else:
+        plans = (_plans_from_cache(prog, backend, key_graph=graph)
+                 if use_cache else None)
+        source = "graph_cache"
+        if plans is None:
+            plans = {n.name: plan(n.spec, backend=backend)
+                     for n in prog.conv_nodes}
+            source = "resolved"
+            if use_cache:   # use_cache=False: no cache interaction AT ALL
+                _persist(graph, backend, plans, alias=prog)
+    gp = GraphPlan(prog, plans, backend, source, fused=fmap,
+                   base_graph=base, quant=qprov)
+    gp._attach_quant()
+    return gp
 
 
 def _graph_key(graph: Graph, backend: str) -> str:

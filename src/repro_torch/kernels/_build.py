@@ -48,12 +48,28 @@ LIBRARIES: Dict[str, Dict[str, Sequence]] = {
         # temps, out, out_dtype, T, PM, stream
         "stage2_tap_sum_launch": [_P] * 2 + [_I] * 3 + [_P],
     },
+    "winograd_fused": {
+        # x, U, bias, addend, out, dtype, N, H, W, C, M, ph, pw, OH, OW,
+        # m, tt, tm, relu, smem, stream
+        "winograd_fused_launch": [_P] * 5 + [_I] * 15 + [_P],
+    },
+    "direct_conv": {
+        # x, w, out, dtype, N, H, W, C, KH, KW, M, sh, sw, ph, pw, OH, OW,
+        # tm, smem, stream
+        "direct_conv_launch": [_P] * 3 + [_I] * 16 + [_P],
+    },
+    "int8_gemm": {
+        # x2d, w, out, P, K, M, tp, tm, tc, smem, stream
+        "int8_gemm_launch": [_P] * 3 + [_I] * 7 + [_P],
+    },
 }
 
 #: launches per kernel: each wrapper adds one where it launches its
 #: kernel, and nowhere else (a run shows it went through the kernels)
 LAUNCHES: Dict[str, int] = {"cuconv_fused": 0, "conv1x1_gemm": 0,
-                            "stage1_tap_gemm": 0, "stage2_tap_sum": 0}
+                            "stage1_tap_gemm": 0, "stage2_tap_sum": 0,
+                            "winograd_fused": 0, "direct_conv": 0,
+                            "int8_gemm": 0}
 
 #: what the last build did, per library: seconds and ptxas's report
 BUILD_LOG: Dict[str, Dict] = {}

@@ -12,7 +12,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.convspec import normalize_stride
 from repro_torch.kernels import (conv1x1 as _c1, cuconv_fused as _cf,
-                                 cuconv_stage1 as _s1, cuconv_stage2 as _s2)
+                                 cuconv_stage1 as _s1, cuconv_stage2 as _s2,
+                                 direct_conv as _dcv, int8_gemm as _i8,
+                                 winograd_fused as _wg)
 from repro_torch.kernels._compat import clamp_tiles  # noqa: F401  (re-export)
 
 
@@ -25,6 +27,13 @@ def conv1x1(x, w, tp=256, tm=128, tc=512):
     out = _c1.conv1x1_gemm(x.reshape(N * H * W_, C).contiguous(),
                            w.contiguous(), tp=tp, tm=tm, tc=tc)
     return out.reshape(N, H, W_, -1)
+
+
+def int8_gemm(x2d, w, tp=256, tm=128, tc=512):
+    """x2d: (P, K) int8; w: (K, M) int8.  Returns (P, M) int32 — the raw
+    accumulator; dequantization is the int8 executor's epilogue."""
+    return _i8.int8_gemm(x2d.contiguous(), w.contiguous(), tp=tp, tm=tm,
+                         tc=tc)
 
 
 def cuconv_two_stage(x, w, padding=(0, 0), tp=256, tm=128, tc=512):
@@ -58,6 +67,26 @@ def cuconv_fused(x, w, padding=(0, 0), stride=1, bias=None, activation=None,
         activation=activation,
         addend=None if addend is None else addend.contiguous(),
         pool=tuple(pool) if pool is not None else None, tm=tm, rows=rows)
+
+
+def winograd_fused(x, w, padding=(1, 1), bias=None, activation=None,
+                   addend=None, m=2, tt=128, tm=128, tc=128):
+    """Winograd F(m,3) conv (3x3, stride 1) with the fused bias /
+    residual-add / ReLU epilogue; ``m`` and ``tt/tm/tc`` are its launch
+    config."""
+    return _wg.winograd_fused(
+        x.contiguous(), w.contiguous(), tuple(padding),
+        bias=None if bias is None else bias.contiguous(),
+        activation=activation,
+        addend=None if addend is None else addend.contiguous(),
+        m=m, tt=tt, tm=tm, tc=tc)
+
+
+def direct_conv(x, w, padding=(0, 0), stride=(1, 1), tm=128, tc=256):
+    """Im2col-free direct conv (Li et al. 1610.03618), any stride, no
+    epilogue; ``tm/tc`` are the direct executor's launch config."""
+    return _dcv.direct_conv(x.contiguous(), w.contiguous(), tuple(padding),
+                            normalize_stride(stride), tm=tm, tc=tc)
 
 
 def pool2d(x, kind="max", window=(2, 2), stride=(2, 2), padding=(0, 0)):

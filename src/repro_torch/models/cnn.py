@@ -79,14 +79,25 @@ class GraphModel:
                    force: Optional[str] = None, dtype: str = "float32",
                    precision=None, fuse: bool = True) -> GraphPlan:
         """The whole-network plan for one input geometry, resolved once
-        per (geometry, backend, force, precision, fuse) and memoized."""
+        per (geometry, backend, force, precision, fuse) and memoized.
+
+        A ``quant.QuantPolicy`` rides the same ``precision=`` parameter
+        (it is a PrecisionPolicy): the int8 quantize pass runs inside
+        ``plan_graph``, and the memo key carries the calibration
+        generation, so a recalibration re-quantizes instead of serving a
+        plan built on stale scales."""
         backend = backend or default_backend()
         pol = self._policy(precision, dtype)
+        quant = pol.quantizer()
         key = (tuple(map(int, in_shape)), backend, force, pol.key(), fuse)
+        if quant is not None:
+            from repro_torch.quant import calibrate
+            key = key + (calibrate.generation(),)
         gp = self._plan_cache.get(key)
         if gp is None:
             gp = plan_graph(self.graph(in_shape, precision=pol),
-                            backend=backend, force=force, fuse=fuse)
+                            backend=backend, force=force, fuse=fuse,
+                            quant=quant)
             self._plan_cache[key] = gp
         return gp
 

@@ -60,12 +60,15 @@ def _clear_port_caches(tmp_path, monkeypatch):
     """Each test gets its own empty plan store and zeroed counters."""
     from repro_torch.core import autotune, convspec, graph
     from repro_torch.kernels import _build
+    from repro_torch.quant import calibrate
     monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path / "cache"))
     autotune.clear_cache()
     graph.clear_cache()
+    calibrate.clear_cache()
     convspec.reset_plan_stats()
     autotune.reset_measure_stats()
     _build.reset_launches()
     yield
     autotune.clear_cache()
     graph.clear_cache()
+    calibrate.clear_cache()

@@ -169,14 +169,20 @@ def test_plan_on_resnet_like_nodes_matches_reference(hw, dtype):
 
 
 def test_unported_winner_falls_to_cost_tier_and_says_so():
-    """At batch 4 the JAX package plans b1c1 on winograd_pallas, which is
-    not ported: the port's plan falls to its cost tier, and explain()
-    shows it."""
+    """At batch 4 the JAX package plans b1c1 on winograd_pallas.  The
+    Winograd kernel is ported now, so the port's plan no longer falls to
+    its cost tier: it makes the same heuristic claim, with the same
+    launch config, and explain() says so."""
     spec_r = ref_resnet_like().graph((4, 32, 32, 3)).node("b1c1").spec
     spec_t = resnet_like().graph((4, 32, 32, 3)).node("b1c1").spec
-    assert rcs.plan(spec_r, backend="tpu").algorithm == "winograd_pallas"
+    r = rcs.plan(spec_r, backend="tpu")
     p = tcs.plan(spec_t, backend="cuda")
-    assert p.source == "cost" and "cheapest supported" in p.explain()
+    assert p.algorithm == r.algorithm == "winograd_pallas"
+    assert p.source == r.source == "heuristic"
+    assert p.config.as_dict() == r.config.as_dict() == {
+        "m": 2, "tt": 256, "tm": 16, "tc": 16}
+    assert "cheapest supported" not in p.explain()
+    assert "winograd_pallas [heuristic]" in p.explain()
 
 
 def test_plan_counts_resolutions_and_off_card_backend_claims_no_kernel():

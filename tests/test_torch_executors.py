@@ -22,8 +22,11 @@ from repro_torch.kernels import _build, cuconv_fused
 TOLS = {"float32": dict(rtol=3e-4, atol=3e-4),
         "bfloat16": dict(rtol=3e-2, atol=3e-2)}
 
-PORTED = ("lax", "im2col", "cuconv_two_stage", "conv1x1_pallas",
-          "cuconv_two_stage_pallas", "cuconv", "cuconv_pallas")
+PORTED = ("lax", "im2col", "winograd", "cuconv_two_stage",
+          "conv1x1_pallas", "cuconv_two_stage_pallas", "cuconv",
+          "cuconv_pallas", "winograd_pallas", "direct", "cuconv_int8")
+#: the executors of float specs (cuconv_int8 takes int8 specs only)
+FLOAT_EXECUTORS = PORTED[:-1]
 
 # (in_shape, (kh, kw), m, stride, padding, epilogue, groups, fused_add,
 #  fused_pool): every capability axis, and the fused forms of resnet_like
@@ -58,7 +61,7 @@ def _operands(spec, rng):
 
 
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", FLOAT_EXECUTORS)
 def test_forced_executor_matches_reference(name, dtype):
     rng = np.random.default_rng(0)
     compared = 0
@@ -103,13 +106,24 @@ def test_declarations_match_reference(name):
 def test_registry_holds_the_ported_executors_in_reference_order():
     from repro.core import executors as rex
     assert executors.names() == PORTED
-    assert [n for n in rex.names() if n in PORTED] == list(PORTED)
+    assert rex.names() == PORTED           # every reference executor
+    # the hand-written kernels each executor launches, by counter name
+    launching = {n: executors.get(n).kernels for n in PORTED
+                 if executors.get(n).kernels}
+    assert launching == {
+        "conv1x1_pallas": ("conv1x1_gemm",),
+        "cuconv_two_stage_pallas": ("stage1_tap_gemm", "stage2_tap_sum"),
+        "cuconv_pallas": ("cuconv_fused",),
+        "winograd_pallas": ("winograd_fused",),
+        "direct": ("direct_conv",), "cuconv_int8": ("int8_gemm",)}
+    assert sorted(k for ks in launching.values() for k in ks) == sorted(
+        _build.LAUNCHES)
     with pytest.raises(KeyError, match="unknown algorithm"):
-        executors.get("winograd_pallas")
+        executors.get("flash_attention")
     with pytest.raises(ValueError, match="already registered"):
         executors.register(executors.LaxExecutor())
     with pytest.raises(KeyError):
-        executors.unregister("direct")
+        executors.unregister("conv1d_tap")
 
 
 def test_third_party_executor_joins_negotiation():
@@ -185,7 +199,7 @@ def test_persisted_winner_and_configs_replay_and_stale_ones_heal():
     p = tcs.plan(spec, backend="cuda")
     assert p.config_source == "default" and p.source == "measured"
     # a persisted winner naming an unregistered executor is ignored
-    autotune.record_best(spec, "cuda", "winograd_pallas")
+    autotune.record_best(spec, "cuda", "flash_attention")
     assert tcs.plan(spec, backend="cuda").source == "heuristic"
     # entries are epilogue-insensitive and backend-distinct
     assert autotune.cached_best(spec, "cpu") is None

@@ -53,7 +53,7 @@ def test_graph_cache_replay_resolves_nothing():
     # a persisted entry naming an unregistered executor is re-resolved
     key = tgraph._graph_key(gp.base_graph, "cuda")
     entry = tgraph._STORE.get(key)
-    entry["algorithms"]["b1c1"] = "winograd_pallas"
+    entry["algorithms"]["b1c1"] = "flash_attention"
     tgraph._STORE.put(key, entry)
     gp3 = resnet_like().graph_plan(shape, backend="cuda")
     assert gp3.source == "resolved"
@@ -141,3 +141,99 @@ def test_precision_policy_matches_reference():
     with pytest.raises(ValueError, match="stem0"):
         resnet_like().graph((1, 8, 8, 3), precision=tgraph.PrecisionPolicy(
             "bf16", overrides={"stem0": "fp32"}))
+
+
+# ---------------------------------------------------------------------------
+# the planner at the shapes of this slice's paths
+
+# The port's Winograd kernel stages at most 54 KB of shared memory, so no
+# launch config is pruned by its budget; the reference's 12 MB VMEM
+# budget prunes F(4,3) at (tt, tm, tc) = (256, 128, 128) for resnet50's
+# 28x28x128 layer, so there the two default configs differ (chip_smoke
+# forces the reference's).  No config the reference picks is pruned by
+# the port.
+CONFIG_DIFFS = {(28, 3, 128, 128): ({"m": 2, "tt": 256, "tm": 128,
+                                     "tc": 128},
+                                    {"m": 4, "tt": 256, "tm": 128,
+                                     "tc": 128})}
+
+
+@pytest.mark.parametrize("layer", [(56, 3, 64, 64), (28, 3, 128, 128)])
+def test_resnet50_3x3_layers_plan_to_winograd_like_reference(layer):
+    from repro.core import convspec as rcs
+    hw, k, m, c = layer
+    r = rcs.plan(rcs.ConvSpec((8, hw, hw, c), (k, k, c, m), padding=(1, 1)),
+                 backend="tpu")
+    t = tcs.plan(tcs.ConvSpec((8, hw, hw, c), (k, k, c, m), padding=(1, 1)),
+                 backend="cuda")
+    assert t.algorithm == r.algorithm == "winograd_pallas"
+    assert t.source == r.source == "heuristic"
+    want = CONFIG_DIFFS.get(layer, (r.config.as_dict(),) * 2)
+    assert (r.config.as_dict(), t.config.as_dict()) == want
+    ex = t.executor
+    assert ex.config_supports(t.spec, want[0])[0]   # the port can run it
+
+
+SERVED = [((32, 32, 3), (1, 4)), ((224, 224, 3), (1,))]
+
+
+def test_served_plans_choose_the_reference_algorithms():
+    """Every served node plans to the reference's executor at
+    ``backend="tpu"``; only b1c1 at batch 4 changed from the first slice
+    (cuDNN by cost then, winograd_pallas now)."""
+    for shape, buckets in SERVED:
+        for b in buckets:
+            r = ref_resnet_like().graph_plan((b,) + shape, backend="tpu")
+            t = resnet_like().graph_plan((b,) + shape, backend="cuda")
+            got = {n: p.algorithm for n, p in t.conv_plans.items()}
+            assert got == {n: p.algorithm for n, p in r.conv_plans.items()}
+            for n, algo in got.items():
+                assert algo == ("winograd_pallas"
+                                if (n, b, shape[0]) == ("b1c1", 4, 32)
+                                else "cuconv_pallas"), (n, b, shape)
+
+
+def test_no_served_bucket_runs_a_conv_node_on_a_library_executor():
+    """The CPU twin of chip_smoke's check: every non-grouped conv node of
+    every served bucket, fp32 and int8, plans (for the card) onto a
+    hand-written kernel."""
+    from repro_torch.quant import Calibrator, QuantPolicy
+    m = resnet_like()
+    params = m.init(0, device="cpu")
+    x = np.random.default_rng(0).normal(size=(4, 32, 32, 3)) \
+        .astype(np.float32)
+    m.graph_plan(x.shape).warmup(device="cpu",
+                                 calibrate=Calibrator(x, params))
+    checked = 0
+    for shape, buckets in SERVED:
+        for b in buckets:
+            for pol in (None, QuantPolicy()):
+                if pol is not None and shape[0] != 32:
+                    continue           # int8 is calibrated at 32x32
+                gp = m.graph_plan((b,) + shape, backend="cuda",
+                                  precision=pol)
+                library = {n: p.algorithm
+                           for n, p in gp.conv_plans.items()
+                           if p.spec.groups == 1
+                           and not p.executor.kernels}
+                assert not library, (shape, b, pol, library)
+                checked += len(gp.conv_plans)
+    assert checked == 5 * 6
+
+
+def test_warmup_calibrates_then_runs_every_node():
+    from repro_torch.quant import Calibrator, QuantPolicy
+    m = resnet_like()
+    params = m.init(0, device="cpu")
+    x = np.random.default_rng(1).normal(size=(2, 16, 16, 3)) \
+        .astype(np.float32)
+    out = m.graph_plan(x.shape).warmup(device="cpu",
+                                       calibrate=Calibrator(x, params))
+    assert sorted(out["calibration"]) == sorted(
+        n.name for n in m.graph(x.shape).conv_nodes)
+    assert len(out["nodes"]) == 6
+    gq = m.graph_plan(x.shape, precision=QuantPolicy())
+    assert {n for n, q in gq.quant.items() if q.quantized} == {
+        "b1c1", "b1c2", "b2c1", "b2c2"}
+    rows = gq.warmup(device="cpu")["nodes"]
+    assert [r["algorithm"] for r in rows].count("cuconv_int8") == 4

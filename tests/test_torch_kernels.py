@@ -5,7 +5,10 @@ On a CPU tensor each kernel wrapper runs its plain PyTorch version, so
 these tests pin the arithmetic the CUDA kernels are held to on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).  The grids are those
 of ``tests/test_kernels.py`` plus fused stride 2, addend, max/avg pool,
-``rows > 1`` and a ragged ``tm``.  Bounds: fp32 2e-5, bf16 2e-2.
+``rows > 1`` and a ragged ``tm``.  Bounds: fp32 2e-5, bf16 2e-2.  The
+Winograd kernel is held to the reference's Winograd bounds,
+1e-4·max(1, max|ref|) at F(2,3) and 2e-3·max(1, max|ref|) at F(4,3)
+in fp32, 3e-2 in bf16; the int8 GEMM is bit-equal.
 """
 import numpy as np
 import pytest
@@ -17,9 +20,13 @@ from repro.kernels import conv1x1 as rk1
 from repro.kernels import cuconv_fused as rkf
 from repro.kernels import cuconv_stage1 as rks1
 from repro.kernels import cuconv_stage2 as rks2
+from repro.kernels import direct_conv as rkd
+from repro.kernels import int8_gemm as rki8
 from repro.kernels import ops as rops
+from repro.kernels import winograd_pallas as rkw
 from repro_torch.kernels import (_build, conv1x1, cuconv_fused,
-                                 cuconv_stage1, cuconv_stage2, ops, ref)
+                                 cuconv_stage1, cuconv_stage2, direct_conv,
+                                 int8_gemm, ops, ref, winograd_fused)
 
 TOLS = {"float32": dict(rtol=2e-5, atol=2e-5),
         "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -161,6 +168,78 @@ def test_oracles_match_reference_oracles(rng):
         atol=2e-5)
 
 
+# (N, H, W, C, M, padding, m, tt, tm, tc, epilogue)
+WINOGRAD = [
+    (1, 8, 8, 3, 4, (1, 1), 2, 128, 128, 128, "none"),
+    (2, 9, 7, 5, 6, (0, 0), 4, 128, 128, 128, "bias_relu"),
+    (4, 16, 16, 16, 16, (1, 1), 2, 256, 16, 16, "bias_relu"),
+    (1, 10, 10, 6, 5, (1, 1), 4, 64, 128, 64, "add_relu"),
+    (2, 7, 9, 4, 7, (2, 1), 2, 16, 4, 8, "add"),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("geom", WINOGRAD)
+def test_winograd_fused_plain_matches_pallas(rng, geom, dtype):
+    N, H, W, C, M, pad, m, tt, tm, tc, epi = geom
+    oh, ow = H + 2 * pad[0] - 2, W + 2 * pad[1] - 2
+    arrays = {"x": rand(rng, (N, H, W, C), dtype),
+              "w": rand(rng, (3, 3, C, M), dtype)}
+    if epi in ("bias", "bias_relu"):
+        arrays["bias"] = rand(rng, (M,), dtype)
+    if epi.startswith("add"):
+        arrays["addend"] = rand(rng, (N, oh, ow, M), dtype)
+    act = "relu" if epi.endswith("relu") else None
+    got = winograd_fused.winograd_fused(
+        **{k: to_torch(v, dtype) for k, v in arrays.items()}, padding=pad,
+        activation=act, m=m, tt=tt, tm=tm, tc=tc)
+    want = rkw.winograd_fused(
+        **{k: to_jax(v, dtype) for k, v in arrays.items()}, padding=pad,
+        activation=act, m=m, tt=tt, tm=tm, tc=tc, interpret=True)
+    want = np32(want)
+    assert tuple(got.shape) == want.shape == (N, oh, ow, M)
+    tol = {2: 1e-4, 4: 2e-3}[m] if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(np32(got), want, rtol=0,
+                               atol=tol * max(1.0, np.abs(want).max()))
+
+
+# (N, H, W, C, KH, KW, M, stride, pad, tm, tc): stride 1 and 2, C above
+# one tc slice, a ragged tm
+DIRECT = [
+    (1, 7, 7, 16, 3, 3, 8, (1, 1), 1, 128, 256),
+    (2, 9, 9, 20, 3, 3, 6, (2, 2), 1, 128, 8),
+    (1, 8, 10, 12, 5, 5, 10, (1, 2), 2, 4, 5),
+    (2, 6, 6, 9, 1, 1, 7, (1, 1), 0, 64, 4),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("geom", DIRECT)
+def test_direct_conv_plain_matches_pallas(rng, geom, dtype):
+    N, H, W, C, KH, KW, M, stride, pad, tm, tc = geom
+    x, w = rand(rng, (N, H, W, C), dtype), rand(rng, (KH, KW, C, M), dtype)
+    got = direct_conv.direct_conv(to_torch(x, dtype), to_torch(w, dtype),
+                                  (pad, pad), stride, tm=tm, tc=tc)
+    want = rkd.direct_conv(to_jax(x, dtype), to_jax(w, dtype), (pad, pad),
+                           stride, tm=tm, tc=tc, interpret=True)
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(np32(got), np32(want), **TOLS[dtype])
+
+
+@pytest.mark.parametrize("P,K,M,tiles", [
+    (64, 32, 16, (256, 128, 512)), (300, 130, 70, (128, 64, 128)),
+    (67, 27, 5, (64, 64, 8))])
+def test_int8_gemm_plain_is_bit_equal_to_pallas(rng, P, K, M, tiles):
+    x = rng.integers(-127, 128, (P, K)).astype(np.int8)
+    w = rng.integers(-127, 128, (K, M)).astype(np.int8)
+    tp, tm, tc = tiles
+    got = int8_gemm.int8_gemm(torch.from_numpy(x), torch.from_numpy(w),
+                              tp=tp, tm=tm, tc=tc)
+    want = rki8.int8_gemm(x, w, tp=tp, tm=tm, tc=tc, interpret=True)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # ---------------------------------------------------------------------------
 # the wrappers' checks hold on the CPU as on the card
 
@@ -170,6 +249,10 @@ def test_cpu_tensors_never_count_as_launches(rng):
                               padding=(1, 1))
     conv1x1.conv1x1_gemm(x.reshape(64, 4), to_torch(rand(rng, (4, 8))))
     cuconv_stage2.stage2_tap_sum(to_torch(rand(rng, (2, 3, 4))))
+    winograd_fused.winograd_fused(x, to_torch(rand(rng, (3, 3, 4, 8))))
+    direct_conv.direct_conv(x, to_torch(rand(rng, (3, 3, 4, 8))))
+    int8_gemm.int8_gemm(torch.ones((4, 4), dtype=torch.int8),
+                        torch.ones((4, 2), dtype=torch.int8))
     assert sum(_build.LAUNCHES.values()) == 0
 
 
@@ -213,6 +296,45 @@ def test_gemm_wrappers_refuse(rng):
         cuconv_stage1.stage1_tap_gemm(torch.zeros(2, 3, 4),
                                       torch.zeros(2, 4, 5,
                                                   dtype=torch.bfloat16))
+
+
+def test_new_wrappers_refuse(rng):
+    x = to_torch(rand(rng, (1, 8, 8, 4)))
+    w3 = to_torch(rand(rng, (3, 3, 4, 8)))
+    with pytest.raises(ValueError, match="3x3"):
+        winograd_fused.winograd_fused(x, to_torch(rand(rng, (5, 5, 4, 8))))
+    with pytest.raises(ValueError, match="got m=3"):
+        winograd_fused.winograd_fused(x, w3, m=3)
+    with pytest.raises(ValueError, match="addend shape"):
+        winograd_fused.winograd_fused(x, w3, addend=torch.zeros(1, 8, 8, 7))
+    with pytest.raises(ValueError, match="dtype"):
+        direct_conv.direct_conv(x, w3.double())
+    with pytest.raises(ValueError, match="shared memory"):
+        direct_conv.direct_conv(to_torch(rand(rng, (1, 20, 20, 2))),
+                                torch.zeros((15, 15, 2, 64)), tm=64)
+    with pytest.raises(ValueError, match="int8"):
+        int8_gemm.int8_gemm(torch.zeros((4, 4)),
+                            torch.zeros((4, 2), dtype=torch.int8))
+    with pytest.raises(ValueError, match="contract"):
+        int8_gemm.int8_gemm(torch.zeros((4, 3), dtype=torch.int8),
+                            torch.zeros((4, 2), dtype=torch.int8))
+
+
+def test_new_smem_models_are_what_the_kernels_stage():
+    """The shapes the kernels pick from their launch config, and the
+    shared memory that follows: the Winograd kernel's stays bounded (it
+    runs all of C inside a block), the direct kernel's grows with the
+    filter and the stride, the int8 GEMM's with the staged depth."""
+    assert winograd_fused.sub_tile(2, 16) == (64, 16)
+    assert winograd_fused.sub_tile(4, 128) == (16, 32)
+    assert winograd_fused.smem_bytes(2, 16) == 4 * 16 * 8 * (64 + 16)
+    assert max(winograd_fused.smem_bytes(m, tm) for m in (2, 4)
+               for tm in (16, 128)) == 4 * 36 * 8 * (32 + 16)
+    assert direct_conv.tile(32) == (32, 8, 16)
+    assert direct_conv.smem_bytes((3, 3, 16, 32), 32, (2, 2)) == \
+        4 * 8 * ((7 * 2 + 3) * (15 * 2 + 3) + 9 * 32)
+    assert direct_conv.smem_bytes((11, 11, 3, 64), 64) > _build.SMEM_LIMIT
+    assert int8_gemm.smem_bytes(144) == 4 * 36 * 129
 
 
 def test_smem_model_is_what_the_wrapper_launches_with():

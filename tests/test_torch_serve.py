@@ -9,6 +9,7 @@ must match the JAX package's engine on the same request stream: within
 import jax
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import _clear_port_caches, ref_params_numpy  # noqa: F401
 from repro.models.cnn import resnet_like as ref_resnet_like
@@ -70,9 +71,11 @@ def test_bucket_plans_run_the_kernels_the_card_would():
         assert gp.backend == "cuda"
         algos = {n: p.algorithm for n, p in gp.conv_plans.items()}
         assert algos["stem"] == algos["b1c2"] == "cuconv_pallas"
-    # batch 4's b1c1 is winograd_pallas in the JAX package: not ported,
-    # so it falls to the port's cost tier
-    assert port.programs.plan(4).conv_plans["b1c1"].source == "cost"
+    # batch 4's b1c1 is winograd_pallas, as in the JAX package
+    b1c1 = port.programs.plan(4).conv_plans["b1c1"]
+    assert (b1c1.algorithm, b1c1.source) == ("winograd_pallas", "heuristic")
+    assert port.programs.plan(1).conv_plans["b1c1"].algorithm == \
+        "cuconv_pallas"
 
 
 @pytest.mark.parametrize("units,bucket", [(1, 1), (3, 4), (5, 4), (8, 4)])
@@ -126,3 +129,64 @@ def test_smoke_deployment_is_the_reference_one():
     assert (tcfg.SMOKE_FRONTEND.geometry_map()
             == rcfg.SMOKE_FRONTEND.geometry_map())
     assert tcfg.DEFAULT_SLO_MS == rcfg.DEFAULT_SLO_MS
+
+
+def _calibrate_both(ref_model, rparams, x):
+    """Calibrate the JAX package's resnet_like and hand its
+    calibration.json to the port under the same keys, so both packages
+    quantize with the same scales."""
+    import json
+    from repro.quant import calibrate as rcal
+    from repro_torch.quant import calibrate as tcal
+    ref_model.graph_plan(x.shape).warmup(
+        calibrate=rcal.Calibrator(x, rparams))
+    for key, entry in json.loads(rcal._STORE.path().read_text()).items():
+        tcal._STORE.put(key, entry)
+
+
+@pytest.mark.parametrize("skip_first_last", [True, False])
+def test_int8_serving_matches_direct_plan_and_reference(skip_first_last):
+    """A calibrated resnet_like served by ``CnnServeEngine(precision=
+    QuantPolicy())`` on the CPU: every bucket serves int8, the served
+    outputs equal the direct quantized plan's, and the JAX package's
+    int8 engine agrees — within 1e-5 of the output's abs max when every
+    conv is int8 (each node sees the same input in both packages), and
+    within the 0.05 accuracy bound under the default policy, whose fp32
+    stem may move an int8 code of the next node by one step."""
+    from repro.quant.policy import QuantPolicy as RQuantPolicy
+    from repro_torch.quant.accuracy import DEFAULT_BOUND
+    from repro_torch.quant.policy import QuantPolicy
+    rm, tm = ref_resnet_like(num_classes=4), resnet_like(num_classes=4)
+    rparams = rm.init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(ref_params_numpy(rparams), "cpu")
+    x = np.random.default_rng(0).normal(size=(4, 32, 32, 3)) \
+        .astype(np.float32)
+    _calibrate_both(rm, rparams, x)
+    kw = dict(skip_first_last=skip_first_last)
+    port = tserve.CnnServeEngine(tm, tparams, (32, 32, 3), buckets=(1, 4),
+                                 precision=QuantPolicy(**kw), device="cpu",
+                                 backend="cuda")
+    ref = rserve.CnnServeEngine(rm, rparams, (32, 32, 3), buckets=(1, 4),
+                                precision=RQuantPolicy(**kw))
+    port.warmup()
+    want_dtype = "int8" if not skip_first_last else "float32+int8"
+    assert port.serve_dtypes() == ref.serve_dtypes() == {
+        1: want_dtype, 4: want_dtype}
+    sizes = [1, 3, 2, 4, 1]
+    rng = np.random.default_rng(1)
+    for i, n in enumerate(sizes):
+        im = rng.normal(size=(n, 32, 32, 3)).astype(np.float32)
+        port.submit(tserve.ImageRequest(i, im))
+        ref.submit(rserve.ImageRequest(i, im))
+    got, want = port.run(), ref.run()
+    direct = tm.graph_plan(x.shape, backend="cuda",
+                           precision=QuantPolicy(**kw))
+    tol = 1e-5 if not skip_first_last else DEFAULT_BOUND
+    for a, r in zip(got, want):
+        r_out = np.asarray(r.out, np.float32)
+        np.testing.assert_allclose(a.out, r_out, rtol=0,
+                                   atol=tol * np.abs(r_out).max())
+        if a.images.shape[0] == 4:
+            d = direct.run(torch.from_numpy(a.images), tparams).numpy()
+            np.testing.assert_allclose(a.out, d, rtol=1e-5, atol=1e-5)
+    assert port.stats == ref.stats
