@@ -4,7 +4,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
-It builds the seven CUDA kernels from ``src/repro_torch/csrc``, holds
+It builds the nine CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card (fp32 and bf16, int8
 for the int8 GEMM) at the shapes the main paths give it, and drives the
 paths through the entry points a user calls:
@@ -18,7 +18,13 @@ paths through the entry points a user calls:
   library executor;
 - ``resnet_like`` calibrated through ``GraphPlan.warmup(calibrate=...)``
   and served in int8 (``precision=QuantPolicy()``) at 32x32, against the
-  CPU int8 engine and against the fp32 engine's 0.05 accuracy bound.
+  CPU int8 engine and against the fp32 engine's 0.05 accuracy bound;
+- ``qwen2-1.5b`` and ``mamba2-1.3b`` served by the LM ``ServeEngine`` at
+  full width and depth in bf16 (seed-0 params made on the card): 8
+  requests on 4 slots, prompts of 512, 16 new tokens, where every prefill
+  attention runs ``flash_attention`` and every Mamba2 prefill conv
+  ``conv1d_tap``; then both models cut to 4 layers in fp32, card against
+  the CPU.
 
 The launch counters show that each path ran its kernels.  It then times
 served latency over windows of a few hundred requests per engine, times
@@ -32,6 +38,7 @@ beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -45,6 +52,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
 INT8_OP_PER_S = 1979e12          # int8 tensor cores, dense
+BF16_FLOP_PER_S = 989e12         # bf16 tensor cores, dense
 
 FP32_TOL, BF16_TOL = 2e-5, 3e-2  # kernel vs plain: x * max(1, max|plain|)
 # Winograd sums over another domain than its plain version: the
@@ -68,6 +76,15 @@ WINOGRAD_ROWS = {"r50_56x56x64": ((56, 3, 64, 64),
 # b2c1 geometry at 224x224 (stride 2)
 DIRECT_ROWS = ("t3_A", "t4_B", "t5_B")
 DIRECT_STRIDED = ("b2c1@224", (1, 112, 112, 16), (3, 3, 16, 32), 2)
+
+# the LM serving path (configs/archs.py), served at full width and depth
+LM_ARCHS = ("qwen2-1.5b", "mamba2-1.3b")
+LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 4, 512, 16, 1024
+# card vs CPU in fp32: depth cut for the CPU's sake, fp32 cache
+LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_STEPS = 4, 2, 64, 4
+LM_CPU_TOL = 1e-3                # x * max|CPU logits|
+LM_KERNELS = ("flash_attention", "conv1d_tap")
+LM_TRACE_STEPS = 4               # decode steps under the profiler
 
 _PHASE = {"name": None, "t0": 0.0, "times": {}}
 
@@ -105,15 +122,21 @@ def main() -> None:
 
     import numpy as np
     import repro_torch as rt
+    import torch.nn.functional as F
+    from repro_torch.configs.base import SHAPES, get_config
     from repro_torch.configs.cnn_paper import PROFILED
     from repro_torch.configs.serve import SMOKE_FRONTEND
     from repro_torch.core import convspec, cuconv, executors
-    from repro_torch.kernels import (_build, conv1x1, cuconv_fused,
-                                     cuconv_stage1, cuconv_stage2,
-                                     direct_conv, int8_gemm, winograd_fused)
+    from repro_torch.kernels import (_build, conv1d_tap, conv1x1,
+                                     cuconv_fused, cuconv_stage1,
+                                     cuconv_stage2, direct_conv,
+                                     flash_attention, int8_gemm,
+                                     winograd_fused)
+    from repro_torch.models import lm
     from repro_torch.models.cnn import resnet_like
     from repro_torch.quant import Calibrator, QuantPolicy
     from repro_torch.serve.cnn import CnnServeEngine, ImageRequest
+    from repro_torch.serve.engine import Request, ServeEngine
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the port pulled in jax or the JAX package")
 
@@ -257,9 +280,12 @@ def main() -> None:
         return xs, randn((kh * kw_, c, m), dtype)
 
     def case(kernel, label, kfn, pfn, args, kw, pkw, ops, tol,
-             peak=FP32_FLOP_PER_S):
+             peak=FP32_FLOP_PER_S, in_line=True):
+        """One kernel call; ``in_line``: its time is summed into the
+        kernel's entry of the ``{"kernels": ...}`` line."""
         return dict(kernel=kernel, label=label, kfn=kfn, pfn=pfn,
-                    args=args, kw=kw, pkw=pkw, ops=ops, tol=tol, peak=peak)
+                    args=args, kw=kw, pkw=pkw, ops=ops, tol=tol, peak=peak,
+                    in_line=in_line)
 
     # every kernel call of the main paths at one dtype
     def cases(dtype):
@@ -339,11 +365,55 @@ def main() -> None:
                             {}, 2 * P * K * m, 0.0, peak=INT8_OP_PER_S))
         return out
 
+    lm_cfgs = {arch: get_config(arch) for arch in LM_ARCHS}
+
+    def lm_cases(dtype):
+        """The LM kernels' calls at the served models' shapes: prefill
+        attention of 4 slots x 512 (and one train_4k sequence), the three
+        Mamba2 streams' conv.  The served bf16 calls make the line."""
+        out = []
+        bf16 = dtype == torch.bfloat16
+        tol = BF16_TOL if bf16 else FP32_TOL
+        for arch, cfg in lm_cfgs.items():
+            mixers = {mx for mx, _ in cfg.layer_kinds()}
+            if "attn" in mixers:
+                H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+                for b, s in ((LM_SLOTS, LM_PROMPT),
+                             (1, SHAPES["train_4k"].seq_len)):
+                    args = (randn((b, s, H, D), dtype),
+                            randn((b, s, KVH, D), dtype),
+                            randn((b, s, KVH, D), dtype))
+                    out.append(case(
+                        "flash_attention", f"{arch}:b{b}s{s}",
+                        flash_attention.flash_attention,
+                        flash_attention.flash_attention_plain, args,
+                        {"causal": True}, {"causal": True},
+                        4 * D * b * H * s * (s + 1) // 2, tol,
+                        peak=BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S,
+                        in_line=bf16 and s == LM_PROMPT))
+            if "ssm" in mixers:
+                dims = {cfg.d_inner: "x", cfg.ssm_groups * cfg.ssm_state:
+                        "B,C"}
+                for dim, streams in dims.items():
+                    shape = (LM_SLOTS, LM_PROMPT, dim)
+                    args = (randn(shape, dtype), randn((cfg.d_conv, dim),
+                                                       dtype),
+                            randn((dim,), dtype))
+                    out.append(case(
+                        "conv1d_tap",
+                        f"{arch}:{streams}:{'x'.join(map(str, shape))}",
+                        conv1d_tap.conv1d_tap, conv1d_tap.conv1d_tap_plain,
+                        args, {}, {}, 2 * cfg.d_conv * args[0].numel(), tol,
+                        in_line=bf16))
+        return out
+
     # -- 3. kernel vs plain --------------------------------------------------
     phase("kernel vs plain")
     max_err = {}
-    for dtype, cs in ((torch.float32, cases(torch.float32)),
-                      (torch.bfloat16, cases(torch.bfloat16)),
+    for dtype, cs in ((torch.float32, cases(torch.float32)
+                       + lm_cases(torch.float32)),
+                      (torch.bfloat16, cases(torch.bfloat16)
+                       + lm_cases(torch.bfloat16)),
                       (torch.int8, int8_cases())):
         for c in cs:
             kname, label = c["kernel"], c["label"]
@@ -494,9 +564,6 @@ def main() -> None:
     if not rel <= INT8_ACCURACY:
         fail(f"int8 serving is {rel:.4e} from fp32 > {INT8_ACCURACY}")
     report["serve"]["int8_vs_fp32_rel_err"] = rel
-    for k, v in launches.items():
-        if v < 1:
-            fail(f"{k} was not launched on the main path")
 
     # -- 4c. served latency over a window of requests -------------------------
     # A few requests prove the outputs; latency needs hundreds.  Each
@@ -531,6 +598,203 @@ def main() -> None:
                   f"{ms:.4f} ms, {ms / n_b:.6f} ms per batch, "
                   f"{sizes.sum() / ms * 1e3:.1f} images/s")
         report["serve"][f"{kind} {shape}"]["windows"] = windows
+
+    # -- 4d. the LM serving path, bf16, full width and depth -------------------
+    phase(f"main path: LM served by ServeEngine (bf16, {LM_REQUESTS} "
+          f"requests on {LM_SLOTS} slots, prompt {LM_PROMPT}, "
+          f"{LM_NEW} new tokens)")
+    report["lm_serve"] = {}
+    waves = -(-LM_REQUESTS // LM_SLOTS)
+
+    def serve_lm(cfg, params, prompts, timed):
+        """One ``ServeEngine.run`` over ``prompts``; each prefill and
+        decode call's logits are checked finite and, if ``timed``, its
+        wall time taken between synchronizes."""
+        eng = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                          device=dev)
+        times, nonfinite = {"_prefill": [], "_decode": []}, []
+        for name in times:
+            def wrapped(*a, fn=getattr(eng, name), name=name):
+                if timed:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = fn(*a)
+                if timed:
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+                if not bool(torch.isfinite(logits).all()):
+                    nonfinite.append(name)
+                return logits, cache
+            setattr(eng, name, wrapped)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(i, p, max_new_tokens=LM_NEW))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run(prompt_len=LM_PROMPT)
+        torch.cuda.synchronize()
+        return done, times, nonfinite, (time.perf_counter() - t0) * 1e3
+
+    def kernel_group(name):
+        for key, group in (("flash_attention", "flash_attention"),
+                           ("conv1d_tap", "conv1d_tap"), ("gemm", "gemm"),
+                           ("nvjet", "gemm"), ("xmma", "gemm"),
+                           ("cutlass", "gemm")):
+            if key in name:
+                return group
+        return "other"
+
+    def trace_lm(cfg, params, prompts):
+        """One prefill wave and LM_TRACE_STEPS decode steps under
+        torch.profiler: device time by kernel group and the device's
+        idle share of the wall time (host clock, synchronized)."""
+        from torch.profiler import ProfilerActivity, profile
+        eng = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                          device=dev)
+        toks = torch.from_numpy(prompts).to(dev)
+        step = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=dev)
+        calls = {"prefill": lambda: eng._prefill(eng.params,
+                                                 {"tokens": toks}, eng.cache),
+                 "decode": lambda: [eng._decode(eng.params, {"tokens": step},
+                                                eng.cache, LM_PROMPT + t)
+                                    for t in range(LM_TRACE_STEPS)]}
+        out = {}
+        for what, fn in calls.items():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            kernels = {}
+            for e in prof.key_averages():
+                us = getattr(e, "self_device_time_total", 0)
+                if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+                    kernels[e.key] = (us / 1e3, e.count)
+            busy = sum(ms for ms, _ in kernels.values())
+            groups = {}
+            for name, (ms, _) in kernels.items():
+                g = kernel_group(name)
+                groups[g] = groups.get(g, 0.0) + ms
+            top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+            out[what] = {"wall_ms": wall, "device_ms": busy,
+                         "idle_share": 1 - busy / wall if busy else None,
+                         "groups_ms": groups,
+                         "top": [(n[:80], ms, c) for n, (ms, c) in top]}
+            if not busy:
+                print(f"  {cfg.name} {what}: the profiler saw no device "
+                      f"time; busy and idle share not measured")
+                continue
+            print(f"  {cfg.name} {what} under the profiler: wall "
+                  f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+                  f"{1 - busy / wall:.3f}; by group "
+                  f"{ {g: round(ms, 4) for g, ms in groups.items()} }")
+            for n, ms, c in out[what]["top"][:4]:
+                print(f"    {ms:10.4f} ms  x{c:<5d} {n}")
+        return out
+
+    for arch, cfg in lm_cfgs.items():
+        t0 = time.perf_counter()
+        params = lm.init_lm(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_attn = sum(mx == "attn" for mx, _ in cfg.layer_kinds())
+        planned = {"flash_attention": n_attn * waves,
+                   "conv1d_tap": 3 * (cfg.num_layers - n_attn) * waves}
+        prompts = rng.integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT)) \
+            .astype(np.int32)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        done, _, nonfinite, wall = serve_lm(cfg, params, prompts, False)
+        counts = dict(_build.LAUNCHES)
+        for k in LM_KERNELS:
+            launches[k] += counts[k]
+        print(f"  {arch}: {cfg.num_params() / 1e9:.3f} B params (init "
+              f"{init_s:.1f} s), {len(done)} requests in {wall:.1f} ms; "
+              f"launches {counts}; planned {planned}")
+        if len(done) != LM_REQUESTS or any(
+                len(r.out_tokens) != LM_NEW
+                or not all(0 <= t < cfg.vocab_size for t in r.out_tokens)
+                for r in done):
+            fail(f"{arch}: not every request got {LM_NEW} tokens in "
+                 f"[0, {cfg.vocab_size})")
+        if nonfinite:
+            fail(f"{arch}: non-finite logits from {sorted(set(nonfinite))}")
+        if {k: v for k, v in counts.items() if v} != {
+                k: v for k, v in planned.items() if v}:
+            fail(f"{arch}: launches {counts} != planned {planned}")
+        done, times, nonfinite, wall = serve_lm(cfg, params, prompts, True)
+        tokens = sum(len(r.out_tokens) for r in done)
+        row = {"params": cfg.num_params(), "launches": counts,
+               "prefill_ms_per_wave": float(np.mean(times["_prefill"])),
+               "decode_ms_per_step": float(np.mean(times["_decode"])),
+               "prefill_ms": times["_prefill"], "decode_ms": times["_decode"],
+               "run_ms": wall, "tokens": tokens,
+               "tokens_per_s": tokens / wall * 1e3,
+               "sample_tokens": done[0].out_tokens}
+        report["lm_serve"][arch] = row
+        print(f"  {arch}: prefill {row['prefill_ms_per_wave']:.4f} ms per "
+              f"wave of {LM_SLOTS}x{LM_PROMPT}, decode "
+              f"{row['decode_ms_per_step']:.4f} ms per step of {LM_SLOTS}; "
+              f"{tokens} tokens in {wall:.2f} ms = "
+              f"{row['tokens_per_s']:.1f} tokens/s; request 0 "
+              f"{done[0].out_tokens[:6]}...")
+        row["trace"] = trace_lm(cfg, params, prompts[:LM_SLOTS])
+        del params
+        torch.cuda.empty_cache()
+    for k, v in launches.items():
+        if v < 1:
+            fail(f"{k} was not launched on the main path")
+
+    # -- 4e. the LM path, card against CPU, fp32 -------------------------------
+    phase(f"LM card vs CPU (fp32, full width, {LM_CPU_LAYERS} layers)")
+    report["lm_card_vs_cpu"] = {}
+
+    def to_cpu(node):
+        if isinstance(node, dict):
+            return {k: to_cpu(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to_cpu(v) for v in node]
+        return node.cpu()
+
+    for arch, cfg in lm_cfgs.items():
+        cut = dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS)
+        params = lm.init_lm(cut, seed=0, device=dev, dtype=torch.float32)
+        toks = rng.integers(0, cfg.vocab_size, (LM_CPU_STEPS + 1,
+                                                LM_CPU_BATCH, LM_CPU_PROMPT))
+        toks = torch.from_numpy(toks.astype(np.int32))
+        outs = []
+        for device, p in ((dev, params), (torch.device("cpu"),
+                                          to_cpu(params))):
+            t0 = time.perf_counter()
+            cache = lm.init_cache(cut, LM_CPU_BATCH,
+                                  LM_CPU_PROMPT + LM_CPU_STEPS,
+                                  kv_dtype=torch.float32, device=device)
+            logits, cache = lm.prefill(p, cut, {"tokens": toks[0].to(device)},
+                                       cache)
+            seq = [logits.cpu()]
+            for t in range(LM_CPU_STEPS):       # teacher-forced tokens
+                logits, cache = lm.decode_step(
+                    p, cut, {"tokens": toks[t + 1, :, :1].to(device)}, cache,
+                    LM_CPU_PROMPT + t)
+                seq.append(logits.cpu())
+            outs.append((seq, time.perf_counter() - t0))
+        errs = []
+        for step, (a, b) in enumerate(zip(outs[0][0], outs[1][0])):
+            err = (a - b).abs().max().item()
+            bound = LM_CPU_TOL * b.abs().max().item()
+            errs.append({"step": step, "max_abs_err": err, "bound": bound})
+            if not (err <= bound and bool(torch.isfinite(a).all())):
+                fail(f"{arch} ({LM_CPU_LAYERS} layers, fp32): card vs CPU "
+                     f"{'prefill' if step == 0 else f'decode {step}'} "
+                     f"{err:.3e} > {bound:.3e}")
+        report["lm_card_vs_cpu"][arch] = errs
+        print(f"  {arch}: prefill + {LM_CPU_STEPS} decode steps, max|card - "
+              f"cpu| {max(e['max_abs_err'] for e in errs):.3e} (bounds "
+              f"{min(e['bound'] for e in errs):.3e}..); card "
+              f"{outs[0][1]:.2f} s, cpu {outs[1][1]:.2f} s")
+        del params
+        torch.cuda.empty_cache()
 
     # -- 5. timing -------------------------------------------------------------
     phase("timing (CUDA graph replays between CUDA events)")
@@ -607,12 +871,27 @@ def main() -> None:
             if P > 16 and K % 8 == 0 and M % 8 == 0:
                 return lambda: torch._int_mm(*args)
             return None
+        if kname == "flash_attention":
+            q, k, v = (t.transpose(1, 2).contiguous() for t in args)
+            return lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+        if kname == "conv1d_tap":
+            x, w, b = args
+            xt = x.transpose(1, 2).contiguous()           # (B, D, L)
+            wt = w.t().unsqueeze(1).contiguous()          # (D, 1, K)
+
+            def conv1d():
+                with torch.backends.cudnn.flags(enabled=True,
+                                                allow_tf32=False):
+                    return F.conv1d(xt, wt, b, padding=w.shape[0] - 1,
+                                    groups=x.shape[2])[..., :x.shape[1]]
+            return conv1d
         return lambda: torch.sum(args[0], dim=0)
 
-    new_kernels = ("winograd_fused", "direct_conv", "int8_gemm")
     timed = [c for c in cases(torch.float32) + int8_cases()
-             if c["kernel"] in new_kernels
+             if c["kernel"] in ("winograd_fused", "direct_conv", "int8_gemm")
              or not c["label"].startswith("resnet32")]
+    timed += lm_cases(torch.bfloat16) + lm_cases(torch.float32)
     totals = {}
     for c in timed:
         kname, label, kfn, args, kw = (c["kernel"], c["label"], c["kfn"],
@@ -624,6 +903,7 @@ def main() -> None:
         eager, host = eager_ms(lambda: kfn(*args, **kw))
         lib = library_call(c)
         row = {"kernel": kname, "shape": label,
+               "dtype": str(args[0].dtype)[6:],
                "config": {k: v for k, v in kw.items()
                           if k in ("m", "tt", "tm", "tc", "tp", "rows")},
                "ms": time_ms(lambda: kfn(*args, **kw)),
@@ -636,10 +916,13 @@ def main() -> None:
         report["shapes"].append(row)
         lib_s = (f"{row['library_ms']:.6f}" if lib is not None
                  else "none")
-        print(f"  {kname:16s} {label:28s} {row['ms']:.6f} ms  eager "
+        print(f"  {kname:16s} {label:28s} {row['dtype']:8s} "
+              f"{row['ms']:.6f} ms  eager "
               f"{eager:.6f} (host {host:.6f})  plain {row['plain_ms']:.6f}"
               f"  library {lib_s}  bound {row['bound_ms']:.6f} "
               f"({row['bound_by']})  {row['config']}")
+        if not c["in_line"]:
+            continue
         tot = totals.setdefault(kname, {"ms": 0.0, "plain_ms": 0.0,
                                         "library_ms": 0.0, "library_n": 0,
                                         "bytes": 0, "ops": 0, "n": 0,
@@ -664,13 +947,19 @@ def main() -> None:
                "direct_conv": ("src/repro_torch/csrc/direct_conv.cu",
                                "src/repro/kernels/direct_conv.py:84"),
                "int8_gemm": ("src/repro_torch/csrc/int8_gemm.cu",
-                             "src/repro/kernels/int8_gemm.py:46")}
+                             "src/repro/kernels/int8_gemm.py:46"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:74"),
+               "conv1d_tap": ("src/repro_torch/csrc/conv1d_tap.cu",
+                              "src/repro/kernels/conv1d_tap.py:36")}
+    work_dtype = {"int8_gemm": "int8", "flash_attention": "bf16",
+                  "conv1d_tap": "bf16"}
     line = []
     for kname, (src, replaces) in sources.items():
         tot = totals[kname]
         t_bytes = tot["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = tot["ops"] / tot["peak"] * 1e3
-        work = "int8" if kname == "int8_gemm" else "fp32"
+        work = work_dtype.get(kname, "fp32")
         line.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[kname],
                      "max_abs_err": max_err[kname], "ms": tot["ms"],

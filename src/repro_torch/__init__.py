@@ -3,10 +3,11 @@
 The PyTorch port of the ``repro`` package.  Public functions keep the
 reference's layouts (NHWC activations, HWIO filters, name-keyed params)
 so the two packages compute the same thing on the same inputs.  The
-seven kernels are CUDA C++ for ``sm_90a`` (``repro_torch/csrc``), built
+nine kernels are CUDA C++ for ``sm_90a`` (``repro_torch/csrc``), built
 at first use and bound with ``ctypes``; on a CPU tensor each kernel wrapper runs its
 plain PyTorch version instead.  Int8 inference lives in
-``repro_torch.quant``.
+``repro_torch.quant``; the LM substrate in ``repro_torch.models.lm`` and
+``repro_torch.serve.engine``.
 """
 __version__ = "0.1.0"
 from repro_torch.core.cuconv import conv2d  # noqa: F401

@@ -1,1 +1,2 @@
-"""Configurations: the paper's conv tables and the serving deployments."""
+"""Configurations: the paper's conv tables, the serving deployments and
+the LM architectures."""

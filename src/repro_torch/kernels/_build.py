@@ -9,9 +9,9 @@ starts one ``nvcc`` per source, all together.  Nothing here runs at
 import: the first kernel launch builds what it needs.
 
 Every exported launcher takes its pointers and the stream as
-``ctypes.c_void_p`` (never a 32-bit int) and returns
-``cudaGetLastError()`` right after its launch; ``check()`` turns a
-non-zero code into an exception.
+``ctypes.c_void_p`` (never a 32-bit int), a float as ``ctypes.c_float``,
+and returns ``cudaGetLastError()`` right after its launch; ``check()``
+turns a non-zero code into an exception.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _HEADERS = ("common.cuh", "tile_gemm.cuh")
 
 #: source file -> exported launchers and their ctypes signatures
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARIES: Dict[str, Dict[str, Sequence]] = {
     "cuconv_fused": {
         # x, w, bias, addend, out, dtype, N, H, W, C, KH, KW, M, sh, sw,
@@ -62,6 +62,16 @@ LIBRARIES: Dict[str, Dict[str, Sequence]] = {
         # x2d, w, out, P, K, M, tp, tm, tc, smem, stream
         "int8_gemm_launch": [_P] * 3 + [_I] * 7 + [_P],
     },
+    "flash_attention": {
+        # q, k, v, out, dtype, B, Sq, Sk, H, KVH, D, scale, causal, smem,
+        # stream
+        "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_F] + [_I] * 2
+                                  + [_P],
+    },
+    "conv1d_tap": {
+        # x, w, bias (or NULL), y, dtype, B, L, D, K, stream
+        "conv1d_tap_launch": [_P] * 4 + [_I] * 5 + [_P],
+    },
 }
 
 #: launches per kernel: each wrapper adds one where it launches its
@@ -69,7 +79,8 @@ LIBRARIES: Dict[str, Dict[str, Sequence]] = {
 LAUNCHES: Dict[str, int] = {"cuconv_fused": 0, "conv1x1_gemm": 0,
                             "stage1_tap_gemm": 0, "stage2_tap_sum": 0,
                             "winograd_fused": 0, "direct_conv": 0,
-                            "int8_gemm": 0}
+                            "int8_gemm": 0, "flash_attention": 0,
+                            "conv1d_tap": 0}
 
 #: what the last build did, per library: seconds and ptxas's report
 BUILD_LOG: Dict[str, Dict] = {}

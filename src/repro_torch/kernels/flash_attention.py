@@ -1,0 +1,103 @@
+"""Blockwise (flash) attention forward, with GQA by stride
+(``csrc/flash_attention.cu``).
+
+``flash_attention(q, k, v, causal)`` computes softmax(QKᵀ/√D)V for q
+(B, Sq, H, D) against k, v (B, Sk, KVH, D), KVH dividing H, or for the
+(BH, S, D) layout: what the JAX package's Pallas kernel
+``kernels/flash_attention.py::flash_attention`` computes behind its
+wrapper ``ops.flash_attention``.  Query head h reads kv head
+h // (H / KVH) straight from k and v: no repeated K/V tensor is built
+(the JAX wrapper materializes ``jnp.repeat``).  The causal mask is
+aligned top-left (query i sees keys 0..i), as the TPU kernel's: right
+when the queries start at key 0, as a prefill does.
+
+The numerics are the TPU kernel's: fp32 scores scaled by 1/√D after the
+dot, an online softmax with fp32 m, l and accumulator over KV tiles, p
+rounded to v's dtype before PV, and one division by max(l, 1e-30).  The
+kernel computes in fp32 FFMA (no TF32); at long sequences it is bound by
+operations, at the served prefill by bytes.  ``smem_bytes`` is what one
+block stages.  ``flash_attention_plain`` is the same function in plain
+PyTorch, with one softmax over all keys.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+BQ, BK = 64, 64      # query rows per block, keys per KV tile
+MAX_HEAD_DIM = 128   # the kernel's accumulator covers 8 x 16 columns
+NEG_INF = -1e30
+
+
+def smem_bytes(head_dim: int) -> int:
+    """Shared memory of one block: the Q tile and the K and V tiles in
+    fp32 with rows padded by one word, the (BQ x BK+1) score tile, and
+    three per-row statistics."""
+    ld = int(head_dim) + 1
+    return 4 * (BQ * ld + 2 * BK * ld + BQ * (BK + 1) + 3 * BQ)
+
+
+def _as_bshd(q, k, v):
+    """The (B, S, H, D) view of either accepted layout, and whether the
+    input was (BH, S, D)."""
+    if q.dim() == 3 and k.dim() == 3 and v.dim() == 3:
+        return q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), True
+    if q.dim() == 4 and k.dim() == 4 and v.dim() == 4:
+        return q, k, v, False
+    raise ValueError(f"flash_attention: q, k, v must all be (B, S, H, D) or "
+                     f"all (BH, S, D); got {tuple(q.shape)}, "
+                     f"{tuple(k.shape)}, {tuple(v.shape)}")
+
+
+def flash_attention_plain(q, k, v, causal=True):
+    q4, k4, v4, flat = _as_bshd(q, k, v)
+    B, Sq, H, D = q4.shape
+    Sk, KVH = k4.shape[1], k4.shape[2]
+    kf = k4.repeat_interleave(H // KVH, dim=2).float()
+    vf = v4.repeat_interleave(H // KVH, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q4.float(), kf) * (1.0 / D ** 0.5)
+    valid = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = (torch.arange(Sq, device=q.device)[:, None]
+                 >= torch.arange(Sk, device=q.device)[None, :])
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).masked_fill(~valid, 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf.float())
+    out = (out / l).transpose(1, 2).to(q.dtype)
+    return out.squeeze(2) if flat else out
+
+
+def flash_attention(q, k, v, causal=True):
+    """q: (B, Sq, H, D), k, v: (B, Sk, KVH, D); or all (BH, S, D).
+    Returns q's shape and dtype.  CPU tensors run the plain version;
+    CUDA tensors launch the kernel."""
+    name = "flash_attention"
+    q4, k4, v4, _ = _as_bshd(q, k, v)
+    B, Sq, H, D = q4.shape
+    Sk, KVH = k4.shape[1], k4.shape[2]
+    if (k4.shape[0] != B or tuple(v4.shape) != tuple(k4.shape)
+            or k4.shape[3] != D or KVH < 1 or H % KVH):
+        raise ValueError(f"{name}: k/v {tuple(k.shape)}, {tuple(v.shape)} "
+                         f"do not fit q {tuple(q.shape)} (KVH must divide H)")
+    if min(B, Sq, Sk) < 1 or not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: empty input or head_dim {D} outside "
+                         f"1..{MAX_HEAD_DIM}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"{name}: grid of ({B}, {H}) exceeds 65535")
+    _build.check_operands(name, q.device, q.dtype, q=q, k=k, v=v)
+    smem = smem_bytes(D)
+    _build.check_smem(name, smem, f"head_dim {D}")
+    if not _build.on_card(name, q):
+        return flash_attention_plain(q, k, v, causal)
+    out = torch.empty_like(q)
+    lib = _build.library("flash_attention")
+    with torch.cuda.device(q.device):
+        code = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _build.DTYPE_CODES[str(q.dtype)[6:]], B, Sq, Sk, H, KVH, D,
+            1.0 / D ** 0.5, int(bool(causal)), smem, _build.stream_of(q))
+    _build.check("flash_attention", name, code)
+    _build.LAUNCHES[name] += 1
+    return out

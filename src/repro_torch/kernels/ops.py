@@ -1,8 +1,9 @@
 """Public wrappers around the CUDA kernels, in the reference's layouts.
 
-Each wrapper shapes NHWC/HWIO operands for its kernel and follows the
-device of its inputs: CUDA tensors launch the kernel, CPU tensors run
-its plain version (the kernel modules decide, never a fallback here).
+Each wrapper shapes NHWC/HWIO operands (or the LM's (B, S, H, D) and
+(B, L, D) tensors) for its kernel and follows the device of its inputs:
+CUDA tensors launch the kernel, CPU tensors run its plain version (the
+kernel modules decide, never a fallback here).
 ``pool2d`` is the graph IR's pool executor: plain PyTorch, no kernel.
 """
 from __future__ import annotations
@@ -11,9 +12,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.convspec import normalize_stride
-from repro_torch.kernels import (conv1x1 as _c1, cuconv_fused as _cf,
-                                 cuconv_stage1 as _s1, cuconv_stage2 as _s2,
-                                 direct_conv as _dcv, int8_gemm as _i8,
+from repro_torch.kernels import (conv1d_tap as _c1d, conv1x1 as _c1,
+                                 cuconv_fused as _cf, cuconv_stage1 as _s1,
+                                 cuconv_stage2 as _s2, direct_conv as _dcv,
+                                 flash_attention as _fa, int8_gemm as _i8,
                                  winograd_fused as _wg)
 from repro_torch.kernels._compat import clamp_tiles  # noqa: F401  (re-export)
 
@@ -107,3 +109,18 @@ def pool2d(x, kind="max", window=(2, 2), stride=(2, 2), padding=(0, 0)):
     else:
         y = F.avg_pool2d(xn, tuple(window), tuple(stride))
     return y.permute(0, 2, 3, 1)
+
+
+def conv1d_causal(x, w, b=None):
+    """Causal depthwise conv1d.  x: (B, L, D); w: (K, D); b: (D,) or
+    None.  The bias is added in fp32 before the one write."""
+    return _c1d.conv1d_tap(x.contiguous(), w.contiguous(),
+                           None if b is None else b.contiguous())
+
+
+def flash_attention(q, k, v, causal=True):
+    """q: (B, Sq, H, D) with k, v (B, Sk, KVH, D), KVH dividing H (the
+    kernel reads kv head h // (H/KVH) by stride: no repeat); or all
+    (BH, S, D).  Top-left causal mask."""
+    return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal)

@@ -1,8 +1,9 @@
-"""Plain PyTorch oracles for the conv kernels (the allclose references).
+"""Plain PyTorch oracles for the kernels (the allclose references).
 
 Every oracle computes in fp32 on the device of its inputs.  The conv
 oracles call ``F.conv2d`` with TF32 off, so on the card they are IEEE
-fp32 like the kernels they check.
+fp32 like the kernels they check.  ``conv1d_ref`` and ``attention_ref``
+are the LM kernels' oracles, in the reference's layouts.
 """
 from __future__ import annotations
 
@@ -40,3 +41,26 @@ def stage1_ref(xs, w):
 
 def stage2_ref(temps):
     return temps.float().sum(dim=0)
+
+
+def conv1d_ref(x, w, b=None):
+    """Causal depthwise conv1d.  x: (B, L, D); w: (K, D)."""
+    K, L = w.shape[0], x.shape[1]
+    xp = F.pad(x.float(), (0, 0, K - 1, 0))
+    y = sum(xp[:, k:k + L, :] * w[k].float() for k in range(K))
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def attention_ref(q, k, v, causal=True):
+    """q: (BH, Sq, D); k, v: (BH, Sk, D).  Top-left causal mask."""
+    D = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q, k).float() / (D ** 0.5)
+    if causal:
+        Sq, Sk = q.shape[1], k.shape[1]
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = s.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", w.to(q.dtype), v)

@@ -1,0 +1,263 @@
+"""Causal LM assembly: the JAX package's ``models/lm.py`` for the dense,
+audio, VLM and SSM families.
+
+The layer stack follows the reference's *stack plan*: a list of
+segments, each ``(repeats, kinds)`` where ``kinds`` is the repeating
+period of (mixer, mlp) pairs.  The reference stacks each segment's
+params along a leading repeats axis and ``lax.scan``s over it; here a
+segment is a list of ``repeats`` period dicts ``{"pos{i}": layer}`` and
+the forward is a loop.  Remat has no place in inference and is left out.
+
+Params are plain dicts of tensors on one device (``init_lm`` draws them
+from a ``torch.Generator`` there; ``params_from_numpy`` carries the JAX
+package's ``init_lm`` tree across).  The cache is updated in place by
+prefill and decode.  ``"moe"`` layers (jamba, the deepseek pair) and
+MLA raise ``NotImplementedError``: they wait for the MoE/MLA item of
+ROADMAP queue 1.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ATTN, MOE, ModelConfig
+from repro_torch.core.convspec import resolve_device
+from repro_torch.nn import attention as A
+from repro_torch.nn import layers as L
+from repro_torch.nn import mamba as S
+
+#: leaves the reference keeps in fp32 whatever the params' dtype
+FP32_LEAVES = ("scale", "A_log", "D", "dt_bias")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    if cfg.mla or any(mlp == MOE for _, mlp in cfg.layer_kinds()):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers and MLA are not ported yet "
+            f"(the MoE/MLA item of ROADMAP queue 1)")
+
+
+# ---------------------------------------------------------------------------
+# Stack plan
+
+def stack_plan(cfg: ModelConfig) -> List[Tuple[int, Tuple[Tuple[str, str], ...]]]:
+    kinds = cfg.layer_kinds()
+    n = cfg.num_layers
+    if cfg.first_layer_dense:
+        rest = kinds[1:]
+        if any(k != rest[0] for k in rest):
+            raise ValueError("unsupported irregular stack")
+        return [(1, (kinds[0],)), (n - 1, (rest[0],))]
+    p = cfg.pattern_period
+    if p == 0:
+        return [(1, (k,)) for k in kinds]          # fully unrolled
+    period = kinds[:p]
+    if kinds != period * (n // p):
+        raise ValueError("layer kinds do not repeat their period")
+    return [(n // p, period)]
+
+
+def _layers(cfg):
+    """(segment, repeat, pos name, mixer, mlp) of every layer, in order."""
+    for si, (repeats, kinds) in enumerate(stack_plan(cfg)):
+        for r in range(repeats):
+            for i, (mixer, mlp) in enumerate(kinds):
+                yield si, r, f"pos{i}", mixer, mlp
+
+
+# ---------------------------------------------------------------------------
+# Per-layer init / fwd
+
+def _layer_init(gen, cfg, mixer, mlp, dtype):
+    p: Dict[str, Any] = {"ln1": L.rmsnorm_init(cfg.d_model, gen.device)}
+    if mixer == ATTN:
+        p["attn"] = A.gqa_init(gen, cfg, dtype)
+    else:
+        p["ssm"] = S.mamba_init(gen, cfg, dtype)
+    if mlp != "none":
+        p["ln2"] = L.rmsnorm_init(cfg.d_model, gen.device)
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
+
+
+def _layer_fwd(p, cfg, mixer, mlp, x, positions, cache, offset, mode):
+    h = L.rmsnorm_fwd(p["ln1"], x, cfg.rms_norm_eps, cfg.norm_impl)
+    if mixer == ATTN:
+        out, cache = A.gqa_fwd(p["attn"], cfg, h, positions, cache, offset,
+                               mode)
+    else:
+        out, cache = S.mamba_fwd(p["ssm"], cfg, h, cache, mode)
+    x = x + out
+    if mlp != "none":
+        h2 = L.rmsnorm_fwd(p["ln2"], x, cfg.rms_norm_eps, cfg.norm_impl)
+        x = x + L.mlp_fwd(p["mlp"], h2)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Model init
+
+def init_lm(cfg: ModelConfig, seed: int = 0, device=None,
+            dtype=L.DEFAULT_DTYPE) -> Dict[str, Any]:
+    """Random params from ``seed`` on ``device`` (default: the card);
+    dense weights in ``dtype``, norm scales and the SSM's A_log, D and
+    dt_bias in fp32, as the reference."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params: Dict[str, Any] = {}
+    if cfg.input_mode == "tokens":
+        params["embed"] = L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                       dtype)
+    params["segments"] = [
+        [{f"pos{i}": _layer_init(gen, cfg, mx, ml, dtype)
+          for i, (mx, ml) in enumerate(kinds)} for _ in range(repeats)]
+        for repeats, kinds in stack_plan(cfg)]
+    params["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                                         dtype)
+    return params
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
+    """The JAX package's ``init_lm`` tree, as numpy arrays -> the port's
+    params on ``device`` (default: the card).
+
+    Each ``segments[si]["pos{i}"]`` leaf is unstacked along its leading
+    repeats axis.  Leaves named in ``FP32_LEAVES`` stay fp32; the others
+    take ``dtype`` (default bf16, the reference's: numpy has no bf16, so
+    bf16 leaves arrive as float32, and the bf16 -> fp32 -> bf16 round
+    trip is exact).
+    """
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = L.DEFAULT_DTYPE if dtype is None else dtype
+
+    def conv(node, name=""):
+        if isinstance(node, dict):
+            return {k: conv(v, k) for k, v in node.items()}
+        dt = torch.float32 if name in FP32_LEAVES else dtype
+        return torch.tensor(np.asarray(node, np.float32), device=dev).to(dt)
+
+    def unstack(node, r):
+        if isinstance(node, dict):
+            return {k: unstack(v, r) for k, v in node.items()}
+        return np.asarray(node)[r]
+
+    out = {k: conv(v, k) for k, v in tree.items() if k != "segments"}
+    out["segments"] = [
+        [conv(unstack(seg, r)) for r in range(repeats)]
+        for seg, (repeats, _) in zip(tree["segments"], stack_plan(cfg))]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Cache
+
+def _layer_cache_shapes(cfg, mixer, batch, max_len, kv_dtype):
+    if mixer == ATTN:
+        kv = ((batch, max_len, cfg.num_kv_heads, cfg.head_dim), kv_dtype)
+        return (kv, kv)
+    gn = cfg.ssm_groups * cfg.ssm_state
+    return (
+        (((batch, cfg.d_conv - 1, cfg.d_inner), kv_dtype),
+         ((batch, cfg.d_conv - 1, gn), kv_dtype),
+         ((batch, cfg.d_conv - 1, gn), kv_dtype)),
+        ((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+         torch.float32),
+    )
+
+
+def _is_leaf(s):
+    return isinstance(s, tuple) and len(s) == 2 and isinstance(s[1],
+                                                               torch.dtype)
+
+
+def _map(fn, node):
+    if _is_leaf(node):
+        return fn(node)
+    return tuple(_map(fn, n) for n in node)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
+                 kv_dtype=torch.bfloat16):
+    """Per segment, ``{"pos{i}": nested (shape, dtype) leaves}`` with the
+    leading repeats axis of the reference's stacked cache."""
+    check_supported(cfg)
+    return [{f"pos{i}": _map(lambda s: ((repeats,) + s[0], s[1]),
+                             _layer_cache_shapes(cfg, mx, batch, max_len,
+                                                 kv_dtype))
+             for i, (mx, _) in enumerate(kinds)}
+            for repeats, kinds in stack_plan(cfg)]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               kv_dtype=torch.bfloat16, device=None):
+    """Zeroed cache on ``device`` (default: the card), one entry per
+    layer: ``cache[si][r]["pos{i}"]``."""
+    dev = resolve_device(device)
+    return [[{pos: _map(lambda s: torch.zeros(s[0][1:], dtype=s[1],
+                                              device=dev), shapes)
+              for pos, shapes in seg.items()} for _ in range(repeats)]
+            for seg, (repeats, _) in zip(
+                cache_shapes(cfg, batch, max_len, kv_dtype),
+                stack_plan(cfg))]
+
+
+# ---------------------------------------------------------------------------
+# Forward
+
+def lm_forward(params, cfg: ModelConfig, batch: Dict[str, Any],
+               cache=None, offset=0, mode="train"):
+    """Returns (logits, cache, aux).
+
+    batch: {'tokens': (B,S) int} or {'embeds': (B,S,D)}; optional
+    'positions' ((B,S) or (3,B,S) for M-RoPE), tensors on the params'
+    device.  mode: "train" | "prefill" | "decode".  aux holds the
+    reference's MoE statistics, zero for the ported families.
+    """
+    check_supported(cfg)
+    if cfg.input_mode == "tokens":
+        x = L.embed_fwd(params["embed"], batch["tokens"])
+        B, Sq = batch["tokens"].shape
+    else:
+        # match the params' compute dtype (tests may cast params to fp32)
+        pdt = (params["lm_head"]["w"].dtype if "lm_head" in params
+               else L.DEFAULT_DTYPE)
+        x = batch["embeds"].to(pdt)
+        B, Sq = x.shape[0], x.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = L.make_positions(B, Sq, offset, x.device)
+
+    for si, r, pos, mixer, mlp in _layers(cfg):
+        c = cache[si][r][pos] if cache is not None else None
+        x, _ = _layer_fwd(params["segments"][si][r][pos], cfg, mixer, mlp,
+                          x, positions, c, offset, mode)
+
+    x = L.rmsnorm_fwd(params["final_norm"], x, cfg.rms_norm_eps,
+                      cfg.norm_impl)
+    zero = torch.zeros((), device=x.device)
+    aux = {"load_balance_loss": zero, "dropped_frac": zero}
+    if cfg.tie_embeddings:
+        logits = torch.matmul(*L.promote(x, params["embed"]["embedding"].T))
+    else:
+        logits = L.dense_fwd(params["lm_head"], x)
+    return logits, cache, aux
+
+
+def prefill(params, cfg: ModelConfig, batch, cache):
+    """Run the full prompt, writing into a preallocated decode cache."""
+    logits, cache, _ = lm_forward(params, cfg, batch, cache=cache, offset=0,
+                                  mode="prefill")
+    return logits, cache
+
+
+def decode_step(params, cfg: ModelConfig, batch, cache, offset):
+    """One token step against an existing cache."""
+    logits, cache, _ = lm_forward(params, cfg, batch, cache=cache,
+                                  offset=offset, mode="decode")
+    return logits, cache

@@ -1,0 +1,127 @@
+"""Core layers: functional init/apply over plain dicts of tensors.
+
+The JAX package's convention, kept so params carry across by name:
+``*_init`` returns a dict of tensors, ``*_fwd`` consumes it.  Init draws
+from a ``torch.Generator`` on the device the params live on; dense
+weights default to bf16, norm scales stay fp32.
+
+Mixed dtypes: JAX promotes bf16 x fp32 inside a product, where
+``torch.matmul`` and ``torch.einsum`` raise; ``promote`` casts both
+operands to the type JAX would compute in.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+DEFAULT_DTYPE = torch.bfloat16
+
+
+def promote(*ts):
+    """The operands cast to their common type (bf16 x fp32 -> fp32)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
+
+
+def randn(gen: torch.Generator, shape, scale: float, dtype):
+    return (torch.randn(tuple(shape), generator=gen, device=gen.device)
+            * scale).to(dtype)
+
+
+def dense_init(gen, d_in, d_out, dtype=DEFAULT_DTYPE, bias=False,
+               scale=None):
+    scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
+    p = {"w": randn(gen, (d_in, d_out), scale, dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def dense_fwd(p, x):
+    y = torch.matmul(*promote(x, p["w"]))
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def rmsnorm_init(d, device, dtype=torch.float32):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm_fwd(p, x, eps=1e-5, impl="f32"):
+    if impl == "stat_f32":
+        # fp32 only for the variance reduction; the normalize multiply and
+        # the scale stay in x.dtype
+        var = x.float().square().mean(dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + eps).to(x.dtype)
+        return x * inv * p["scale"].to(x.dtype)
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"]).to(x.dtype)
+
+
+def embed_init(gen, vocab, d, dtype=DEFAULT_DTYPE):
+    return {"embedding": randn(gen, (vocab, d), 0.02, dtype)}
+
+
+def embed_fwd(p, ids):
+    return p["embedding"][ids]
+
+
+def mlp_init(gen, d, d_ff, dtype=DEFAULT_DTYPE):
+    return {"wi": dense_init(gen, d, d_ff, dtype),
+            "wg": dense_init(gen, d, d_ff, dtype),
+            "wo": dense_init(gen, d_ff, d, dtype)}
+
+
+def mlp_fwd(p, x):
+    """SwiGLU MLP (gate * silu(up))."""
+    h = F.silu(dense_fwd(p["wi"], x)) * dense_fwd(p["wg"], x)
+    return dense_fwd(p["wo"], h)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (standard + M-RoPE)
+
+def rope_freqs(head_dim, theta, device="cpu"):
+    """fp32 (head_dim/2,) inverse frequencies, computed in float64 as the
+    reference's numpy does, on ``device`` (a host table copied to the
+    card would synchronize the stream on every call)."""
+    i = torch.arange(0, head_dim, 2, dtype=torch.float64, device=device)
+    return (1.0 / theta ** (i / head_dim)).float()
+
+
+def apply_rope(x, positions, theta=1e6, sections=(), impl="f32"):
+    """x: (..., L, H, D). positions: (B, L) or (3, B, L) for M-RoPE.
+
+    M-RoPE (qwen2-vl): the head_dim/2 frequency slots are split into
+    ``sections`` (t, h, w); each section takes its angle from the matching
+    row of the 3-axis position ids.  impl="bf16" rotates in x.dtype
+    (angles still fp32).
+    """
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                       # (d/2,)
+    if positions.dim() == 3 and sections:
+        sec_id = torch.cat([torch.full((s,), i, device=positions.device)
+                            for i, s in enumerate(sections)])
+        pos = positions[sec_id]                                  # (d/2, B, L)
+        ang = pos.float().permute(1, 2, 0) * freqs               # (B, L, d/2)
+    else:
+        ang = positions[..., None].float() * freqs               # (B, L, d/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if impl == "bf16":
+        cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+    cos = cos[..., None, :]                                      # (B, L, 1, d/2)
+    sin = sin[..., None, :]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def make_positions(batch, seq, offset=0, device="cpu"):
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
+    return (pos + offset).expand(batch, seq)

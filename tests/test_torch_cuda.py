@@ -8,16 +8,20 @@ summation order differs) and 3e-2 in bf16 (one bf16 rounding of the
 output).  The Winograd kernel sums in another order over the Winograd
 domain than its plain version, so it is held to the reference's own
 Winograd bounds in fp32: 1e-4 at F(2,3), 2e-3 at F(4,3).  The int8 GEMM
-is exact: it must equal its plain version bit for bit.
+is exact: it must equal its plain version bit for bit.  The LM kernels
+(flash attention, causal conv1d) keep the conv kernels' bounds; the
+flash plain version takes one softmax over all keys where the kernel
+keeps a running max, which in bf16 rounds p against another max (within
+the bf16 bound).
 """
 import numpy as np
 import pytest
 import torch
 
 from _torch_parity import _clear_port_caches, requires_cuda  # noqa: F401
-from repro_torch.kernels import (_build, conv1x1, cuconv_fused,
+from repro_torch.kernels import (_build, conv1d_tap, conv1x1, cuconv_fused,
                                  cuconv_stage1, cuconv_stage2, direct_conv,
-                                 int8_gemm, winograd_fused)
+                                 flash_attention, int8_gemm, winograd_fused)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 DTYPES = (torch.float32, torch.bfloat16)
@@ -198,3 +202,93 @@ def test_served_resnet_like_on_card_matches_cpu():
     assert _build.LAUNCHES["cuconv_fused"] >= 6
     np.testing.assert_allclose(outs[0], outs[1], rtol=0,
                                atol=3e-4 * np.abs(outs[1]).max())
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("geom", [
+    # (B, Sq, Sk, H, KVH, D, causal)
+    (2, 40, 40, 3, 3, 16, True),
+    (1, 100, 100, 4, 2, 32, True),
+    (1, 64, 128, 2, 1, 8, False),
+    (2, 130, 130, 12, 2, 128, True),
+    (1, 77, 200, 6, 3, 64, False),
+    (1, 300, 300, 2, 2, 128, True),
+])
+def test_flash_attention_kernel_matches_plain(geom, dtype):
+    B, Sq, Sk, H, KVH, D, causal = geom
+    gen = torch.Generator().manual_seed(6)
+    q = _randn(gen, (B, Sq, H, D), dtype)
+    k = _randn(gen, (B, Sk, KVH, D), dtype)
+    v = _randn(gen, (B, Sk, KVH, D), dtype)
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    _close(got, flash_attention.flash_attention_plain(q, k, v, causal),
+           dtype)
+    assert _build.LAUNCHES["flash_attention"] == 1
+
+
+@requires_cuda
+def test_flash_attention_kernel_takes_the_bh_layout():
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = (_randn(gen, (6, 90, 32), torch.float32) for _ in range(3))
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    _close(got, flash_attention.flash_attention_plain(q, k, v, True),
+           torch.float32)
+    assert _build.LAUNCHES["flash_attention"] == 1
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,L,D,K,bias", [
+    (2, 37, 24, 4, True), (1, 128, 64, 4, False), (3, 16, 8, 2, True),
+    (4, 512, 4096, 4, True), (4, 512, 128, 4, True), (1, 3, 200, 8, True),
+])
+def test_conv1d_tap_kernel_matches_plain(B, L, D, K, bias, dtype):
+    gen = torch.Generator().manual_seed(8)
+    x = _randn(gen, (B, L, D), dtype)
+    w = _randn(gen, (K, D), dtype)
+    b = _randn(gen, (D,), dtype) if bias else None
+    got = conv1d_tap.conv1d_tap(x, w, b)
+    _close(got, conv1d_tap.conv1d_tap_plain(x, w, b), dtype)
+    assert _build.LAUNCHES["conv1d_tap"] == 1
+
+
+@requires_cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"])
+def test_served_lm_smoke_on_card_matches_cpu(arch):
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = smoke_variant(get_config(arch))
+    params = lm.init_lm(cfg, seed=0, dtype=torch.float32)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (5, 24))
+    logs = []
+    for eng in (ServeEngine(cfg, params, slots=2, max_len=40),
+                ServeEngine(cfg, _cpu(params), slots=2, max_len=40,
+                            device="cpu")):
+        log = []
+        for name in ("_prefill", "_decode"):
+            def wrapped(*a, fn=getattr(eng, name)):
+                logits, cache = fn(*a)
+                log.append(logits.float().cpu())
+                return logits, cache
+            setattr(eng, name, wrapped)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(i, p.astype(np.int32), max_new_tokens=6))
+        assert len(eng.run(prompt_len=24)) == 5
+        logs.append(log)
+    kernel = "flash_attention" if arch == "qwen2-1.5b" else "conv1d_tap"
+    assert _build.LAUNCHES[kernel] >= cfg.num_layers * 3
+    # fp32 params against a bf16 cache: a cache entry may round one bf16
+    # step apart between card and CPU
+    assert len(logs[0]) == len(logs[1]) == 3 * 6
+    for card, cpu in zip(*logs):
+        assert (card - cpu).abs().max() <= 1e-2 * cpu.abs().max()
+
+
+def _cpu(node):
+    if isinstance(node, dict):
+        return {k: _cpu(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_cpu(v) for v in node]
+    return node.cpu()

@@ -116,8 +116,11 @@ def test_registry_holds_the_ported_executors_in_reference_order():
         "cuconv_pallas": ("cuconv_fused",),
         "winograd_pallas": ("winograd_fused",),
         "direct": ("direct_conv",), "cuconv_int8": ("int8_gemm",)}
-    assert sorted(k for ks in launching.values() for k in ks) == sorted(
-        _build.LAUNCHES)
+    # every conv kernel belongs to one executor; the LM kernels to none
+    conv_kernels = [k for ks in launching.values() for k in ks]
+    lm_kernels = ["conv1d_tap", "flash_attention"]
+    assert not set(lm_kernels) & set(conv_kernels)
+    assert sorted(conv_kernels + lm_kernels) == sorted(_build.LAUNCHES)
     with pytest.raises(KeyError, match="unknown algorithm"):
         executors.get("flash_attention")
     with pytest.raises(ValueError, match="already registered"):
