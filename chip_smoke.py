@@ -26,15 +26,22 @@ paths through the entry points a user calls:
   ``conv1d_tap``; then both models cut to 4 layers in fp32, card against
   the CPU.
 
-The launch counters show that each path ran its kernels.  It then times
-served latency over windows of a few hundred requests per engine, times
-each kernel (CUDA graph replays between CUDA events, so host dispatch is
-left out; eager times and the host's time per call are kept beside)
-with its plain version, one library call and its bound, and prints one
-``{"kernels": [...]}`` line, the card's name and power limit, and as its
-last line the device record.  Details go to ``chiprun_out/chip_smoke.json``.
-Any failed phase exits non-zero.  Without CUDA, or without the repository
-beside it, it exits non-zero and prints no result.
+It prints the launch geometry of the two tensor-core kernels
+(``conv1x1_gemm``, ``winograd_fused``: block tile, K-splits, blocks) at
+their main-path shapes, and fails where one of the five paper shapes
+launches under one wave of 132 blocks; the build phase prints every
+kernel's registers and spills.  The launch counters show that each path
+ran its kernels.  It then times served latency over windows of a few
+hundred requests per engine, times each kernel (CUDA graph replays
+between CUDA events, so host dispatch is left out; eager times and the
+host's time per call are kept beside) with its plain version, one
+library call and its bound (work over the rate of the units the kernel
+runs on: 495/3 TFLOP/s for a 3xTF32 product, 989 for bf16), and prints
+one ``{"kernels": [...]}`` line, the card's name and power limit, and as
+its last line the device record.  Details go to
+``chiprun_out/chip_smoke.json``.  Any failed phase exits non-zero.
+Without CUDA, or without the repository beside it, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -51,6 +58,9 @@ ROOT = Path(__file__).resolve().parent
 # the card's published peaks (H100 SXM data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
+# fp32 products on the TF32 tensor cores in the 3xTF32 split: three TF32
+# products each, at a third of 495 TFLOP/s (conv1x1_gemm, winograd_fused)
+TF32X3_FLOP_PER_S = 495e12 / 3
 INT8_OP_PER_S = 1979e12          # int8 tensor cores, dense
 BF16_FLOP_PER_S = 989e12         # bf16 tensor cores, dense
 
@@ -61,6 +71,7 @@ WINOGRAD_FP32_TOL = {2: 1e-4, 4: 2e-3}
 SERVE_TOL = 3e-4                 # card vs CPU engine: x * max|cpu output|
 INT8_ACCURACY = 0.05             # int8 vs fp32 (quant/accuracy.py)
 
+SMS = 132                        # the H100's streaming multiprocessors
 WINDOWS, WINDOW_REQUESTS = 3, 300   # served-latency windows per engine
 GRAPH_CALLS, GRAPH_REPLAYS = 20, 10  # calls captured per graph, replays
 
@@ -72,6 +83,8 @@ WINOGRAD_ROWS = {"r50_56x56x64": ((56, 3, 64, 64),
                  "r50_28x28x128": ((28, 3, 128, 128),
                                    {"m": 2, "tt": 256, "tm": 128,
                                     "tc": 128})}
+# the profiled 1x1 rows, on conv1x1_gemm
+GEMM_ROWS = ("t3_A", "t3_B", "t3_C")
 # forced algorithm="direct" rows: three profiled rows and resnet_like's
 # b2c1 geometry at 224x224 (stride 2)
 DIRECT_ROWS = ("t3_A", "t4_B", "t5_B")
@@ -105,6 +118,27 @@ def phase(name) -> None:
     _PHASE["name"], _PHASE["t0"] = name, now
     if name is not None:
         print(f"== {name}", flush=True)
+
+
+def ptxas_entries(log: str) -> list:
+    """``-Xptxas -v`` per kernel: entry name, registers, spill bytes."""
+    import re
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            out.append({"entry": m.group(1), "registers": None,
+                        "spill_stores": None, "spill_loads": None})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and out:
+            out[-1]["spill_stores"], out[-1]["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
 
 
 def main() -> None:
@@ -163,10 +197,13 @@ def main() -> None:
     built = _build.build_all()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
           f"(one nvcc per source, in parallel)")
+    report["ptxas"] = {}
     for name, log in sorted(_build.BUILD_LOG.items()):
-        for line in log["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        entries = report["ptxas"][name] = ptxas_entries(log["ptxas"])
+        for e in entries:
+            print(f"  ptxas {name}: {e['entry']}: {e['registers']} "
+                  f"registers, spill stores {e['spill_stores']} B, "
+                  f"loads {e['spill_loads']} B")
 
     # -- the main paths' shapes, from the port's own plans ------------------
     phase("plans, and int8 calibration through GraphPlan.warmup")
@@ -291,6 +328,9 @@ def main() -> None:
     def cases(dtype):
         out = []
         base_tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        # the tensor-core kernels' rate for this dtype's products
+        tc_peak = (TF32X3_FLOP_PER_S if dtype == torch.float32
+                   else BF16_FLOP_PER_S)
         for label, p in node_plans + [(lb, p) for lb, p, _ in paper_plans]:
             s = p.spec
             n, oh, ow, m = s.out_shape
@@ -308,7 +348,8 @@ def main() -> None:
                 args = (randn((n * oh * ow, c), dtype), randn((c, m), dtype))
                 out.append(case("conv1x1_gemm", label, conv1x1.conv1x1_gemm,
                                 conv1x1.conv1x1_gemm_plain, args,
-                                gemm_tiles(p), {}, direct_flops, base_tol))
+                                gemm_tiles(p), {}, direct_flops, base_tol,
+                                peak=tc_peak))
             elif p.algorithm == "cuconv_two_stage_pallas":
                 xs, wt = two_stage_inputs(p, dtype)
                 out.append(case("stage1_tap_gemm", label,
@@ -337,7 +378,7 @@ def main() -> None:
                     (randn(s.in_shape, dtype), randn(s.filter_shape, dtype)),
                     kw, pkw, 2 * (fm + 2) ** 2 * tiles * c * m,
                     WINOGRAD_FP32_TOL[fm] if dtype == torch.float32
-                    else BF16_TOL))
+                    else BF16_TOL, peak=TF32X3_FLOP_PER_S))
             elif p.algorithm == "direct":
                 pkw = dict(padding=s.padding, stride=s.stride)
                 out.append(case(
@@ -434,6 +475,40 @@ def main() -> None:
                      f"plain version ({err:.3e} > {bound:.3e})")
             if dtype != torch.bfloat16:
                 max_err[kname] = max(max_err.get(kname, 0.0), err)
+
+    # -- 3b. the tensor-core kernels' launch geometry ------------------------
+    phase("launch geometry of conv1x1_gemm and winograd_fused")
+
+    def geometry(c):
+        """What the wrapper launches for this call (the kernel's own
+        block tile and splits; the plan's config sizes nothing)."""
+        args, kw = c["args"], c["kw"]
+        if c["kernel"] == "conv1x1_gemm":
+            (P, C), M = args[0].shape, args[1].shape[1]
+            return conv1x1.launch_geometry(P, C, M, args[0].element_size())
+        if c["kernel"] == "winograd_fused":
+            n, h, w_, _ = args[0].shape
+            fm, (ph, pw), M = kw["m"], kw["padding"], args[1].shape[3]
+            tiles = n * -(-(h + 2 * ph - 2) // fm) * -(-(w_ + 2 * pw - 2)
+                                                       // fm)
+            return winograd_fused.launch_geometry(
+                fm, tiles, M, kw["tm"], args[0].element_size())
+        return None
+
+    report["geometry"] = {}
+    for c in cases(torch.float32):
+        geo = geometry(c)
+        if geo is None:
+            continue
+        report["geometry"][c["label"]] = geo
+        print(f"  {c['kernel']:16s} {c['label']:28s} {geo}")
+        main = (c["label"] in GEMM_ROWS or c["label"] in WINOGRAD_ROWS)
+        if main and geo["blocks"] < SMS:
+            fail(f"{c['kernel']} {c['label']}: {geo['blocks']} blocks, "
+                 f"under one wave of {SMS}")
+    missing = (set(GEMM_ROWS) | set(WINOGRAD_ROWS)) - set(report["geometry"])
+    if missing:
+        fail(f"main-path shapes not on the tensor-core kernels: {missing}")
 
     # -- 4a. the per-call conv path: the paper's rows ------------------------
     phase("main path: paper rows through repro_torch.conv2d")
@@ -902,10 +977,12 @@ def main() -> None:
         t_ops = c["ops"] / c["peak"] * 1e3
         eager, host = eager_ms(lambda: kfn(*args, **kw))
         lib = library_call(c)
+        geo = geometry(c)
         row = {"kernel": kname, "shape": label,
                "dtype": str(args[0].dtype)[6:],
                "config": {k: v for k, v in kw.items()
                           if k in ("m", "tt", "tm", "tc", "tp", "rows")},
+               "geometry": geo,
                "ms": time_ms(lambda: kfn(*args, **kw)),
                "eager_ms": eager, "host_ms_per_call": host,
                "plain_ms": time_ms(lambda: c["pfn"](*args, **c["pkw"])),
@@ -916,11 +993,13 @@ def main() -> None:
         report["shapes"].append(row)
         lib_s = (f"{row['library_ms']:.6f}" if lib is not None
                  else "none")
+        shape_s = (f"plan {row['config']} (sizes nothing); launched "
+                   f"{geo}" if geo is not None else f"{row['config']}")
         print(f"  {kname:16s} {label:28s} {row['dtype']:8s} "
               f"{row['ms']:.6f} ms  eager "
               f"{eager:.6f} (host {host:.6f})  plain {row['plain_ms']:.6f}"
               f"  library {lib_s}  bound {row['bound_ms']:.6f} "
-              f"({row['bound_by']})  {row['config']}")
+              f"({row['bound_by']})  {shape_s}")
         if not c["in_line"]:
             continue
         tot = totals.setdefault(kname, {"ms": 0.0, "plain_ms": 0.0,

@@ -516,12 +516,6 @@ def _gemm_tile_configs(p: int, m: int, c: int) -> Tuple[LaunchConfig, ...]:
         for tp, tm, tc in _GEMM_TILES)
 
 
-def _gemm_tile_smem(config: LaunchConfig, c: int) -> int:
-    """Shared memory of the CUDA tile GEMM under ``config``."""
-    from repro_torch.kernels.conv1x1 import smem_bytes
-    return smem_bytes(min(config.get("tc", 512), c))
-
-
 def _gemm_tile_steps(p: int, m: int, c: int, config: LaunchConfig) -> float:
     """Block-step count of the tiled GEMM under ``config`` (the ranking
     ``config_cost`` minimizes)."""
@@ -533,8 +527,15 @@ def _gemm_tile_steps(p: int, m: int, c: int, config: LaunchConfig) -> float:
 
 class Conv1x1PallasExecutor(Executor):
     """The 1x1 GEMM CUDA kernel (``kernels/conv1x1.py``; the registry
-    name is the JAX package's): all N*H*W pixels in one tiled GEMM —
-    the paper's best-case region on its natural kernel."""
+    name is the JAX package's): all N*H*W pixels in one tensor-core GEMM
+    — the paper's best-case region on its natural kernel.
+
+    Tuning space: the reference's ``tp``/``tm``/``tc``, ranked by its
+    grid-step model, so plans and cache entries read like the
+    reference's.  On the card they size nothing: the kernel picks its
+    own block tile and contraction splits from the shape
+    (``conv1x1.launch_geometry``), and ``vmem_bytes`` is that geometry's
+    shared memory, the same for every candidate."""
     name = "conv1x1_pallas"
     tunable = ("tp", "tm", "tc")
     kernels = ("conv1x1_gemm",)
@@ -559,7 +560,9 @@ class Conv1x1PallasExecutor(Executor):
         return _gemm_tile_configs(*self._gemm_dims(spec))
 
     def vmem_bytes(self, spec, config=None):
-        return _gemm_tile_smem(LaunchConfig.of(config), spec.in_shape[3])
+        from repro_torch.kernels.conv1x1 import launch_geometry
+        p, m, c = self._gemm_dims(spec)
+        return launch_geometry(p, c, m, _itemsize(spec))["smem"]
 
     def config_cost(self, spec, config):
         return _gemm_tile_steps(*self._gemm_dims(spec), config)
@@ -597,7 +600,10 @@ class TwoStagePallasExecutor(Executor):
         return _gemm_tile_configs(*self._gemm_dims(spec))
 
     def vmem_bytes(self, spec, config=None):
-        return _gemm_tile_smem(LaunchConfig.of(config), spec.filter_shape[2])
+        # stage 1's tile GEMM stages tc-deep slices: the budget prunes tc
+        from repro_torch.kernels.cuconv_stage1 import smem_bytes
+        return smem_bytes(min(LaunchConfig.of(config).get("tc", 512),
+                              spec.filter_shape[2]))
 
     def config_cost(self, spec, config):
         p, m, c = self._gemm_dims(spec)
@@ -769,19 +775,23 @@ _WINO_TILES = (
 
 class WinogradPallasExecutor(Executor):
     """The Winograd F(m,3) CUDA kernel (``kernels/winograd_fused.py``;
-    the registry name is the JAX package's): B^T d B, the per-position
-    channel products with fp32 accumulators in registers, A^T m A and the
-    bias / residual / ReLU epilogue in one kernel.
+    the registry name is the JAX package's): B^T d B and G g G^T, the
+    per-position channel products on the tensor cores with fp32
+    accumulators in registers, A^T m A and the bias / residual / ReLU
+    epilogue in one kernel.
 
     Tuning space: ``m`` (F(2x2,3x3), 16 positions and 2.25x fewer
     multiplies, or F(4x4,3x3), 36 positions and 4x, at looser numerics),
-    ``tt`` (tiles per block), ``tm`` (output channels per block) and
-    ``tc``, the reference's contraction tile, which the kernel does not
-    use (it runs all of C inside a block) but the config cost still
-    counts, so plans read like the reference's.  The kernel stages at
-    most 54 KB of shared memory, so no candidate is pruned by the
-    budget: where the reference's VMEM budget pruned the cheapest
-    candidate, the port's default config differs from the reference's.
+    and the reference's ``tt`` (tiles per block), ``tm`` (output channels
+    per block) and ``tc`` (contraction tile), which the config cost
+    counts so plans read like the reference's.  On the card ``tt`` and
+    ``tc`` size nothing: the kernel launches one block per its own tile
+    block x channel block (``winograd_fused.launch_geometry``), and
+    ``tm`` only picks its 16-channel variant for narrow layers.  The
+    kernel stages at most 140 KB of shared memory, so no candidate is
+    pruned by the budget: where the reference's VMEM budget pruned the
+    cheapest candidate, the port's default config differs from the
+    reference's.
     """
     name = "winograd_pallas"
     fuses_epilogue = True
@@ -822,12 +832,14 @@ class WinogradPallasExecutor(Executor):
         return True, "config geometry ok"
 
     def vmem_bytes(self, spec, config=None):
-        from repro_torch.kernels.winograd_fused import smem_bytes
+        from repro_torch.kernels.winograd_fused import launch_geometry
         cfg = LaunchConfig.of(config)
         fm = cfg.get("m", 2)
         if fm not in (2, 4):
             return None              # refused by _config_supports first
-        return smem_bytes(fm, min(cfg.get("tm", 128), spec.filter_shape[3]))
+        p, m, _ = self._tile_counts(spec, fm)
+        return launch_geometry(fm, p, m, cfg.get("tm", 128),
+                               _itemsize(spec))["smem"]
 
     def config_cost(self, spec, config):
         fm = config.get("m", 2)

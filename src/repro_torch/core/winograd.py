@@ -10,9 +10,9 @@ measurably bigger; ``tests/test_torch_winograd.py`` pins both bounds.
 
 This module owns the port's copy of the transform matrices — the JAX
 package's constants, kept here so the port imports nothing of it.
-``matrices(m)`` is the one home the plain path below and the CUDA
-kernel's wrapper (``kernels/winograd_fused.py``) read them from; the
-kernel itself spells the same matrices out in ``csrc/winograd_fused.cu``.
+``matrices(m)`` is the one home the plain path below and the
+``winograd`` executor read them from; the CUDA kernel spells the same
+matrices out in ``csrc/winograd_fused.cu`` and forms G g G^T itself.
 
 Plain PyTorch (stride 1, 3x3 filters): the Winograd domain is computed
 in fp32 whatever the operand dtype, as (m+2)^2 per-position
@@ -88,9 +88,8 @@ def matrices(m: int, device=None):
 def transform_filters(w, m: int = 2):
     """w: (3, 3, C, M) -> (m+2, m+2, C, M) fp32: U = G g G^T per (C, M)."""
     G = matrices(m, w.device)[1]
-    # two batched matmuls over (C, M), not a three-operand einsum: the
-    # kernel's wrapper runs this on every call, and einsum plans its
-    # contraction on every call, which is host time on the served path
+    # two batched matmuls over (C, M), not a three-operand einsum, which
+    # plans its contraction on every call
     return (G @ w.float().permute(2, 3, 0, 1) @ G.T).permute(2, 3, 0, 1)
 
 

@@ -1,28 +1,332 @@
-// conv1x1_gemm: a 1x1 convolution as the GEMM (P x C) @ (C x M).
+// conv1x1_gemm: a 1x1 convolution as the GEMM (P x C) @ (C x M), fp32
+// accumulation, written in the input dtype.
 //
 // Replaces kernels/conv1x1.py::conv1x1_gemm of the JAX package (the
-// Pallas MXU-tiled GEMM).  On the H100 in fp32 without tensor cores it
-// is bound by operations at the paper's shapes (t3_A: 2*49*832*256 flop
-// over 67 TFLOP/s against 0.9 MB over 3.35 TB/s), so the design keeps
-// every operand in shared memory for a 4 x 4 register micro-tile per
-// thread (16 FFMA per 8 shared loads) and reads each input element from
-// device memory once per 64-channel sub-tile.  The TPU wrapper's
-// jnp.pad copies to tile multiples become load masks (tile_gemm.cuh).
+// Pallas MXU-tiled GEMM).  What bounds it on the H100: at the paper's
+// shapes (21-103 MFLOP, P down to 49) the tensor cores' rate for the
+// 3xTF32 product (495/3 TFLOP/s) against under 2 MB of operands, so the
+// bound is a few microseconds and what decides the time is how many
+// blocks are in flight and how well loads overlap the math.  Design:
+//  - The block tile belongs to the kernel: BM = 64 or 32 pixel rows x
+//    BN = 64 channels from 4 warps (2 x 2), each warp 2 or 1 16-row x
+//    4 8-column mma tiles.  kernels/conv1x1.py::launch_geometry picks it,
+//    and the number of contraction splits, from (P, C, M) alone; the
+//    reference's tp/tm/tc do not size anything here.
+//  - Where the output tiles alone are fewer than the card's 132 SMs, the
+//    contraction over C is split across blocks (blockIdx.z) in fixed
+//    ranges of 32-deep steps.  Each split writes its fp32 partial tile to
+//    a workspace; the last block of a tile to arrive (an atomic counter)
+//    sums the partials in split order and writes the output, so two calls
+//    give the same bits.  The wrapper allocates workspace and counters;
+//    the last block resets its counter.
+//  - fp32: mma.sync m16n8k8 on TF32 in the 3xTF32 split (mma_tf32.cuh).
+//    bf16: mma.sync m16n8k16 on bf16.  fp32 accumulation in registers,
+//    one rounding on the write.
+//  - A 3-stage ring of 32-deep A (BM x 32) and B (32 x BN) tiles in
+//    shared memory, filled by 16-byte cp.async (zero-fill past the edges)
+//    while the tensor cores work on an earlier stage.  A rows are padded
+//    by 16 bytes and B rows by 8 elements, so fragment loads hit 32
+//    distinct banks.  Where C or M is not a multiple of 16 bytes, or a
+//    base pointer is not 16-byte aligned, the same ring is filled by
+//    masked scalar loads instead (vec = 0).
 #include "common.cuh"
-#include "tile_gemm.cuh"
+#include "mma_tf32.cuh"
+
+constexpr int kThreads = 128;  // 4 warps, 2 x 2
+constexpr int kBK = 32;        // contraction depth per stage
+constexpr int kStages = 3;
+constexpr int kBN = 64;
+
+template <typename T>
+struct Pad;
+template <>
+struct Pad<float> {
+  static constexpr int A = 4, B = 8;
+};
+template <>
+struct Pad<__nv_bfloat16> {
+  static constexpr int A = 8, B = 8;
+};
+
+// kernels/conv1x1.py::launch_geometry models the same shared memory
+template <typename T, int MI>
+struct Tile {
+  static constexpr int BM = 32 * MI, BN = kBN;
+  static constexpr int LDA = kBK + Pad<T>::A, LDB = BN + Pad<T>::B;
+  static constexpr int A_ELEMS = BM * LDA, B_ELEMS = kBK * LDB;
+  static constexpr int SMEM = kStages * (A_ELEMS + B_ELEMS) * sizeof(T);
+};
+
+template <typename T, int MI>
+__device__ __forceinline__ void load_stage(T* As, T* Bs,
+                                           const T* __restrict__ A,
+                                           const T* __restrict__ B, int P,
+                                           int C, int M, int p0, int n0,
+                                           int k0, int k_end, bool vec,
+                                           int tid) {
+  using L = Tile<T, MI>;
+  constexpr int V = VecOf<T>::kElems;
+  if (vec) {
+    for (int e = tid; e < L::BM * kBK / V; e += kThreads) {
+      const int r = e / (kBK / V), cc = (e % (kBK / V)) * V;
+      const int p = p0 + r, k = k0 + cc;
+      const bool ok = p < P && k < k_end;
+      cp_async16(As + r * L::LDA + cc, ok ? A + (int64_t)p * C + k : A, ok);
+    }
+    for (int e = tid; e < kBK * L::BN / V; e += kThreads) {
+      const int r = e / (L::BN / V), cc = (e % (L::BN / V)) * V;
+      const int k = k0 + r, n = n0 + cc;
+      const bool ok = k < k_end && n < M;
+      cp_async16(Bs + r * L::LDB + cc, ok ? B + (int64_t)k * M + n : B, ok);
+    }
+  } else {
+    for (int e = tid; e < L::BM * kBK; e += kThreads) {
+      const int r = e / kBK, cc = e % kBK;
+      const int p = p0 + r, k = k0 + cc;
+      As[r * L::LDA + cc] =
+          (p < P && k < k_end) ? A[(int64_t)p * C + k] : from_f32<T>(0.f);
+    }
+    for (int e = tid; e < kBK * L::BN; e += kThreads) {
+      const int r = e / L::BN, cc = e % L::BN;
+      const int k = k0 + r, n = n0 + cc;
+      Bs[r * L::LDB + cc] =
+          (k < k_end && n < M) ? B[(int64_t)k * M + n] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// one 32-deep stage of the warp's MI x 4 mma tiles
+template <int MI>
+__device__ __forceinline__ void mma_stage(float (*acc)[4][4],
+                                          const float* As, const float* Bs,
+                                          int row0, int col0, int g, int t) {
+  using L = Tile<float, MI>;
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 8) {
+    uint32_t ab[MI][4], as[MI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const float* a = As + (row0 + mi * 16 + g) * L::LDA + kk + t;
+      split_tf32(a[0], ab[mi][0], as[mi][0]);
+      split_tf32(a[8 * L::LDA], ab[mi][1], as[mi][1]);
+      split_tf32(a[4], ab[mi][2], as[mi][2]);
+      split_tf32(a[8 * L::LDA + 4], ab[mi][3], as[mi][3]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const float* b = Bs + (kk + t) * L::LDB + col0 + ni * 8 + g;
+      uint32_t bb[2], bs[2];
+      split_tf32(b[0], bb[0], bs[0]);
+      split_tf32(b[4 * L::LDB], bb[1], bs[1]);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        mma_3xtf32(acc[mi][ni], ab[mi], as[mi], bb, bs);
+    }
+  }
+}
+
+template <int MI>
+__device__ __forceinline__ void mma_stage(float (*acc)[4][4],
+                                          const __nv_bfloat16* As,
+                                          const __nv_bfloat16* Bs, int row0,
+                                          int col0, int g, int t) {
+  using L = Tile<__nv_bfloat16, MI>;
+#pragma unroll
+  for (int kk = 0; kk < kBK; kk += 16) {
+    uint32_t a[MI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const __nv_bfloat16* ap = As + (row0 + mi * 16 + g) * L::LDA + kk + 2 * t;
+      a[mi][0] = *reinterpret_cast<const uint32_t*>(ap);
+      a[mi][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * L::LDA);
+      a[mi][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
+      a[mi][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * L::LDA + 8);
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const __nv_bfloat16* bp = Bs + (kk + 2 * t) * L::LDB + col0 + ni * 8 + g;
+      uint32_t b[2];
+      b[0] = pack_bf16(bp[0], bp[L::LDB]);
+      b[1] = pack_bf16(bp[8 * L::LDB], bp[9 * L::LDB]);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) mma_bf16(acc[mi][ni], a[mi], b);
+    }
+  }
+}
+
+template <typename T, int MI>
+__global__ void __launch_bounds__(kThreads)
+conv1x1_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                  T* __restrict__ out, float* __restrict__ ws,
+                  int* __restrict__ counters, int P, int C, int M,
+                  int splits, int vec) {
+  using L = Tile<T, MI>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* As = reinterpret_cast<T*>(smem_raw);
+  T* Bs = As + kStages * L::A_ELEMS;
+  __shared__ int is_last;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int row0 = (warp >> 1) * 16 * MI, col0 = (warp & 1) * 32;
+  const int p0 = blockIdx.x * L::BM, n0 = blockIdx.y * L::BN;
+  const int z = blockIdx.z;
+  // this split's fixed range of 32-deep steps
+  const int k_steps = (C + kBK - 1) / kBK;
+  const int s_begin = (int)((int64_t)z * k_steps / splits);
+  const int s_end = (int)((int64_t)(z + 1) * k_steps / splits);
+  const int nk = s_end - s_begin;
+  const int k_end = min(s_end * kBK, C);
+
+  float acc[MI][4][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk)
+      load_stage<T, MI>(As + s * L::A_ELEMS, Bs + s * L::B_ELEMS, A, B, P, C,
+                        M, p0, n0, (s_begin + s) * kBK, k_end, vec, tid);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage kt landed; stage kt - 1 is free again
+    const int nxt = kt + kStages - 1;
+    if (nxt < nk) {
+      const int slot = nxt % kStages;
+      load_stage<T, MI>(As + slot * L::A_ELEMS, Bs + slot * L::B_ELEMS, A, B,
+                        P, C, M, p0, n0, (s_begin + nxt) * kBK, k_end, vec,
+                        tid);
+    }
+    cp_async_commit();
+    const int slot = kt % kStages;
+    mma_stage<MI>(acc, As + slot * L::A_ELEMS, Bs + slot * L::B_ELEMS, row0,
+                  col0, g, t);
+  }
+  cp_async_wait<0>();
+
+  // this lane's accumulator (mi, ni, q) sits at row/column:
+  //   p0 + row0 + mi*16 + g + 8*(q/2),  n0 + col0 + ni*8 + 2t + q%2
+  float* dst = splits == 1 ? nullptr : ws + (int64_t)z * P * M;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int p = p0 + row0 + mi * 16 + g + 8 * (q >> 1);
+        const int n = n0 + col0 + ni * 8 + 2 * t + (q & 1);
+        if (p >= P || n >= M) continue;
+        if (dst == nullptr)
+          out[(int64_t)p * M + n] = from_f32<T>(acc[mi][ni][q]);
+        else
+          dst[(int64_t)p * M + n] = acc[mi][ni][q];
+      }
+  if (splits == 1) return;
+
+  // split-K: the last block of this tile sums the partials in split order
+  __threadfence();
+  __syncthreads();
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  if (tid == 0) is_last = atomicAdd(&counters[tile], 1) == splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // each thread sums PER elements, four splits at a time, so the loads
+  // of 4 * PER partials are in flight together; the adds keep split
+  // order.  Offsets fit an int (the launcher checks splits * P * M).
+  constexpr int PER = L::BM * L::BN / kThreads;
+  const int stride = P * M;
+  int off[PER];
+  float sum[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = tid + i * kThreads;
+    const int p = p0 + e / L::BN, n = n0 + e % L::BN;
+    off[i] = p < P && n < M ? p * M + n : -1;
+    sum[i] = 0.f;
+  }
+  int zz = 0;
+  for (; zz + 4 <= splits; zz += 4) {
+    const float* src = ws + zz * stride;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      if (off[i] < 0) continue;
+      const float* q = src + off[i];
+      const float a0 = __ldcg(q), a1 = __ldcg(q + stride),
+                  a2 = __ldcg(q + 2 * stride), a3 = __ldcg(q + 3 * stride);
+      sum[i] = (((sum[i] + a0) + a1) + a2) + a3;
+    }
+  }
+  for (; zz < splits; ++zz) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      if (off[i] >= 0) sum[i] += __ldcg(ws + zz * stride + off[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i)
+    if (off[i] >= 0) out[off[i]] = from_f32<T>(sum[i]);
+  if (tid == 0) counters[tile] = 0;  // ready for the next call
+}
+
+template <typename T, int MI>
+static int launch(const void* A, const void* B, void* out, void* ws,
+                  void* counters, int P, int C, int M, int splits, int vec,
+                  int smem, cudaStream_t stream) {
+  using L = Tile<T, MI>;
+  constexpr int V = VecOf<T>::kElems;
+  const int k_steps = (C + kBK - 1) / kBK;
+  const bool aligned = C % V == 0 && M % V == 0 &&
+                       reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  // the split reduction indexes the workspace with ints
+  const bool ws_ok = splits == 1 || (ws != nullptr && counters != nullptr &&
+                                     (int64_t)splits * P * M <= INT32_MAX);
+  if (smem != L::SMEM || splits < 1 || splits > k_steps || !ws_ok ||
+      (vec && !aligned))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = conv1x1_tc_kernel<T, MI>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((P + L::BM - 1) / L::BM, (M + L::BN - 1) / L::BN, splits);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(A), static_cast<const T*>(B), static_cast<T*>(out),
+      static_cast<float*>(ws), static_cast<int*>(counters), P, C, M, splits,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+static int launch_tile(const void* A, const void* B, void* out, void* ws,
+                       void* counters, int P, int C, int M, int bm,
+                       int splits, int vec, int smem, cudaStream_t s) {
+  if (bm == 64)
+    return launch<T, 2>(A, B, out, ws, counters, P, C, M, splits, vec, smem,
+                        s);
+  if (bm == 32)
+    return launch<T, 1>(A, B, out, ws, counters, P, C, M, splits, vec, smem,
+                        s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 REPRO_ERROR_STRING_EXPORT
 
 REPRO_EXPORT int conv1x1_gemm_launch(const void* x2d, const void* w,
-                                     void* out, int dtype, int P, int C,
-                                     int M, int tp, int tm, int tc, int smem,
+                                     void* out, void* ws, void* counters,
+                                     int dtype, int P, int C, int M, int bm,
+                                     int splits, int vec, int smem,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch_tile_gemm<float, float>(x2d, w, out, 1, P, C, M, tp, tm,
-                                          tc, smem, s);
+    return launch_tile<float>(x2d, w, out, ws, counters, P, C, M, bm, splits,
+                              vec, smem, s);
   if (dtype == kBFloat16)
-    return launch_tile_gemm<__nv_bfloat16, __nv_bfloat16>(
-        x2d, w, out, 1, P, C, M, tp, tm, tc, smem, s);
+    return launch_tile<__nv_bfloat16>(x2d, w, out, ws, counters, P, C, M, bm,
+                                      splits, vec, smem, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,8 +5,8 @@
 //
 // Replaces kernels/cuconv_stage1.py::stage1_tap_gemm of the JAX package.
 // It is the tile GEMM of tile_gemm.cuh batched over T on blockIdx.z, so
-// what bounds it is what bounds conv1x1_gemm plus the T*P*M*4 bytes of
-// temporaries it writes; the design keeps those writes coalesced
+// what bounds it is fp32 FFMA issue (2*T*P*C*M flop over 67 TFLOP/s)
+// plus the T*P*M*4 bytes of temporaries it writes; the design keeps those writes coalesced
 // (neighbouring threads on neighbouring output channels).  It keeps the
 // reference's (T, P, C) interface: the wrapper stacks the shifted views.
 #include "common.cuh"

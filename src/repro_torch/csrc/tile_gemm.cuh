@@ -1,4 +1,4 @@
-// Batched tiled GEMM shared by conv1x1_gemm and stage1_tap_gemm:
+// Batched tiled GEMM of stage1_tap_gemm (cuconv_stage1.cu):
 //   C[t] (P x M) = A[t] (P x Cdim) @ B[t] (Cdim x M),  t = 0..T-1,
 // fp32 FFMA accumulation (no TF32), A and B in TIn, C written in TOut.
 //
@@ -7,9 +7,9 @@
 // accumulator each.  Per sub-tile the contraction runs in chunks of tc:
 // the (64 x tc) slice of A is staged transposed, the (tc x 64) slice of
 // B as it is, both converted to fp32, so shared memory is
-// gemm_smem_bytes(tc) = 4 * tc * (64 + 1 + 64).  Ragged edges are
-// masked to zero on load and skipped on store: nothing is padded in
-// device memory.
+// kernels/cuconv_stage1.py::smem_bytes(tc) = 4 * tc * (64 + 1 + 64).
+// Ragged edges are masked to zero on load and skipped on store: nothing
+// is padded in device memory.
 #pragma once
 
 #include "common.cuh"

@@ -26,7 +26,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_HEADERS = ("common.cuh", "tile_gemm.cuh")
+_HEADERS = ("common.cuh", "tile_gemm.cuh", "mma_tf32.cuh")
 
 #: source file -> exported launchers and their ctypes signatures
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -37,8 +37,9 @@ LIBRARIES: Dict[str, Dict[str, Sequence]] = {
         "cuconv_fused_launch": [_P] * 5 + [_I] * 21 + [_P],
     },
     "conv1x1": {
-        # x2d, w, out, dtype, P, C, M, tp, tm, tc, smem, stream
-        "conv1x1_gemm_launch": [_P] * 3 + [_I] * 8 + [_P],
+        # x2d, w, out, ws, counters, dtype, P, C, M, bm, splits, vec,
+        # smem, stream
+        "conv1x1_gemm_launch": [_P] * 5 + [_I] * 8 + [_P],
     },
     "cuconv_stage1": {
         # xs, w, out, dtype, T, P, C, M, tp, tm, tc, smem, stream
@@ -49,8 +50,8 @@ LIBRARIES: Dict[str, Dict[str, Sequence]] = {
         "stage2_tap_sum_launch": [_P] * 2 + [_I] * 3 + [_P],
     },
     "winograd_fused": {
-        # x, U, bias, addend, out, dtype, N, H, W, C, M, ph, pw, OH, OW,
-        # m, tt, tm, relu, smem, stream
+        # x, w, bias, addend, out, dtype, N, H, W, C, M, ph, pw, OH, OW,
+        # m, bn, vec, relu, smem, stream
         "winograd_fused_launch": [_P] * 5 + [_I] * 15 + [_P],
     },
     "direct_conv": {

@@ -5,16 +5,47 @@
 written to device memory on purpose — what the JAX package's Pallas
 kernel of the same name computes.  The CUDA kernel
 (``csrc/cuconv_stage1.cu``) is the tile GEMM of ``csrc/tile_gemm.cuh``
-batched over T, with the same ``(tp, tm, tc)`` launch config and
-shared-memory model as ``conv1x1_gemm``.  ``stage1_tap_gemm_plain`` is
-the same function in plain PyTorch.
+batched over T, with ``(tp, tm, tc)`` as its launch config: the
+block's pixel x channel output tile and the contraction depth staged per
+step.  ``smem_bytes`` is what a block stages, used both by the planner
+(``TwoStagePallasExecutor``) to prune configs and by the wrapper to size
+the launch.  ``stage1_tap_gemm_plain`` is the same function in plain
+PyTorch.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.conv1x1 import gemm_checks
+from repro_torch.kernels._compat import clamp_tiles
+
+SUB = 64          # the tile GEMM's sub-tile edge (pixels and channels)
+
+
+def smem_bytes(tc: int) -> int:
+    """Shared memory of the tile GEMM: the fp32 (64 x tc) input slice,
+    stored transposed with one pad column, and the (tc x 64) filter
+    slice."""
+    return 4 * int(tc) * (2 * SUB + 1)
+
+
+def gemm_checks(name: str, a, b, tp: int, tm: int, tc: int):
+    """Validation of the tile-GEMM wrapper: a (..., P, C), b (..., C, M);
+    returns the clamped ``(tp, tm, tc)`` and the shared memory the launch
+    stages."""
+    if a.shape[-1] != b.shape[-2] or a.shape[:-2] != b.shape[:-2]:
+        raise ValueError(f"{name}: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} do not contract")
+    P, C = a.shape[-2:]
+    M = b.shape[-1]
+    if min(P, C, M) < 1:
+        raise ValueError(f"{name}: empty operand {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    (tp, tm, tc), _ = clamp_tiles((P, M, C), (tp, tm, tc))
+    _build.check_operands(name, a.device, a.dtype, a=a, b=b)
+    smem = smem_bytes(tc)
+    _build.check_smem(name, smem, f"config tp={tp}, tm={tm}, tc={tc}")
+    return (tp, tm, tc), smem
 
 
 def stage1_tap_gemm_plain(xs, w):

@@ -3,14 +3,15 @@
 
 ``winograd_fused`` computes a 3x3 stride-1 convolution of NHWC x by
 HWIO w through F(m x m, 3 x 3), m in {2, 4}: B^T d B, the (m+2)^2
-per-position channel products accumulated over C in fp32, A^T m A, then
-the fused bias / residual addend / ReLU epilogue and one write in
-x.dtype — what the JAX package's Pallas kernel of the same name
-computes.  U = G g G^T is computed once per call in fp32 here and handed
-to the kernel; the kernel reads the unpadded input and the NHWC addend
-itself, with masks, so no tile gather happens in PyTorch.  The CUDA
-design is described in the source; ``smem_bytes`` is its shared-memory
-model, used both by the planner and by the wrapper to size the launch.
+per-position channel products accumulated over C in fp32 on the tensor
+cores (3xTF32 ``mma.sync``), A^T m A, then the fused bias / residual
+addend / ReLU epilogue and one write in x.dtype — what the JAX
+package's Pallas kernel of the same name computes.  The kernel forms
+U = G g G^T itself from the HWIO filter and reads the unpadded input and
+the NHWC addend with masks, so nothing is transformed or gathered in
+PyTorch.  ``launch_geometry`` is the block shape the kernel takes and
+its shared memory, used both by the planner and by the wrapper to size
+the launch.
 
 ``winograd_fused_plain`` is the same function in plain PyTorch
 (``core/winograd.py``'s fp32 path, then the epilogue): the wrapper runs
@@ -22,28 +23,34 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.winograd import transform_filters, winograd_f32
+from repro_torch.core.winograd import winograd_f32
 from repro_torch.kernels import _build
 
-KC = 8           # channels transformed and staged per chunk (kKC)
-THREADS = 256
+KC = 8           # channels per chunk, one mma k-step (kKC)
 VARIANTS = (2, 4)
+# (m, channel tile) -> tiles per block: 4 warps, each 16 tiles x 8*J
+# channels, J = 2 at m=2 and 1 at m=4 (launch_wino_variant)
+_TILES = {(2, 32): 32, (2, 16): 64, (4, 32): 16, (4, 16): 32}
 
 
-def sub_tile(m: int, tm: int):
-    """``(ST, MT)``: the tiles x output channels a block walks its region
-    in, as the kernel picks them from ``m`` and ``tm`` (each thread holds
-    2 channels of 2 tiles at m=2, of 1 tile at m=4)."""
-    mt = 16 if tm <= 16 else 32
-    ty = THREADS // (mt // 2)
-    return ty * (2 if m == 2 else 1), mt
-
-
-def smem_bytes(m: int = 2, tm: int = 128) -> int:
-    """Bytes of shared memory the kernel stages: the transformed input
-    chunk [R][KC][ST] and U's slice [R][KC][MT], fp32, R = (m+2)^2."""
-    st, mt = sub_tile(m, tm)
-    return 4 * (m + 2) ** 2 * KC * (st + mt)
+def launch_geometry(m: int, tiles: int, M: int, tm: int = 128,
+                    itemsize: int = 4) -> dict:
+    """The block the kernel launches for ``tiles`` output tiles of F(m,3)
+    and M output channels: ``bt`` tiles x ``bn`` channels (16 channels
+    where ``tm`` or M is 16 or less, else 32), ``blocks`` in all, and
+    the ``smem`` one block stages: a 2-stage ring of raw input patches
+    [bt][R*8 + 8] and filter slices [9][8][bn] in x's dtype, and the
+    transformed V [R][bt][8] and U [R][8][bn] in fp32, R = (m+2)^2."""
+    if m not in VARIANTS:
+        raise ValueError(f"F(m,3) variant must be one of {VARIANTS}; "
+                         f"got m={m}")
+    bn = 16 if min(int(tm), int(M)) <= 16 else 32
+    bt = _TILES[(m, bn)]
+    r = (m + 2) ** 2
+    smem = (2 * (bt * (r * KC + 8) + 9 * KC * bn) * itemsize
+            + (r * bt * KC + r * KC * bn) * 4)
+    return {"bt": bt, "bn": bn, "blocks": -(-tiles // bt) * -(-M // bn),
+            "smem": smem}
 
 
 def winograd_fused_plain(x, w, padding=(1, 1), bias=None, activation=None,
@@ -66,11 +73,11 @@ def winograd_fused(x, w, padding=(1, 1), bias=None,
 
     bias: optional (M,); activation: None | 'relu'; addend: optional
     (N, OH, OW, M) residual added after the bias and before the
-    activation.  ``m`` is the F(m, 3) variant; ``tt``/``tm`` are the
-    block's tiles x output channels; ``tc`` is the reference's
-    contraction tile, accepted for its launch configs (the kernel runs
-    all of C inside a block).  Returns (N, OH, OW, M) in x.dtype.  CPU
-    tensors run the plain version; CUDA tensors launch the kernel.
+    activation.  ``m`` is the F(m, 3) variant; ``tm`` caps the channel
+    tile (16 or 32, ``launch_geometry``); ``tt`` and ``tc`` are the
+    reference's tiles, checked and kept for its launch configs, and size
+    nothing here.  Returns (N, OH, OW, M) in x.dtype.  CPU tensors run
+    the plain version; CUDA tensors launch the kernel.
     """
     name = "winograd_fused"
     if x.dim() != 4 or w.dim() != 4:
@@ -106,23 +113,24 @@ def winograd_fused(x, w, padding=(1, 1), bias=None,
     _build.check_operands(name, x.device, x.dtype, x=x, w=w, bias=bias,
                           addend=addend)
     P = N * -(-OH // m) * -(-OW // m)
-    tt, tm = min(int(tt), P), min(int(tm), M)
-    smem = smem_bytes(m, tm)
-    _build.check_smem(name, smem, f"config m={m}, tm={tm}")
+    geo = launch_geometry(m, P, M, tm, x.element_size())
+    _build.check_smem(name, geo["smem"], f"block {geo['bt']}x{geo['bn']}")
     if not _build.on_card(name, x):
         return winograd_fused_plain(x, w, padding, bias, activation, addend,
                                     m)
-    U = transform_filters(w, m).reshape((m + 2) ** 2, C, M).contiguous()
+    v = 16 // x.element_size()
+    vec = (C % v == 0 and M % v == 0 and x.data_ptr() % 16 == 0
+           and w.data_ptr() % 16 == 0)
     out = torch.empty((N, OH, OW, M), dtype=x.dtype, device=x.device)
     lib = _build.library("winograd_fused")
     with torch.cuda.device(x.device):
         code = lib.winograd_fused_launch(
-            x.data_ptr(), U.data_ptr(),
+            x.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if addend is None else addend.data_ptr(),
             out.data_ptr(), _build.DTYPE_CODES[str(x.dtype)[6:]],
-            N, H, W, C, M, ph, pw, OH, OW, m, tt, tm,
-            int(activation == "relu"), smem, _build.stream_of(x))
+            N, H, W, C, M, ph, pw, OH, OW, m, geo["bn"], int(vec),
+            int(activation == "relu"), geo["smem"], _build.stream_of(x))
     _build.check("winograd_fused", name, code)
     _build.LAUNCHES[name] += 1
     return out

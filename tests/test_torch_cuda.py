@@ -7,7 +7,9 @@ tol 2e-5 in fp32 (both sides FFMA/cuBLAS fp32, TF32 off; only the
 summation order differs) and 3e-2 in bf16 (one bf16 rounding of the
 output).  The Winograd kernel sums in another order over the Winograd
 domain than its plain version, so it is held to the reference's own
-Winograd bounds in fp32: 1e-4 at F(2,3), 2e-3 at F(4,3).  The int8 GEMM
+Winograd bounds in fp32: 1e-4 at F(2,3), 2e-3 at F(4,3).  The 1x1 GEMM
+and the Winograd products run on the tensor cores in 3xTF32, which
+holds the fp32 bounds (``tests/test_torch_tensor_cores.py``).  The int8 GEMM
 is exact: it must equal its plain version bit for bit.  The LM kernels
 (flash attention, causal conv1d) keep the conv kernels' bounds; the
 flash plain version takes one softmax over all keys where the kernel
@@ -76,6 +78,9 @@ def test_cuconv_fused_kernel_matches_plain(geom, dtype):
 @pytest.mark.parametrize("P,C,M,tiles", [
     (64, 32, 16, (256, 128, 512)), (300, 130, 70, (128, 64, 128)),
     (17, 257, 129, (128, 128, 256)), (49, 832, 256, (49, 128, 256)),
+    # K-splits (C >= 832, P <= 64), aligned and not (C % 4 != 0)
+    (64, 1024, 96, (64, 96, 512)), (50, 833, 64, (50, 64, 512)),
+    (196, 256, 1024, (196, 512, 256)), (729, 64, 256, (512, 256, 64)),
 ])
 def test_conv1x1_gemm_kernel_matches_plain(P, C, M, tiles, dtype):
     gen = torch.Generator().manual_seed(1)
@@ -84,6 +89,56 @@ def test_conv1x1_gemm_kernel_matches_plain(P, C, M, tiles, dtype):
     got = conv1x1.conv1x1_gemm(x, w, tp=tp, tm=tm, tc=min(tc, C))
     _close(got, conv1x1.conv1x1_gemm_plain(x, w), dtype)
     assert _build.LAUNCHES["conv1x1_gemm"] == 1
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv1x1_gemm_takes_misaligned_pointers(dtype):
+    """A base pointer off 16 bytes takes the scalar-load variant."""
+    gen = torch.Generator().manual_seed(9)
+    P, C, M = 40, 64, 32
+    xs = _randn(gen, (P * C + 1,), dtype)
+    x = xs[1:].view(P, C)
+    w = _randn(gen, (C, M), dtype)
+    assert x.is_contiguous() and not conv1x1.vectorized(x, w)
+    _close(conv1x1.conv1x1_gemm(x, w), conv1x1.conv1x1_gemm_plain(x, w),
+           dtype)
+
+
+@requires_cuda
+@pytest.mark.parametrize("P,C,M", [(49, 832, 256), (50, 833, 64)])
+def test_conv1x1_gemm_split_is_deterministic(P, C, M):
+    """The split partials are summed in split order by whichever block
+    arrives last: two calls give the same bits."""
+    assert conv1x1.launch_geometry(P, C, M)["splits"] > 1
+    gen = torch.Generator().manual_seed(10)
+    x, w = (_randn(gen, (P, C), torch.float32),
+            _randn(gen, (C, M), torch.float32))
+    outs = [conv1x1.conv1x1_gemm(x, w) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@requires_cuda
+def test_conv1x1_gemm_replays_in_a_cuda_graph():
+    """Workspace and counters come from the wrapper's allocations, so a
+    captured call replays and equals the eager output."""
+    gen = torch.Generator().manual_seed(11)
+    x, w = (_randn(gen, (49, 832), torch.float32),
+            _randn(gen, (832, 256), torch.float32))
+    eager = conv1x1.conv1x1_gemm(x, w)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        conv1x1.conv1x1_gemm(x, w)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = conv1x1.conv1x1_gemm(x, w)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 @requires_cuda
@@ -110,6 +165,10 @@ def test_stage_kernels_match_plain(T, P, C, M, dtype):
     (4, 16, 16, 16, 16, (1, 1), 2, 256, 16, "bias_relu"),
     (2, 14, 14, 20, 40, (1, 1), 4, 16, 32, "add_relu"),
     (1, 13, 11, 33, 70, (2, 1), 2, 64, 128, "add"),
+    # resnet50's layers at batch 2, and a 16-wide one at F(4,3)
+    (2, 56, 56, 64, 64, (1, 1), 4, 256, 64, "none"),
+    (2, 28, 28, 128, 128, (1, 1), 2, 256, 128, "bias_relu"),
+    (4, 32, 32, 16, 16, (1, 1), 4, 256, 16, "add_relu"),
 ])
 def test_winograd_fused_kernel_matches_plain(geom, dtype):
     N, H, W, C, M, pad, m, tt, tm, epi = geom
@@ -179,8 +238,9 @@ def test_wrappers_refuse_mixed_devices_and_oversized_configs():
     with pytest.raises(ValueError, match="is on cpu"):
         cuconv_fused.cuconv_fused(x, torch.zeros((3, 3, 4, 8)))
     with pytest.raises(ValueError, match="shared"):
-        conv1x1.conv1x1_gemm(torch.zeros((8, 1024), device="cuda"),
-                             torch.zeros((1024, 8), device="cuda"), tc=1024)
+        cuconv_stage1.stage1_tap_gemm(
+            torch.zeros((1, 8, 1024), device="cuda"),
+            torch.zeros((1, 1024, 8), device="cuda"), tc=1024)
     assert sum(_build.LAUNCHES.values()) == 0
 
 

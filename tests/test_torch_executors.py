@@ -17,7 +17,7 @@ from _torch_parity import (_clear_port_caches, np32, rand, to_jax,  # noqa: F401
 from repro.core import convspec as rcs
 from repro_torch.core import autotune, executors
 from repro_torch.core import convspec as tcs
-from repro_torch.kernels import _build, cuconv_fused
+from repro_torch.kernels import _build, conv1x1, cuconv_fused
 
 TOLS = {"float32": dict(rtol=3e-4, atol=3e-4),
         "bfloat16": dict(rtol=3e-2, atol=3e-2)}
@@ -182,11 +182,18 @@ def test_shared_memory_budget_prunes_configs_by_the_kernel_model():
         pool=("max", 2, 2))
     assert ex.vmem_bytes(spec, big) > _build.SMEM_LIMIT
     assert ex.default_config(spec).as_dict() == {"tm": 16, "rows": 8}
-    gemm = executors.get("conv1x1_pallas")
+    # stage 1's tile GEMM stages tc-deep slices, so the budget prunes tc
+    # there; the 1x1 kernel's geometry is its own, the same under every
+    # candidate, and prunes none
+    gemm = executors.get("cuconv_two_stage_pallas")
     s1 = tcs.ConvSpec((1, 7, 7, 832), (1, 1, 832, 256))
     assert not gemm.config_supports(s1, {"tp": 49, "tm": 128,
                                          "tc": 512})[0]
     assert gemm.default_config(s1).as_dict()["tc"] == 256
+    one = executors.get("conv1x1_pallas")
+    assert {one.vmem_bytes(s1, c) for c in one.configs(s1)} == {
+        conv1x1.launch_geometry(49, 832, 256)["smem"]}
+    assert all(one.config_supports(s1, c)[0] for c in one.configs(s1))
 
 
 def test_persisted_winner_and_configs_replay_and_stale_ones_heal():

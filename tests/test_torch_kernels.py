@@ -286,9 +286,11 @@ def test_cuconv_fused_wrapper_refuses(rng, bad, match):
 def test_gemm_wrappers_refuse(rng):
     with pytest.raises(ValueError, match="contract"):
         conv1x1.conv1x1_gemm(torch.zeros(4, 3), torch.zeros(4, 2))
+    # the tile GEMM's staged depth is stage 1's to prune; conv1x1_gemm's
+    # shared memory no longer depends on tc
     with pytest.raises(ValueError, match="shared memory"):
-        conv1x1.conv1x1_gemm(torch.zeros(4, 1024), torch.zeros(1024, 2),
-                             tc=1024)
+        cuconv_stage1.stage1_tap_gemm(torch.zeros(1, 4, 1024),
+                                      torch.zeros(1, 1024, 2), tc=1024)
     with pytest.raises(ValueError, match="float32"):
         cuconv_stage2.stage2_tap_sum(torch.zeros(2, 3, 4,
                                                  dtype=torch.bfloat16))
@@ -321,15 +323,21 @@ def test_new_wrappers_refuse(rng):
 
 
 def test_new_smem_models_are_what_the_kernels_stage():
-    """The shapes the kernels pick from their launch config, and the
-    shared memory that follows: the Winograd kernel's stays bounded (it
-    runs all of C inside a block), the direct kernel's grows with the
-    filter and the stride, the int8 GEMM's with the staged depth."""
-    assert winograd_fused.sub_tile(2, 16) == (64, 16)
-    assert winograd_fused.sub_tile(4, 128) == (16, 32)
-    assert winograd_fused.smem_bytes(2, 16) == 4 * 16 * 8 * (64 + 16)
-    assert max(winograd_fused.smem_bytes(m, tm) for m in (2, 4)
-               for tm in (16, 128)) == 4 * 36 * 8 * (32 + 16)
+    """The shapes the kernels pick, and the shared memory that follows:
+    the Winograd kernel's block follows m and the channel cap alone and
+    stays bounded (it runs all of C inside a block), the direct
+    kernel's grows with the filter and the stride, the int8 GEMM's with
+    the staged depth."""
+    narrow = winograd_fused.launch_geometry(2, 256, 16, tm=16)
+    assert (narrow["bt"], narrow["bn"], narrow["blocks"]) == (64, 16, 4)
+    assert narrow["smem"] == (2 * (64 * (16 * 8 + 8) + 9 * 8 * 16) * 4
+                              + (16 * 64 * 8 + 16 * 8 * 16) * 4)
+    wide = winograd_fused.launch_geometry(4, 1568, 64, tm=128)
+    assert (wide["bt"], wide["bn"], wide["blocks"]) == (16, 32, 196)
+    assert max(winograd_fused.launch_geometry(m, 100, 64, tm)["smem"]
+               for m in (2, 4) for tm in (16, 128)) == \
+        2 * (32 * (36 * 8 + 8) + 9 * 8 * 16) * 4 + (36 * 32 * 8
+                                                     + 36 * 8 * 16) * 4
     assert direct_conv.tile(32) == (32, 8, 16)
     assert direct_conv.smem_bytes((3, 3, 16, 32), 32, (2, 2)) == \
         4 * 8 * ((7 * 2 + 3) * (15 * 2 + 3) + 9 * 32)
@@ -350,4 +358,7 @@ def test_smem_model_is_what_the_wrapper_launches_with():
     assert cuconv_fused.smem_bytes(
         (1, 224, 224, 3), (3, 3, 3, 16), tm=16, rows=16, pad=(1, 1),
         pool=("max", 2, 2)) > _build.SMEM_LIMIT
-    assert conv1x1.smem_bytes(256) == 4 * 256 * 129
+    assert cuconv_stage1.smem_bytes(256) == 4 * 256 * 129
+    # the 1x1 GEMM's 3-stage ring: (bm x (32 + 16 bytes) + 32 x 72) each
+    assert conv1x1.smem_bytes(64) == 3 * (64 * 36 + 32 * 72) * 4
+    assert conv1x1.smem_bytes(32, 2) == 3 * (32 * 40 + 32 * 72) * 2
