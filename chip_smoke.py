@@ -26,20 +26,24 @@ paths through the entry points a user calls:
   ``conv1d_tap``; then both models cut to 4 layers in fp32, card against
   the CPU.
 
-It prints the launch geometry of the two tensor-core kernels
-(``conv1x1_gemm``, ``winograd_fused``: block tile, K-splits, blocks) at
-their main-path shapes, and fails where one of the five paper shapes
-launches under one wave of 132 blocks; the build phase prints every
-kernel's registers and spills.  The launch counters show that each path
-ran its kernels.  It then times served latency over windows of a few
-hundred requests per engine, times each kernel (CUDA graph replays
-between CUDA events, so host dispatch is left out; eager times and the
-host's time per call are kept beside) with its plain version, one
-library call and its bound (work over the rate of the units the kernel
-runs on: 495/3 TFLOP/s for a 3xTF32 product, 989 for bf16), and prints
-one ``{"kernels": [...]}`` line, the card's name and power limit, and as
-its last line the device record.  Details go to
-``chiprun_out/chip_smoke.json``.  Any failed phase exits non-zero.
+It prints the launch geometry of the four tensor-core kernels
+(``conv1x1_gemm``, ``cuconv_fused``, ``winograd_fused``: block tile,
+K-splits, blocks; ``flash_attention``: grid and shared memory) at their
+main-path shapes, and fails where one of the nine paper shapes on the
+conv kernels (t3_A-C, t4_A-B, t5_A-B, resnet50's two 3x3 rows) launches
+under one wave of 132 blocks; the build phase prints every kernel's
+registers and spills.  The launch counters show that each path ran its
+kernels.  It then times served latency over windows of a few hundred
+requests per engine, times each kernel (CUDA graph replays between CUDA
+events, so host dispatch is left out; eager times and the host's time
+per call are kept beside) with its plain version, one library call and
+its bound (work over the rate of the units the kernel runs on: 495/3
+TFLOP/s for a 3xTF32 product, 989 for bf16, 67 for fp32 FFMA), and
+checks that every feasible launch config of the fused kernel's executor
+launches one geometry.  It prints one ``{"kernels": [...]}`` line, the
+card's name and power limit, and as its last line the device record.
+Details go to ``chiprun_out/chip_smoke.json``.  Any failed phase exits
+non-zero.
 Without CUDA, or without the repository beside it, it exits non-zero and
 prints no result.
 """
@@ -59,7 +63,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
 # fp32 products on the TF32 tensor cores in the 3xTF32 split: three TF32
-# products each, at a third of 495 TFLOP/s (conv1x1_gemm, winograd_fused)
+# products each, at a third of 495 TFLOP/s (conv1x1_gemm, cuconv_fused,
+# winograd_fused, flash_attention)
 TF32X3_FLOP_PER_S = 495e12 / 3
 INT8_OP_PER_S = 1979e12          # int8 tensor cores, dense
 BF16_FLOP_PER_S = 989e12         # bf16 tensor cores, dense
@@ -85,6 +90,8 @@ WINOGRAD_ROWS = {"r50_56x56x64": ((56, 3, 64, 64),
                                     "tc": 128})}
 # the profiled 1x1 rows, on conv1x1_gemm
 GEMM_ROWS = ("t3_A", "t3_B", "t3_C")
+# the profiled 3x3 and 5x5 rows, on cuconv_fused
+FUSED_ROWS = ("t4_A", "t4_B", "t5_A", "t5_B")
 # forced algorithm="direct" rows: three profiled rows and resnet_like's
 # b2c1 geometry at 224x224 (stride 2)
 DIRECT_ROWS = ("t3_A", "t4_B", "t5_B")
@@ -343,7 +350,7 @@ def main() -> None:
                                 cuconv_fused.cuconv_fused_plain, args, kw,
                                 {k: v for k, v in kw.items()
                                  if k not in ("tm", "rows")},
-                                direct_flops, base_tol))
+                                direct_flops, base_tol, peak=tc_peak))
             elif p.algorithm == "conv1x1_pallas":
                 args = (randn((n * oh * ow, c), dtype), randn((c, m), dtype))
                 out.append(case("conv1x1_gemm", label, conv1x1.conv1x1_gemm,
@@ -430,7 +437,7 @@ def main() -> None:
                         flash_attention.flash_attention_plain, args,
                         {"causal": True}, {"causal": True},
                         4 * D * b * H * s * (s + 1) // 2, tol,
-                        peak=BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S,
+                        peak=BF16_FLOP_PER_S if bf16 else TF32X3_FLOP_PER_S,
                         in_line=bf16 and s == LM_PROMPT))
             if "ssm" in mixers:
                 dims = {cfg.d_inner: "x", cfg.ssm_groups * cfg.ssm_state:
@@ -477,15 +484,20 @@ def main() -> None:
                 max_err[kname] = max(max_err.get(kname, 0.0), err)
 
     # -- 3b. the tensor-core kernels' launch geometry ------------------------
-    phase("launch geometry of conv1x1_gemm and winograd_fused")
+    phase("launch geometry of the tensor-core kernels")
 
     def geometry(c):
         """What the wrapper launches for this call (the kernel's own
-        block tile and splits; the plan's config sizes nothing)."""
+        block tile and splits, or grid; the plan's config sizes
+        nothing)."""
         args, kw = c["args"], c["kw"]
         if c["kernel"] == "conv1x1_gemm":
             (P, C), M = args[0].shape, args[1].shape[1]
             return conv1x1.launch_geometry(P, C, M, args[0].element_size())
+        if c["kernel"] == "cuconv_fused":
+            return cuconv_fused.launch_geometry(
+                args[0].shape, args[1].shape, kw["stride"], kw["padding"],
+                kw["pool"], args[0].element_size())
         if c["kernel"] == "winograd_fused":
             n, h, w_, _ = args[0].shape
             fm, (ph, pw), M = kw["m"], kw["padding"], args[1].shape[3]
@@ -493,20 +505,28 @@ def main() -> None:
                                                        // fm)
             return winograd_fused.launch_geometry(
                 fm, tiles, M, kw["tm"], args[0].element_size())
+        if c["kernel"] == "flash_attention":
+            q = args[0]
+            B, S, H, D = q.shape
+            return flash_attention.launch_geometry(B, S, H, D,
+                                                   q.element_size())
         return None
 
     report["geometry"] = {}
-    for c in cases(torch.float32):
+    main_rows = set(GEMM_ROWS) | set(FUSED_ROWS) | set(WINOGRAD_ROWS)
+    for c in (cases(torch.float32) + lm_cases(torch.float32)
+              + lm_cases(torch.bfloat16)):
         geo = geometry(c)
         if geo is None:
             continue
-        report["geometry"][c["label"]] = geo
-        print(f"  {c['kernel']:16s} {c['label']:28s} {geo}")
-        main = (c["label"] in GEMM_ROWS or c["label"] in WINOGRAD_ROWS)
-        if main and geo["blocks"] < SMS:
+        key = (c["label"] if c["kernel"] != "flash_attention"
+               else f"{c['label']}:{str(c['args'][0].dtype)[6:]}")
+        report["geometry"][key] = geo
+        print(f"  {c['kernel']:16s} {key:28s} {geo}")
+        if c["label"] in main_rows and geo["blocks"] < SMS:
             fail(f"{c['kernel']} {c['label']}: {geo['blocks']} blocks, "
                  f"under one wave of {SMS}")
-    missing = (set(GEMM_ROWS) | set(WINOGRAD_ROWS)) - set(report["geometry"])
+    missing = main_rows - set(report["geometry"])
     if missing:
         fail(f"main-path shapes not on the tensor-core kernels: {missing}")
 
@@ -1053,30 +1073,47 @@ def main() -> None:
                                 if tot["library_n"] != tot["n"] else "")})
     report["kernels"] = line
 
-    # -- 6. launch-config probe: the fused kernel under every feasible
-    # candidate of its executor (the default picks the fewest blocks)
-    phase("cuconv_fused launch-config probe (fp32)")
+    # -- 6. launch-config check: the fused kernel's geometry is its own,
+    # so every feasible candidate of its executor launches the same one
+    # (and gives the same bits)
+    phase("cuconv_fused launch-config check (fp32)")
     ex = executors.get("cuconv_pallas")
     probe = dict(node_plans + [(lb, p) for lb, p, _ in paper_plans])
-    report["config_probe"] = []
-    for label in ("t4_A", "t4_B", "resnet224b1:stem", "resnet224b1:b1c1"):
-        p = probe[label]
-        args, kw = fused_args(p, torch.float32)
-        n, oh, _, m = p.spec.out_shape
-        for cfg in ex.configs(p.spec):
-            if not ex.config_supports(p.spec, cfg)[0]:
-                continue
-            tm, rows = min(cfg["tm"], m), min(cfg["rows"], oh)
-            kw.update(tm=tm, rows=rows)
-            blocks = n * -(-oh // rows) * -(-m // tm)
-            ms = time_ms(lambda: cuconv_fused.cuconv_fused(*args, **kw))
-            default = cfg == p.config
-            report["config_probe"].append({
-                "shape": label, "tm": tm, "rows": rows, "blocks": blocks,
-                "ms": ms, "default": default})
-            print(f"  {label:20s} tm={tm:<4d} rows={rows:<3d} "
-                  f"blocks={blocks:<5d} {ms:.6f} ms"
-                  f"{'  <- default' if default else ''}")
+    lib = _build.library("cuconv_fused")
+    launcher = lib.cuconv_fused_launch
+    seen = []
+
+    def recording(*a):
+        seen.append(tuple(a[25:34]))       # th, tw, bm, bn, tiles, ...
+        return launcher(*a)
+    report["config_check"] = []
+    lib.cuconv_fused_launch = recording
+    try:
+        for label in ("t4_A", "t4_B", "resnet224b1:stem",
+                      "resnet224b1:b1c1"):
+            p = probe[label]
+            args, kw = fused_args(p, torch.float32)
+            _, oh, _, m = p.spec.out_shape
+            launched, outs = set(), []
+            for cfg in ex.configs(p.spec):
+                if not ex.config_supports(p.spec, cfg)[0]:
+                    continue
+                kw.update(tm=min(cfg["tm"], m), rows=min(cfg["rows"], oh))
+                seen.clear()
+                outs.append(cuconv_fused.cuconv_fused(*args, **kw))
+                launched |= set(seen)
+            torch.cuda.synchronize()
+            same_bits = all(torch.equal(outs[0], o) for o in outs[1:])
+            report["config_check"].append({
+                "shape": label, "candidates": len(outs),
+                "launches": sorted(launched), "same_bits": same_bits})
+            print(f"  {label:20s} {len(outs)} feasible candidates launch "
+                  f"{sorted(launched)}; outputs bit-identical: {same_bits}")
+            if len(launched) != 1 or not same_bits:
+                fail(f"cuconv_fused {label}: the executor's candidates "
+                     f"launch {sorted(launched)} (same bits: {same_bits})")
+    finally:
+        lib.cuconv_fused_launch = launcher
     phase(None)
     report["phase_seconds"] = _PHASE["times"]
 

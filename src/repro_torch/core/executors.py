@@ -621,15 +621,20 @@ class TwoStagePallasExecutor(Executor):
 
 class FusedPallasExecutor(Executor):
     """The fused CUDA kernel (``kernels/cuconv_fused.py``; the registry
-    name is the JAX package's): any stride >= 1, the tap and channel
-    loops inside one block, bias / residual-add / ReLU / pool fused
-    before the single write.
+    name is the JAX package's): any stride >= 1, an implicit GEMM over
+    (tap, channel) on the tensor cores, bias / residual-add / ReLU /
+    pool fused before the single write.
 
-    Tuning space: ``tm`` (output-channel tile) x ``rows`` (output rows
-    per block).  The JAX package's multi-row halo rule (``KH - 1 <=
-    rows*sh`` for ``rows >= 2``) is a TPU staging artefact the CUDA
-    kernel does not need; it is kept in ``config_supports`` so plans and
-    cache entries read alike across the two packages.
+    Tuning space: the reference's ``tm`` (output-channel tile) x
+    ``rows`` (output rows per block), ranked by its grid-step model, so
+    plans and cache entries read like the reference's.  On the card they
+    size nothing: the kernel picks its own block tile and contraction
+    splits from the shape (``cuconv_fused.launch_geometry``), and
+    ``vmem_bytes`` is that geometry's shared memory, the same for every
+    candidate.  The pool rules (``rows % psh``, ``OH % rows``) and the
+    JAX package's multi-row halo rule (``KH - 1 <= rows*sh`` for ``rows
+    >= 2``), a TPU staging artefact, are kept in ``config_supports`` so
+    plans read alike across the two packages.
     """
     name = "cuconv_pallas"
     fuses_epilogue = True
@@ -654,16 +659,32 @@ class FusedPallasExecutor(Executor):
                 out = out + ("pool",)
         return out
 
+    def _geometry(self, spec):
+        from repro_torch.kernels.cuconv_fused import launch_geometry
+        return launch_geometry(spec.in_shape, spec.filter_shape,
+                               spec.stride, spec.padding,
+                               self._pool3(spec) if spec.fused_pool
+                               else None, _itemsize(spec))
+
     def vmem_bytes(self, spec, config=None):
-        from repro_torch.kernels.cuconv_fused import smem_bytes
-        cfg = LaunchConfig.of(config)
-        return smem_bytes(spec.in_shape, spec.filter_shape,
-                          tm=cfg.get("tm", 128), rows=cfg.get("rows", 1),
-                          pad=spec.padding, stride=spec.stride,
-                          pool=(self._pool3(spec) if spec.fused_pool
-                                else None))
+        return self._geometry(spec)["smem"]
+
+    @staticmethod
+    def _pool_fits(spec):
+        """Whether the pool window fits the kernel's pooled block tile."""
+        from repro_torch.kernels.cuconv_fused import pool_tile
+        _, oh, ow, _ = spec.out_shape
+        try:
+            pool_tile(oh, ow, spec.fused_pool[3], spec.fused_pool[4])
+        except ValueError as e:
+            return False, str(e)
+        return True, ""
 
     def _supports(self, spec):
+        if spec.fused_pool:
+            ok, why = self._pool_fits(spec)
+            if not ok:
+                return False, why
         need = self.vmem_bytes(spec)
         if need > SMEM_LIMIT:
             return False, (f"fused kernel stages {need} bytes of shared "
@@ -701,6 +722,9 @@ class FusedPallasExecutor(Executor):
             return False, (f"multi-row blocking needs KH-1 <= rows*sh; "
                            f"got KH={kh}, rows={rows}, sh={sh}")
         if spec.fused_pool:
+            ok, why = self._pool_fits(spec)
+            if not ok:
+                return False, why
             psh = spec.fused_pool[3]
             if rows % psh:
                 return False, (f"fused pool needs rows % pool stride == 0; "

@@ -14,11 +14,10 @@
 //    reference's tp/tm/tc do not size anything here.
 //  - Where the output tiles alone are fewer than the card's 132 SMs, the
 //    contraction over C is split across blocks (blockIdx.z) in fixed
-//    ranges of 32-deep steps.  Each split writes its fp32 partial tile to
-//    a workspace; the last block of a tile to arrive (an atomic counter)
-//    sums the partials in split order and writes the output, so two calls
-//    give the same bits.  The wrapper allocates workspace and counters;
-//    the last block resets its counter.
+//    ranges of 32-deep steps (splitk.cuh, shared with cuconv_fused): the
+//    last block of a tile to arrive sums the fp32 partials in split
+//    order, so two calls give the same bits.  The wrapper allocates
+//    workspace and counters.
 //  - fp32: mma.sync m16n8k8 on TF32 in the 3xTF32 split (mma_tf32.cuh).
 //    bf16: mma.sync m16n8k16 on bf16.  fp32 accumulation in registers,
 //    one rounding on the write.
@@ -31,28 +30,18 @@
 //    masked scalar loads instead (vec = 0).
 #include "common.cuh"
 #include "mma_tf32.cuh"
+#include "splitk.cuh"
 
 constexpr int kThreads = 128;  // 4 warps, 2 x 2
 constexpr int kBK = 32;        // contraction depth per stage
 constexpr int kStages = 3;
 constexpr int kBN = 64;
 
-template <typename T>
-struct Pad;
-template <>
-struct Pad<float> {
-  static constexpr int A = 4, B = 8;
-};
-template <>
-struct Pad<__nv_bfloat16> {
-  static constexpr int A = 8, B = 8;
-};
-
 // kernels/conv1x1.py::launch_geometry models the same shared memory
 template <typename T, int MI>
 struct Tile {
   static constexpr int BM = 32 * MI, BN = kBN;
-  static constexpr int LDA = kBK + Pad<T>::A, LDB = BN + Pad<T>::B;
+  static constexpr int LDA = kBK + RingPad<T>::A, LDB = BN + RingPad<T>::B;
   static constexpr int A_ELEMS = BM * LDA, B_ELEMS = kBK * LDB;
   static constexpr int SMEM = kStages * (A_ELEMS + B_ELEMS) * sizeof(T);
 };
@@ -95,65 +84,6 @@ __device__ __forceinline__ void load_stage(T* As, T* Bs,
   }
 }
 
-// one 32-deep stage of the warp's MI x 4 mma tiles
-template <int MI>
-__device__ __forceinline__ void mma_stage(float (*acc)[4][4],
-                                          const float* As, const float* Bs,
-                                          int row0, int col0, int g, int t) {
-  using L = Tile<float, MI>;
-#pragma unroll
-  for (int kk = 0; kk < kBK; kk += 8) {
-    uint32_t ab[MI][4], as[MI][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-      const float* a = As + (row0 + mi * 16 + g) * L::LDA + kk + t;
-      split_tf32(a[0], ab[mi][0], as[mi][0]);
-      split_tf32(a[8 * L::LDA], ab[mi][1], as[mi][1]);
-      split_tf32(a[4], ab[mi][2], as[mi][2]);
-      split_tf32(a[8 * L::LDA + 4], ab[mi][3], as[mi][3]);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const float* b = Bs + (kk + t) * L::LDB + col0 + ni * 8 + g;
-      uint32_t bb[2], bs[2];
-      split_tf32(b[0], bb[0], bs[0]);
-      split_tf32(b[4 * L::LDB], bb[1], bs[1]);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        mma_3xtf32(acc[mi][ni], ab[mi], as[mi], bb, bs);
-    }
-  }
-}
-
-template <int MI>
-__device__ __forceinline__ void mma_stage(float (*acc)[4][4],
-                                          const __nv_bfloat16* As,
-                                          const __nv_bfloat16* Bs, int row0,
-                                          int col0, int g, int t) {
-  using L = Tile<__nv_bfloat16, MI>;
-#pragma unroll
-  for (int kk = 0; kk < kBK; kk += 16) {
-    uint32_t a[MI][4];
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-      const __nv_bfloat16* ap = As + (row0 + mi * 16 + g) * L::LDA + kk + 2 * t;
-      a[mi][0] = *reinterpret_cast<const uint32_t*>(ap);
-      a[mi][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * L::LDA);
-      a[mi][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
-      a[mi][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * L::LDA + 8);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const __nv_bfloat16* bp = Bs + (kk + 2 * t) * L::LDB + col0 + ni * 8 + g;
-      uint32_t b[2];
-      b[0] = pack_bf16(bp[0], bp[L::LDB]);
-      b[1] = pack_bf16(bp[8 * L::LDB], bp[9 * L::LDB]);
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) mma_bf16(acc[mi][ni], a[mi], b);
-    }
-  }
-}
-
 template <typename T, int MI>
 __global__ void __launch_bounds__(kThreads)
 conv1x1_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
@@ -164,7 +94,6 @@ conv1x1_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* As = reinterpret_cast<T*>(smem_raw);
   T* Bs = As + kStages * L::A_ELEMS;
-  __shared__ int is_last;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
@@ -173,8 +102,8 @@ conv1x1_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const int z = blockIdx.z;
   // this split's fixed range of 32-deep steps
   const int k_steps = (C + kBK - 1) / kBK;
-  const int s_begin = (int)((int64_t)z * k_steps / splits);
-  const int s_end = (int)((int64_t)(z + 1) * k_steps / splits);
+  int s_begin, s_end;
+  split_steps(z, splits, k_steps, s_begin, s_end);
   const int nk = s_end - s_begin;
   const int k_end = min(s_end * kBK, C);
 
@@ -205,8 +134,9 @@ conv1x1_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
     }
     cp_async_commit();
     const int slot = kt % kStages;
-    mma_stage<MI>(acc, As + slot * L::A_ELEMS, Bs + slot * L::B_ELEMS, row0,
-                  col0, g, t);
+    warp_mma_stage<MI, 4, L::LDA, L::LDB, kBK>(
+        acc, As + slot * L::A_ELEMS, Bs + slot * L::B_ELEMS, row0, col0, g,
+        t);
   }
   cp_async_wait<0>();
 
@@ -230,18 +160,9 @@ conv1x1_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   if (splits == 1) return;
 
   // split-K: the last block of this tile sums the partials in split order
-  __threadfence();
-  __syncthreads();
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  if (tid == 0) is_last = atomicAdd(&counters[tile], 1) == splits - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  // each thread sums PER elements, four splits at a time, so the loads
-  // of 4 * PER partials are in flight together; the adds keep split
-  // order.  Offsets fit an int (the launcher checks splits * P * M).
+  if (!split_arrive_last(counters, tile, splits)) return;
   constexpr int PER = L::BM * L::BN / kThreads;
-  const int stride = P * M;
   int off[PER];
   float sum[PER];
 #pragma unroll
@@ -249,29 +170,12 @@ conv1x1_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
     const int e = tid + i * kThreads;
     const int p = p0 + e / L::BN, n = n0 + e % L::BN;
     off[i] = p < P && n < M ? p * M + n : -1;
-    sum[i] = 0.f;
   }
-  int zz = 0;
-  for (; zz + 4 <= splits; zz += 4) {
-    const float* src = ws + zz * stride;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      if (off[i] < 0) continue;
-      const float* q = src + off[i];
-      const float a0 = __ldcg(q), a1 = __ldcg(q + stride),
-                  a2 = __ldcg(q + 2 * stride), a3 = __ldcg(q + 3 * stride);
-      sum[i] = (((sum[i] + a0) + a1) + a2) + a3;
-    }
-  }
-  for (; zz < splits; ++zz) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i)
-      if (off[i] >= 0) sum[i] += __ldcg(ws + zz * stride + off[i]);
-  }
+  split_sum<PER>(ws, P * M, splits, off, sum);
 #pragma unroll
   for (int i = 0; i < PER; ++i)
     if (off[i] >= 0) out[off[i]] = from_f32<T>(sum[i]);
-  if (tid == 0) counters[tile] = 0;  // ready for the next call
+  split_reset(counters, tile);
 }
 
 template <typename T, int MI>

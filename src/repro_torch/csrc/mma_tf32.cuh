@@ -1,9 +1,10 @@
-// Tensor-core building blocks shared by conv1x1_gemm and winograd_fused:
-// warp-level mma.sync on TF32 with the 3xTF32 split, on bf16, and
-// cp.async copies into shared memory.
+// Tensor-core building blocks shared by conv1x1_gemm, cuconv_fused,
+// winograd_fused and flash_attention: warp-level mma.sync on TF32 with
+// the 3xTF32 split and on bf16, ldmatrix, cp.async copies into shared
+// memory, and the warp tile of the implicit-GEMM rings.
 //
 // Why mma.sync and not wgmma: these products are 21-822 MFLOP with as
-// few as 49 rows.  wgmma's 64-row warpgroup tiles and TMA descriptors buy
+// few as 49 rows (attention: 64-row query tiles of one head).  wgmma's 64-row warpgroup tiles and TMA descriptors buy
 // nothing at these sizes, where the card is bound by how many blocks are
 // in flight and by latency; they belong to kernels with large tiles.
 //
@@ -105,3 +106,96 @@ template <typename T>
 struct VecOf {
   static constexpr int kElems = 16 / sizeof(T);
 };
+
+// ldmatrix: four 8x8 b16 matrices from shared memory, lanes 8i..8i+7
+// giving the row addresses of matrix i (16-byte aligned); lane 4g + t
+// receives row g, elements 2t and 2t + 1 of each (.trans: column g,
+// rows 2t and 2t + 1), which is an mma.sync m16n8k16 fragment
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* smem) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// Row padding of an implicit-GEMM ring's A tile (rows x BK, row-major)
+// and B tile (BK x columns, k-major): A rows + 16 bytes, B rows + 8
+// elements, so the fragment loads of warp_mma_stage hit 32 distinct
+// banks.
+template <typename T>
+struct RingPad {
+  static constexpr int A = 16 / sizeof(T), B = 8;
+};
+
+// One BK-deep stage of a warp's MI x NI mma tiles (16 x 8 each): A rows
+// row0.. of a [.][LDA] tile, B columns col0.. of a [BK][LDB] tile; fp32
+// in 3xTF32, acc[mi][ni] the m16n8 accumulator fragment.
+template <int MI, int NI, int LDA, int LDB, int BK>
+__device__ __forceinline__ void warp_mma_stage(float (*acc)[NI][4],
+                                               const float* As,
+                                               const float* Bs, int row0,
+                                               int col0, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 8) {
+    uint32_t ab[MI][4], as[MI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const float* a = As + (row0 + mi * 16 + g) * LDA + kk + t;
+      split_tf32(a[0], ab[mi][0], as[mi][0]);
+      split_tf32(a[8 * LDA], ab[mi][1], as[mi][1]);
+      split_tf32(a[4], ab[mi][2], as[mi][2]);
+      split_tf32(a[8 * LDA + 4], ab[mi][3], as[mi][3]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const float* b = Bs + (kk + t) * LDB + col0 + ni * 8 + g;
+      uint32_t bb[2], bs[2];
+      split_tf32(b[0], bb[0], bs[0]);
+      split_tf32(b[4 * LDB], bb[1], bs[1]);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        mma_3xtf32(acc[mi][ni], ab[mi], as[mi], bb, bs);
+    }
+  }
+}
+
+// the same on bf16 (m16n8k16)
+template <int MI, int NI, int LDA, int LDB, int BK>
+__device__ __forceinline__ void warp_mma_stage(float (*acc)[NI][4],
+                                               const __nv_bfloat16* As,
+                                               const __nv_bfloat16* Bs,
+                                               int row0, int col0, int g,
+                                               int t) {
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    uint32_t a[MI][4];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const __nv_bfloat16* ap = As + (row0 + mi * 16 + g) * LDA + kk + 2 * t;
+      a[mi][0] = *reinterpret_cast<const uint32_t*>(ap);
+      a[mi][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * LDA);
+      a[mi][2] = *reinterpret_cast<const uint32_t*>(ap + 8);
+      a[mi][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * LDA + 8);
+    }
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      const __nv_bfloat16* bp = Bs + (kk + 2 * t) * LDB + col0 + ni * 8 + g;
+      uint32_t b[2];
+      b[0] = pack_bf16(bp[0], bp[LDB]);
+      b[1] = pack_bf16(bp[8 * LDB], bp[9 * LDB]);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) mma_bf16(acc[mi][ni], a[mi], b);
+    }
+  }
+}

@@ -26,15 +26,16 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_HEADERS = ("common.cuh", "tile_gemm.cuh", "mma_tf32.cuh")
+_HEADERS = ("common.cuh", "tile_gemm.cuh", "mma_tf32.cuh", "splitk.cuh")
 
 #: source file -> exported launchers and their ctypes signatures
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARIES: Dict[str, Dict[str, Sequence]] = {
     "cuconv_fused": {
-        # x, w, bias, addend, out, dtype, N, H, W, C, KH, KW, M, sh, sw,
-        # ph, pw, OH, OW, tm, rows, relu, pool_kind, psh, psw, smem, stream
-        "cuconv_fused_launch": [_P] * 5 + [_I] * 21 + [_P],
+        # x, w, bias, addend, out, ws, counters, dtype, N, H, W, C, KH, KW,
+        # M, sh, sw, ph, pw, OH, OW, relu, pool_kind, psh, psw, th, tw, bm,
+        # bn, tiles, splits, vec_a, vec_b, smem, stream
+        "cuconv_fused_launch": [_P] * 7 + [_I] * 27 + [_P],
     },
     "conv1x1": {
         # x2d, w, out, ws, counters, dtype, P, C, M, bm, splits, vec,
@@ -64,9 +65,9 @@ LIBRARIES: Dict[str, Dict[str, Sequence]] = {
         "int8_gemm_launch": [_P] * 3 + [_I] * 7 + [_P],
     },
     "flash_attention": {
-        # q, k, v, out, dtype, B, Sq, Sk, H, KVH, D, scale, causal, smem,
-        # stream
-        "flash_attention_launch": [_P] * 4 + [_I] * 7 + [_F] + [_I] * 2
+        # q, k, v, out, dtype, B, Sq, Sk, H, KVH, D, dp, scale, causal,
+        # smem, stream
+        "flash_attention_launch": [_P] * 4 + [_I] * 8 + [_F] + [_I] * 2
                                   + [_P],
     },
     "conv1d_tap": {

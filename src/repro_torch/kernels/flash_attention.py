@@ -13,10 +13,13 @@ when the queries start at key 0, as a prefill does.
 
 The numerics are the TPU kernel's: fp32 scores scaled by 1/√D after the
 dot, an online softmax with fp32 m, l and accumulator over KV tiles, p
-rounded to v's dtype before PV, and one division by max(l, 1e-30).  The
-kernel computes in fp32 FFMA (no TF32); at long sequences it is bound by
-operations, at the served prefill by bytes.  ``smem_bytes`` is what one
-block stages.  ``flash_attention_plain`` is the same function in plain
+rounded to v's dtype before PV, and one division by max(l, 1e-30).  On
+the card both products run on the tensor cores (bf16 ``mma.sync`` for
+bf16, 3xTF32 for fp32) with scores and P in registers, and K/V tiles
+double-buffered by cp.async; at long sequences it is bound by
+operations, at the served prefill by bytes.  ``launch_geometry`` is the
+launch: grid, padded head dimension and the shared memory one block
+stages.  ``flash_attention_plain`` is the same function in plain
 PyTorch, with one softmax over all keys.
 """
 from __future__ import annotations
@@ -26,16 +29,32 @@ import torch
 from repro_torch.kernels import _build
 
 BQ, BK = 64, 64      # query rows per block, keys per KV tile
-MAX_HEAD_DIM = 128   # the kernel's accumulator covers 8 x 16 columns
+THREADS = 128        # 4 warps, 16 query rows each
+STAGES = 2           # K/V tiles double-buffered by cp.async (kFaStages)
+MAX_HEAD_DIM = 128   # the accumulator fragments cover 128 columns
 NEG_INF = -1e30
 
 
-def smem_bytes(head_dim: int) -> int:
-    """Shared memory of one block: the Q tile and the K and V tiles in
-    fp32 with rows padded by one word, the (BQ x BK+1) score tile, and
-    three per-row statistics."""
-    ld = int(head_dim) + 1
-    return 4 * (BQ * ld + 2 * BK * ld + BQ * (BK + 1) + 3 * BQ)
+def padded_head_dim(head_dim: int) -> int:
+    """The head dimension the kernel computes with (zero-padded)."""
+    return 64 if head_dim <= 64 else 128
+
+
+def smem_bytes(head_dim: int, itemsize: int = 2) -> int:
+    """Shared memory of one block: the Q tile and STAGES K and V tiles,
+    64 rows x the padded head dimension each, in the input dtype
+    (swizzled, not padded)."""
+    return (1 + 2 * STAGES) * BQ * padded_head_dim(head_dim) * itemsize
+
+
+def launch_geometry(B: int, Sq: int, H: int, D: int, itemsize: int = 2
+                    ) -> dict:
+    """What the wrapper launches: a block of THREADS per (64 query rows,
+    head, batch), ``dp`` the padded head dimension, ``smem`` per block."""
+    grid = (-(-Sq // BQ), H, B)
+    return {"grid": grid, "blocks": grid[0] * grid[1] * grid[2],
+            "threads": THREADS, "dp": padded_head_dim(D),
+            "smem": smem_bytes(D, itemsize)}
 
 
 def _as_bshd(q, k, v):
@@ -87,8 +106,8 @@ def flash_attention(q, k, v, causal=True):
     if B > 65535 or H > 65535:
         raise ValueError(f"{name}: grid of ({B}, {H}) exceeds 65535")
     _build.check_operands(name, q.device, q.dtype, q=q, k=k, v=v)
-    smem = smem_bytes(D)
-    _build.check_smem(name, smem, f"head_dim {D}")
+    geo = launch_geometry(B, Sq, H, D, q.element_size())
+    _build.check_smem(name, geo["smem"], f"head_dim {D}")
     if not _build.on_card(name, q):
         return flash_attention_plain(q, k, v, causal)
     out = torch.empty_like(q)
@@ -97,7 +116,8 @@ def flash_attention(q, k, v, causal=True):
         code = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _build.DTYPE_CODES[str(q.dtype)[6:]], B, Sq, Sk, H, KVH, D,
-            1.0 / D ** 0.5, int(bool(causal)), smem, _build.stream_of(q))
+            geo["dp"], 1.0 / D ** 0.5, int(bool(causal)), geo["smem"],
+            _build.stream_of(q))
     _build.check("flash_attention", name, code)
     _build.LAUNCHES[name] += 1
     return out

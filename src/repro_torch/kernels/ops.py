@@ -60,8 +60,8 @@ def cuconv_two_stage(x, w, padding=(0, 0), tp=256, tm=128, tc=512):
 def cuconv_fused(x, w, padding=(0, 0), stride=1, bias=None, activation=None,
                  addend=None, pool=None, tm=128, rows=1):
     """Single-kernel fused cuConv, any stride >= 1, with the fused
-    bias / residual-add / ReLU / pool epilogue; ``tm``/``rows`` are its
-    launch config."""
+    bias / residual-add / ReLU / pool epilogue; ``tm``/``rows`` are the
+    reference's launch config (the kernel's geometry is its own)."""
     return _cf.cuconv_fused(
         x.contiguous(), w.contiguous(),
         None if bias is None else bias.contiguous(),

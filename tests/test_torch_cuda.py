@@ -7,9 +7,10 @@ tol 2e-5 in fp32 (both sides FFMA/cuBLAS fp32, TF32 off; only the
 summation order differs) and 3e-2 in bf16 (one bf16 rounding of the
 output).  The Winograd kernel sums in another order over the Winograd
 domain than its plain version, so it is held to the reference's own
-Winograd bounds in fp32: 1e-4 at F(2,3), 2e-3 at F(4,3).  The 1x1 GEMM
-and the Winograd products run on the tensor cores in 3xTF32, which
-holds the fp32 bounds (``tests/test_torch_tensor_cores.py``).  The int8 GEMM
+Winograd bounds in fp32: 1e-4 at F(2,3), 2e-3 at F(4,3).  The 1x1 GEMM,
+the fused conv, the Winograd products and flash attention run on the
+tensor cores in 3xTF32, which holds the fp32 bounds
+(``tests/test_torch_tensor_cores.py``).  The int8 GEMM
 is exact: it must equal its plain version bit for bit.  The LM kernels
 (flash attention, causal conv1d) keep the conv kernels' bounds; the
 flash plain version takes one softmax over all keys where the kernel
@@ -51,6 +52,15 @@ def _randn(gen, shape, dtype):
     (1, 16, 16, 3, 3, 3, 16, (1, 1), (1, 1), 16, 4, "maxpool"),
     (2, 12, 12, 8, 3, 3, 40, (1, 1), (1, 1), 32, 6, "avgpool"),
     (1, 9, 9, 7, 1, 1, 33, (2, 2), (0, 0), 33, 3, "bias"),
+    # the implicit GEMM's cases: stride 2, C = 3 and C = 130 (scalar
+    # gather), odd M, split-K with addend + ReLU, pools on 2-D tiles
+    (2, 15, 15, 16, 3, 3, 32, (2, 2), (1, 1), 128, 1, "bias_relu"),
+    (1, 20, 20, 3, 3, 3, 17, (1, 1), (1, 1), 16, 1, "bias"),
+    (1, 9, 9, 130, 3, 3, 45, (1, 1), (1, 1), 128, 1, "add_relu"),
+    (1, 13, 13, 384, 3, 3, 384, (1, 1), (1, 1), 384, 8, "add_relu"),
+    (1, 7, 7, 48, 5, 5, 128, (1, 1), (2, 2), 128, 7, "bias_relu"),
+    (2, 34, 70, 16, 3, 3, 24, (1, 1), (1, 1), 16, 2, "maxpool"),
+    (1, 40, 40, 3, 3, 3, 16, (1, 1), (1, 1), 16, 8, "avgpool"),
 ])
 def test_cuconv_fused_kernel_matches_plain(geom, dtype):
     N, H, W, C, KH, KW, M, stride, pad, tm, rows, epi = geom
@@ -71,6 +81,60 @@ def test_cuconv_fused_kernel_matches_plain(geom, dtype):
     got = cuconv_fused.cuconv_fused(x, w, tm=tm, rows=rows, **kw)
     _close(got, cuconv_fused.cuconv_fused_plain(x, w, **kw), dtype)
     assert _build.LAUNCHES["cuconv_fused"] == 1
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuconv_fused_takes_misaligned_pointers(dtype):
+    """Base pointers off 16 bytes take the scalar-load variants."""
+    gen = torch.Generator().manual_seed(12)
+    x = _randn(gen, (2 * 9 * 9 * 16 + 1,), dtype)[1:].view(2, 9, 9, 16)
+    w = _randn(gen, (3 * 3 * 16 * 24 + 1,), dtype)[1:].view(3, 3, 16, 24)
+    assert cuconv_fused.vectorized(x, w) == (False, False)
+    kw = dict(padding=(1, 1), activation="relu",
+              bias=_randn(gen, (24,), dtype))
+    _close(cuconv_fused.cuconv_fused(x, w, **kw),
+           cuconv_fused.cuconv_fused_plain(x, w, **kw), dtype)
+
+
+def _split_operands(gen):
+    """t4_B with an addend: 16 K-splits of 18 tiles."""
+    x = _randn(gen, (1, 13, 13, 384), torch.float32)
+    w = _randn(gen, (3, 3, 384, 384), torch.float32)
+    kw = dict(padding=(1, 1), activation="relu",
+              bias=_randn(gen, (384,), torch.float32),
+              addend=_randn(gen, (1, 13, 13, 384), torch.float32))
+    assert cuconv_fused.launch_geometry(x.shape, w.shape, (1, 1),
+                                        (1, 1))["splits"] == 16
+    return x, w, kw
+
+
+@requires_cuda
+def test_cuconv_fused_split_is_deterministic():
+    """The split partials are summed in split order by whichever block
+    arrives last: calls give the same bits."""
+    x, w, kw = _split_operands(torch.Generator().manual_seed(13))
+    outs = [cuconv_fused.cuconv_fused(x, w, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@requires_cuda
+def test_cuconv_fused_split_replays_in_a_cuda_graph():
+    x, w, kw = _split_operands(torch.Generator().manual_seed(14))
+    eager = cuconv_fused.cuconv_fused(x, w, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuconv_fused.cuconv_fused(x, w, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = cuconv_fused.cuconv_fused(x, w, **kw)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 @requires_cuda
@@ -274,6 +338,15 @@ def test_served_resnet_like_on_card_matches_cpu():
     (2, 130, 130, 12, 2, 128, True),
     (1, 77, 200, 6, 3, 64, False),
     (1, 300, 300, 2, 2, 128, True),
+    # the tensor-core kernel's cases: D = 64 and 128 at GQA ratios 1, 2
+    # and 6, causal and not, Sq not a multiple of 64, Sq != Sk; D = 36
+    # (bf16 takes the scalar loads)
+    (2, 129, 129, 4, 4, 128, False),
+    (1, 70, 70, 6, 1, 64, False),
+    (1, 50, 120, 4, 2, 128, True),
+    (4, 512, 512, 12, 2, 128, True),
+    (1, 65, 65, 6, 1, 64, True),
+    (1, 90, 90, 2, 1, 36, True),
 ])
 def test_flash_attention_kernel_matches_plain(geom, dtype):
     B, Sq, Sk, H, KVH, D, causal = geom
@@ -285,6 +358,22 @@ def test_flash_attention_kernel_matches_plain(geom, dtype):
     _close(got, flash_attention.flash_attention_plain(q, k, v, causal),
            dtype)
     assert _build.LAUNCHES["flash_attention"] == 1
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_bh_layout_and_misaligned_pointers(D, dtype):
+    """The (BH, S, D) layout at both padded head dims, from pointers off
+    16 bytes (the scalar loads)."""
+    gen = torch.Generator().manual_seed(8)
+    q, k, v = (_randn(gen, (3 * 77 * D + 1,), dtype)[1:].view(3, 77, D)
+               for _ in range(3))
+    for causal in (True, False):
+        got = flash_attention.flash_attention(q, k, v, causal=causal)
+        _close(got, flash_attention.flash_attention_plain(q, k, v, causal),
+               dtype)
+    assert _build.LAUNCHES["flash_attention"] == 2
 
 
 @requires_cuda

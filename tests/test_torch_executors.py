@@ -169,19 +169,25 @@ def test_forced_infeasible_config_raises_naming_executor_config_spec():
 
 def test_shared_memory_budget_prunes_configs_by_the_kernel_model():
     """The budget is Hopper's 227 KB of shared memory a block can use,
-    applied to the same model the kernel wrapper launches with."""
+    applied to the same model the kernel wrapper launches with.  The
+    fused kernel's block tile is its own, the same under every
+    candidate, so the budget no longer prunes the 224x224 pooled stem's
+    rows: its default moves from rows=8 to the fewest grid steps."""
     spec = tcs.ConvSpec((1, 224, 224, 3), (3, 3, 3, 16), padding=(1, 1),
                         epilogue="bias_relu",
                         fused_pool=("max", 2, 2, 2, 2, 0, 0))
     ex = executors.get("cuconv_pallas")
     big = executors.LaunchConfig.of({"tm": 16, "rows": 16})
     ok, why = ex.config_supports(spec, big)
-    assert not ok and "shared memory" in why
-    assert ex.vmem_bytes(spec, big) == cuconv_fused.smem_bytes(
-        spec.in_shape, spec.filter_shape, tm=16, rows=16, pad=(1, 1),
-        pool=("max", 2, 2))
-    assert ex.vmem_bytes(spec, big) > _build.SMEM_LIMIT
-    assert ex.default_config(spec).as_dict() == {"tm": 16, "rows": 8}
+    assert ok, why
+    geo = cuconv_fused.launch_geometry(spec.in_shape, spec.filter_shape,
+                                       padding=(1, 1), pool=("max", 2, 2))
+    assert {ex.vmem_bytes(spec, c) for c in ex.configs(spec)} == {
+        geo["smem"]}
+    assert geo["smem"] <= _build.SMEM_LIMIT
+    assert ex.default_config(spec).as_dict() == {"tm": 16, "rows": 16}
+    # the pool rules stay: rows must tile the pool stride and OH
+    assert not ex.config_supports(spec, {"tm": 16, "rows": 3})[0]
     # stage 1's tile GEMM stages tc-deep slices, so the budget prunes tc
     # there; the 1x1 kernel's geometry is its own, the same under every
     # candidate, and prunes none

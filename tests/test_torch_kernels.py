@@ -277,8 +277,10 @@ def test_cuconv_fused_wrapper_refuses(rng, bad, match):
     elif bad == "activation":
         kw.update(activation="gelu")
     else:
-        x = to_torch(rand(rng, (1, 8, 1024, 4)))
-        kw.update(pool=("max", 2, 2), rows=8, tm=64)
+        # the block tile no longer grows with rows * OW; what it cannot
+        # stage is a pool window wider than its 64 pixels
+        x = to_torch(rand(rng, (1, 18, 18, 4)))
+        kw.update(pool=("max", 9, 9), rows=9, tm=64)
     with pytest.raises(ValueError, match=match):
         cuconv_fused.cuconv_fused(x, w, **kw)
 
@@ -347,17 +349,24 @@ def test_new_smem_models_are_what_the_kernels_stage():
 
 def test_smem_model_is_what_the_wrapper_launches_with():
     """The planner's shared-memory model and the launch size are one
-    function: the pool block grows with rows and the fused stem's
-    largest 224x224 row block no longer fits."""
-    base = cuconv_fused.smem_bytes((1, 224, 224, 3), (3, 3, 3, 16), tm=16,
-                                   rows=8, pad=(1, 1))
-    pooled = cuconv_fused.smem_bytes((1, 224, 224, 3), (3, 3, 3, 16), tm=16,
-                                     rows=8, pad=(1, 1),
-                                     pool=("max", 2, 2))
-    assert pooled - base == 4 * 8 * 224 * 16
-    assert cuconv_fused.smem_bytes(
-        (1, 224, 224, 3), (3, 3, 3, 16), tm=16, rows=16, pad=(1, 1),
-        pool=("max", 2, 2)) > _build.SMEM_LIMIT
+    function.  The fused kernel's follows its block tile, not rows x OW:
+    the 224x224 pooled stem stages one 3-stage ring of a 64-pixel x
+    16-channel tile (2 rows x 32 columns of whole 2x2 windows), the same
+    with and without the pool: the finished fp32 tile reuses the ring;
+    no tile comes near the budget."""
+    stem = cuconv_fused.launch_geometry((1, 224, 224, 3), (3, 3, 3, 16),
+                                        padding=(1, 1), pool=("max", 2, 2))
+    assert (stem["bm"], stem["bn"], stem["th"], stem["tw"]) == (64, 16, 2,
+                                                                 32)
+    assert (stem["tiles"], stem["splits"], stem["blocks"]) == (784, 1, 784)
+    assert stem["smem"] == 3 * (64 * 36 + 32 * 24) * 4
+    bare = cuconv_fused.launch_geometry((1, 224, 224, 3), (3, 3, 3, 16),
+                                        padding=(1, 1))
+    assert bare["smem"] == stem["smem"] > 4 * 64 * (16 + 4)
+    assert cuconv_fused.smem_bytes(64, 64, 2) == 3 * (64 * 40 + 32 * 72) * 2
+    assert max(cuconv_fused.smem_bytes(bm, bn, size) for bm in (32, 64)
+               for bn in (16, 32, 64) for size in (2, 4)) < \
+        _build.SMEM_LIMIT // 4
     assert cuconv_stage1.smem_bytes(256) == 4 * 256 * 129
     # the 1x1 GEMM's 3-stage ring: (bm x (32 + 16 bytes) + 32 x 72) each
     assert conv1x1.smem_bytes(64) == 3 * (64 * 36 + 32 * 72) * 4

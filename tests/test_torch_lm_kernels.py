@@ -98,9 +98,16 @@ def test_lm_wrappers_refuse_bad_operands():
 
 
 def test_flash_attention_smem_model_fits_every_head_dim():
+    """Q and two stages of K and V, 64 rows x the padded head dimension
+    each, in the input dtype: two bf16 blocks share an SM at D = 128
+    (228 KB an SM, 1 KB reserved a block), one fp32 block fits."""
     from repro_torch.kernels import flash_attention as tfa
-    assert tfa.smem_bytes(128) == 116_480
-    assert tfa.smem_bytes(tfa.MAX_HEAD_DIM) <= _build.SMEM_LIMIT
+    assert tfa.smem_bytes(128) == 5 * 64 * 128 * 2 == 81_920
+    assert tfa.smem_bytes(128, 4) == 163_840
+    assert tfa.smem_bytes(40) == tfa.smem_bytes(64) == 5 * 64 * 64 * 2
+    assert 2 * (tfa.smem_bytes(128) + 1024) <= 228 * 1024
+    assert max(tfa.smem_bytes(d, size) for d in range(1, tfa.MAX_HEAD_DIM + 1)
+               for size in (2, 4)) <= _build.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("library", sorted(_build.LIBRARIES))

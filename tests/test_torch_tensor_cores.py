@@ -1,19 +1,22 @@
 """The tensor-core kernels' numerics and launch geometry, on the CPU.
 
-``conv1x1_gemm`` and ``winograd_fused`` run their fp32 products on the
-TF32 tensor cores in the 3xTF32 split (``csrc/mma_tf32.cuh``).  The
-first tests emulate that split in torch: round to TF32 as
-``cvt.rna.tf32.f32`` does, then big*big + big*small + small*big in
-fp32, at the paper's three 1x1 shapes and at resnet50's two Winograd
-rows (their per-position products).  It meets the kernels' fp32 bound,
-2e-5 * max(1, max|ref|), against a float64 product; a plain TF32
+``conv1x1_gemm``, ``cuconv_fused``, ``winograd_fused`` and
+``flash_attention`` run their fp32 products on the TF32 tensor cores in
+the 3xTF32 split (``csrc/mma_tf32.cuh``).  The first tests emulate that
+split in torch: round to TF32 as ``cvt.rna.tf32.f32`` does, then
+big*big + big*small + small*big in fp32, at the paper's three 1x1
+shapes, resnet50's two Winograd rows (their per-position products), the
+fused kernel's implicit GEMMs at the paper's 3x3 and 5x5 rows, and the
+two attention products at qwen2's head_dim.  It meets the kernels' fp32
+bound, 2e-5 * max(1, max|ref|), against a float64 product; a plain TF32
 product misses it, which is why the kernels split.
 
 The rest hold each kernel's ``launch_geometry`` (what the wrapper
 launches, and what the planner's ``vmem_bytes`` reads) to the card: at
-the five main-path shapes it launches at least one wave of 132 blocks,
-its contraction splits cover C exactly in whole 32-deep steps, and the
-wrapper launches with the same shared memory the executor models.
+the nine main-path paper shapes it launches at least one wave of 132
+blocks, its contraction splits cover the contraction exactly in whole
+32-deep steps, a pooled tile holds whole windows, and the wrapper
+launches with the same geometry and shared memory the executor models.
 """
 import contextlib
 
@@ -26,7 +29,8 @@ from repro_torch.configs.cnn_paper import PROFILED
 from repro_torch.core import convspec as tcs
 from repro_torch.core import executors
 from repro_torch.core.winograd import matrices, transform_filters
-from repro_torch.kernels import _build, conv1x1, winograd_fused
+from repro_torch.kernels import (_build, conv1x1, cuconv_fused,
+                                 flash_attention, winograd_fused)
 
 FP32_TOL = 2e-5
 SMS = 132
@@ -36,6 +40,11 @@ GEMM_SHAPES = {label: (hw * hw * n, c, m)              # (P, C, M)
 # (H=W, C, M, F(m,3) variant, tm of the reference's config)
 WINO_ROWS = {"r50_56x56x64": (56, 64, 64, 4, 64),
              "r50_28x28x128": (28, 128, 128, 2, 128)}
+# the paper's 3x3 and 5x5 rows, on cuconv_fused: (x shape, w shape, pad)
+FUSED_ROWS = {label: ((n, hw, hw, c), (k, k, c, m), (k - 1) // 2)
+              for label, (hw, n, k, m, c) in PROFILED.items() if k > 1}
+# qwen2-1.5b's attention at its served prefill: (S, head_dim)
+ATTN_SHAPE = (512, 128)
 
 
 def tf32(x):
@@ -91,7 +100,39 @@ def _winograd_operands(hw, c, m, fm, seed):
             transform_filters(w, fm).reshape(a * a, c, m).contiguous())
 
 
+def _im2col(x, kh, kw, pad):
+    """The fused kernel's implicit A operand, (pixels, KH*KW*C) in HWIO
+    order, made explicit."""
+    n, h, w, c = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, pad, pad, pad, pad))
+    cols = [xp[:, i:i + h, j:j + w, :] for i in range(kh) for j in range(kw)]
+    return torch.cat(cols, dim=3).reshape(n * h * w, kh * kw * c)
+
+
+def _attention_operands(which):
+    """qwen2's two attention products at the served prefill, one head:
+    Q Kᵀ, and P V with P the softmax numerators of those scores."""
+    S, D = ATTN_SHAPE
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((S, D),
+                                                    dtype=np.float32))
+               for _ in range(3))
+    if which == "qk":
+        return q, k.t().contiguous()
+    s = q.double() @ k.t().double() / D ** 0.5
+    return torch.exp(s - s.amax(dim=-1, keepdim=True)).float(), v
+
+
 def _operands(label):
+    if label in ("attn_qk", "attn_pv"):
+        return _attention_operands(label[5:])
+    if label in FUSED_ROWS:
+        x_shape, w_shape, pad = FUSED_ROWS[label]
+        rng = np.random.default_rng(2)
+        x = torch.from_numpy(rng.standard_normal(x_shape, dtype=np.float32))
+        w = torch.from_numpy(rng.standard_normal(w_shape, dtype=np.float32))
+        return (_im2col(x, w_shape[0], w_shape[1], pad),
+                w.reshape(-1, w_shape[3]))
     if label in WINO_ROWS:
         hw, c, m, fm, _ = WINO_ROWS[label]
         return _winograd_operands(hw, c, m, fm, seed=1)
@@ -101,7 +142,8 @@ def _operands(label):
             torch.from_numpy(rng.standard_normal((C, M), dtype=np.float32)))
 
 
-@pytest.mark.parametrize("label", sorted(GEMM_SHAPES) + sorted(WINO_ROWS))
+@pytest.mark.parametrize("label", sorted(GEMM_SHAPES) + sorted(WINO_ROWS)
+                         + sorted(FUSED_ROWS) + ["attn_qk", "attn_pv"])
 def test_3xtf32_meets_the_fp32_bound_and_1xtf32_misses_it(label):
     a, b = _operands(label)
     err, bound = _error(product_3xtf32(a, b), a, b)
@@ -202,3 +244,172 @@ def test_winograd_wrapper_launches_the_executors_geometry(label, fake_card):
     assert args[15:18] == (fm, geo["bn"], 1)
     assert args[19] == geo["smem"] == ex.vmem_bytes(spec, cfg)
     assert _build.LAUNCHES["winograd_fused"] == 1
+
+
+# ---------------------------------------------------------------------------
+# cuconv_fused: the implicit GEMM's geometry
+
+def _fused_geometry(label, itemsize=4):
+    x_shape, w_shape, pad = FUSED_ROWS[label]
+    return cuconv_fused.launch_geometry(x_shape, w_shape, (1, 1),
+                                        (pad, pad), None, itemsize)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("label", sorted(FUSED_ROWS))
+def test_fused_paper_rows_launch_a_wave(label, itemsize):
+    geo = _fused_geometry(label, itemsize)
+    assert geo["blocks"] >= SMS, geo
+    assert geo["smem"] <= _build.SMEM_LIMIT
+    # never more than MAX_SPLITS, each split two steps or more
+    assert geo["splits"] <= min(cuconv_fused.MAX_SPLITS,
+                                geo["k_steps"] // 2)
+
+
+def test_fused_geometry_is_the_measured_table():
+    """The geometry the rule gives at the paper's rows: the large tile
+    split 16 ways where that makes two blocks per SM (t4_B), else a
+    smaller tile (t5_B: 32 pixels; t4_A: 32 x 32; t5_A: 32 x 16)."""
+    got = {label: tuple(_fused_geometry(label)[k] for k in
+                        ("bm", "bn", "tiles", "splits", "blocks"))
+           for label in FUSED_ROWS}
+    assert got == {"t4_A": (32, 32, 24, 16, 384),
+                   "t4_B": (64, 64, 18, 16, 288),
+                   "t5_A": (32, 16, 16, 16, 256),
+                   "t5_B": (32, 64, 26, 16, 416)}
+    # resnet_like's 224x224 nodes: tiles of their own width fill the card
+    # (b1c1), or shrink before any split (b2c1, b2proj)
+    served = {"b1c1": ((1, 112, 112, 16), (3, 3, 16, 16), 1, 1),
+              "b2c1": ((1, 112, 112, 16), (3, 3, 16, 32), 2, 1),
+              "b2c2": ((1, 56, 56, 32), (3, 3, 32, 32), 1, 1),
+              "b2proj": ((1, 112, 112, 16), (1, 1, 16, 32), 2, 0)}
+    got = {label: tuple(cuconv_fused.launch_geometry(
+        x, w, (st, st), (pad, pad))[k] for k in ("bm", "bn", "splits",
+                                                 "blocks"))
+        for label, (x, w, st, pad) in served.items()}
+    assert got == {"b1c1": (64, 16, 1, 196), "b2c1": (32, 16, 1, 196),
+                   "b2c2": (32, 32, 4, 392), "b2proj": (32, 16, 1, 196)}
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride,pad", [
+    ((1, 13, 13, 384), (3, 3, 384, 384), (1, 1), (1, 1)),   # t4_B
+    ((1, 7, 7, 48), (5, 5, 48, 128), (1, 1), (2, 2)),       # t5_A
+    ((1, 112, 112, 16), (3, 3, 16, 32), (2, 2), (1, 1)),    # b2c1@224
+    ((1, 56, 56, 16), (1, 1, 16, 32), (2, 2), (0, 0)),      # b2proj
+    ((2, 9, 9, 130), (3, 3, 130, 7), (1, 1), (1, 1)),
+    ((1, 3, 3, 3), (3, 3, 3, 5), (1, 1), (1, 1)),
+])
+def test_fused_k_splits_cover_k_exactly_in_whole_steps(x_shape, w_shape,
+                                                       stride, pad):
+    geo = cuconv_fused.launch_geometry(x_shape, w_shape, stride, pad)
+    K = w_shape[0] * w_shape[1] * w_shape[2]
+    assert geo["k_steps"] == -(-K // cuconv_fused.BK)
+    # both kernels cut K as csrc/splitk.cuh does (split_steps)
+    ranges = conv1x1.split_ranges(K, geo["splits"])
+    assert len(ranges) == geo["splits"] <= geo["k_steps"]
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (b0, e0), (b1, _) in zip(ranges, ranges[1:]):
+        assert e0 == b1
+    for b, e in ranges:
+        assert b < e and b % cuconv_fused.BK == 0
+        assert e == K or e % cuconv_fused.BK == 0
+    # one wave; or the tiles alone fill it; or the smallest tile with as
+    # many splits as the rule allows
+    capped = geo["splits"] == max(1, min(cuconv_fused.MAX_SPLITS,
+                                         geo["k_steps"] // 2))
+    assert (geo["blocks"] >= SMS
+            or geo["splits"] == 1 and geo["tiles"] >= SMS
+            or capped and (geo["bm"], geo["bn"]) == (32, 16))
+
+
+@pytest.mark.parametrize("OH,OW,psh,psw", [
+    (224, 224, 2, 2), (32, 32, 2, 2), (8, 8, 2, 2), (6, 30, 3, 3),
+    (12, 4, 2, 4), (2, 128, 2, 2), (18, 18, 3, 3), (4, 6, 1, 3)])
+def test_pooled_tiles_hold_whole_windows(OH, OW, psh, psw):
+    """Every pooled block tile is whole windows of one image: TH and TW
+    multiples of the window, TH x TW within the 64-pixel tile, and the
+    tiles (ragged edges included) cover the output exactly.  Pooled
+    specs take no K-split."""
+    th, tw = cuconv_fused.pool_tile(OH, OW, psh, psw)
+    assert th % psh == 0 and tw % psw == 0 and 0 < th * tw <= 64
+    covered = set()
+    for r0 in range(0, OH, th):
+        for c0 in range(0, OW, tw):
+            rows = range(r0, min(r0 + th, OH))
+            cols = range(c0, min(c0 + tw, OW))
+            assert len(rows) % psh == 0 and len(cols) % psw == 0
+            covered |= {(r, c) for r in rows for c in cols}
+    assert len(covered) == OH * OW
+    geo = cuconv_fused.launch_geometry((2, OH, OW, 8), (1, 1, 8, 40),
+                                       pool=("max", psh, psw))
+    assert (geo["th"], geo["tw"], geo["splits"]) == (th, tw, 1)
+    assert geo["tiles"] == 2 * -(-OH // th) * -(-OW // tw) * 1
+
+
+def test_pool_window_wider_than_a_tile_is_refused():
+    with pytest.raises(ValueError, match="does not fit"):
+        cuconv_fused.pool_tile(18, 18, 9, 9)
+    spec = tcs.ConvSpec((1, 18, 18, 4), (3, 3, 4, 8), padding=(1, 1),
+                        fused_pool=("max", 9, 9, 9, 9, 0, 0))
+    ok, why = executors.get("cuconv_pallas").supports(spec)
+    assert not ok and "does not fit" in why
+
+
+_FUSED_SERVED = {   # resnet_like's 224x224 nodes: x, w, stride, pad, pool
+    "stem": ((1, 224, 224, 3), (3, 3, 3, 16), 1, 1, ("max", 2, 2)),
+    "b2c1": ((1, 112, 112, 16), (3, 3, 16, 32), 2, 1, None),
+}
+
+
+@pytest.mark.parametrize("label", sorted(FUSED_ROWS) + sorted(_FUSED_SERVED))
+def test_fused_wrapper_launches_the_executors_geometry(label, fake_card):
+    if label in FUSED_ROWS:
+        x_shape, w_shape, pad = FUSED_ROWS[label]
+        stride, pool, fused_pool = 1, None, None
+    else:
+        x_shape, w_shape, stride, pad, pool = _FUSED_SERVED[label]
+        fused_pool = pool and (pool[0], 2, 2, 2, 2, 0, 0)
+    spec = tcs.ConvSpec(x_shape, w_shape, (stride, stride), (pad, pad),
+                        fused_pool=fused_pool)
+    p = tcs.plan(spec, force="cuconv_pallas", backend="cuda")
+    cuconv_fused.cuconv_fused(torch.zeros(x_shape), torch.zeros(w_shape),
+                              stride=(stride, stride), padding=(pad, pad),
+                              pool=pool, **p.config.as_dict())
+    (fn, args), = fake_card
+    geo = cuconv_fused.launch_geometry(x_shape, w_shape, (stride, stride),
+                                       (pad, pad), pool)
+    # ..., th, tw, bm, bn, tiles, splits, vec_a, vec_b, smem, stream
+    assert fn == "cuconv_fused_launch"
+    assert args[8:15] == tuple(x_shape) + tuple(w_shape[:2]) + (w_shape[3],)
+    assert args[25:31] == ((geo["th"] or 0), (geo["tw"] or 0), geo["bm"],
+                           geo["bn"], geo["tiles"], geo["splits"])
+    assert args[31:33] == (int(x_shape[3] % 4 == 0), 1)
+    assert args[33] == geo["smem"] == p.executor.vmem_bytes(spec, p.config)
+    assert (args[5] is None) == (geo["splits"] == 1)
+    assert _build.LAUNCHES["cuconv_fused"] == 1
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (4, 512, 12, 2, 128), (1, 100, 3, 1, 40), (2, 64, 6, 3, 64)])
+def test_flash_wrapper_launches_its_model(shape, dtype, fake_card):
+    """The grid (64 query rows, head, batch), the padded head dimension
+    and the shared memory of ``launch_geometry`` are what the wrapper
+    launches with."""
+    B, S, H, KVH, D = shape
+    q = torch.zeros((B, S, H, D), dtype=dtype)
+    kv = torch.zeros((B, S, KVH, D), dtype=dtype)
+    out = flash_attention.flash_attention(q, kv, kv, causal=True)
+    (fn, args), = fake_card
+    geo = flash_attention.launch_geometry(B, S, H, D, q.element_size())
+    # q, k, v, out, dtype, B, Sq, Sk, H, KVH, D, dp, scale, causal, smem
+    assert fn == "flash_attention_launch"
+    assert args[5:12] == (B, S, S, H, KVH, D, geo["dp"])
+    assert args[13:15] == (1, geo["smem"])
+    assert geo["grid"] == (-(-S // 64), H, B) and geo["threads"] == 128
+    assert geo["smem"] == flash_attention.smem_bytes(D, q.element_size())
+    assert out.shape == q.shape and out.dtype == dtype
+    assert _build.LAUNCHES["flash_attention"] == 1
