@@ -26,22 +26,29 @@ paths through the entry points a user calls:
   ``conv1d_tap``; then both models cut to 4 layers in fp32, card against
   the CPU.
 
-It prints the launch geometry of the four tensor-core kernels
-(``conv1x1_gemm``, ``cuconv_fused``, ``winograd_fused``: block tile,
-K-splits, blocks; ``flash_attention``: grid and shared memory) at their
-main-path shapes, and fails where one of the nine paper shapes on the
-conv kernels (t3_A-C, t4_A-B, t5_A-B, resnet50's two 3x3 rows) launches
-under one wave of 132 blocks; the build phase prints every kernel's
-registers and spills.  The launch counters show that each path ran its
-kernels.  It then times served latency over windows of a few hundred
-requests per engine, times each kernel (CUDA graph replays between CUDA
-events, so host dispatch is left out; eager times and the host's time
-per call are kept beside) with its plain version, one library call and
-its bound (work over the rate of the units the kernel runs on: 495/3
-TFLOP/s for a 3xTF32 product, 989 for bf16, 67 for fp32 FFMA), and
-checks that every feasible launch config of the fused kernel's executor
-launches one geometry.  It prints one ``{"kernels": [...]}`` line, the
-card's name and power limit, and as its last line the device record.
+It prints the launch geometry of the six tensor-core kernels
+(``conv1x1_gemm``, ``cuconv_fused``, ``winograd_fused``,
+``direct_conv``, ``stage1_tap_gemm``: block tile, splits, blocks;
+``flash_attention``: grid and shared memory) at their main-path shapes,
+and fails where one of the fourteen paper shapes on the conv kernels
+(t3_A-C, t4_A-B, t5_A-B, resnet50's two 3x3 rows, the forced direct
+t3_A, t4_B and t5_B, the forced two-stage t4_A and t5_A) launches under
+one wave of 132 blocks; the build phase prints every kernel's registers
+and spills, and fails where ``direct_conv`` or ``cuconv_stage1``
+spills.  Both stage-1 entries (the stacked views and the padded input)
+must give the same bits.  The launch counters show that each path ran
+its kernels.  It then times served latency over windows of a few
+hundred requests per engine, times each kernel (CUDA graph replays
+between CUDA events, so host dispatch is left out; eager times and the
+host's time per call are kept beside) with its plain version, one
+library call and its bound (work over the rate of the units the kernel
+runs on: 495/3 TFLOP/s for a 3xTF32 product, the fp32 products of the
+six tensor-core kernels; 989 for bf16; 1,979 TOP/s for int8; 67 TFLOP/s
+for fp32 outside the tensor cores, ``stage2_tap_sum``'s adds and
+``conv1d_tap``), and checks that every feasible launch config of the
+fused, direct and two-stage executors launches one geometry.  It prints
+one ``{"kernels": [...]}`` line, the card's name and power limit, and as
+its last line the device record.
 Details go to ``chiprun_out/chip_smoke.json``.  Any failed phase exits
 non-zero.
 Without CUDA, or without the repository beside it, it exits non-zero and
@@ -64,7 +71,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
 # fp32 products on the TF32 tensor cores in the 3xTF32 split: three TF32
 # products each, at a third of 495 TFLOP/s (conv1x1_gemm, cuconv_fused,
-# winograd_fused, flash_attention)
+# winograd_fused, direct_conv, stage1_tap_gemm, flash_attention)
 TF32X3_FLOP_PER_S = 495e12 / 3
 INT8_OP_PER_S = 1979e12          # int8 tensor cores, dense
 BF16_FLOP_PER_S = 989e12         # bf16 tensor cores, dense
@@ -96,6 +103,10 @@ FUSED_ROWS = ("t4_A", "t4_B", "t5_A", "t5_B")
 # b2c1 geometry at 224x224 (stride 2)
 DIRECT_ROWS = ("t3_A", "t4_B", "t5_B")
 DIRECT_STRIDED = ("b2c1@224", (1, 112, 112, 16), (3, 3, 16, 32), 2)
+# forced algorithm="cuconv_two_stage_pallas" rows
+TWO_STAGE_ROWS = ("t4_A", "t5_A")
+# the kernels whose ptxas report may show no spill
+NO_SPILL = ("direct_conv", "cuconv_stage1")
 
 # the LM serving path (configs/archs.py), served at full width and depth
 LM_ARCHS = ("qwen2-1.5b", "mamba2-1.3b")
@@ -211,6 +222,15 @@ def main() -> None:
             print(f"  ptxas {name}: {e['entry']}: {e['registers']} "
                   f"registers, spill stores {e['spill_stores']} B, "
                   f"loads {e['spill_loads']} B")
+    for name in NO_SPILL:
+        entries = report["ptxas"].get(name)
+        if not entries:
+            fail(f"no ptxas report for {name} (built before this run: "
+                 f"run chip_smoke on an empty build directory)")
+        spilled = [e["entry"] for e in entries
+                   if e["spill_stores"] or e["spill_loads"]]
+        if spilled:
+            fail(f"{name}: ptxas spills in {spilled}")
 
     # -- the main paths' shapes, from the port's own plans ------------------
     phase("plans, and int8 calibration through GraphPlan.warmup")
@@ -253,7 +273,7 @@ def main() -> None:
                                  padding=((k - 1) // 2, (k - 1) // 2))
         paper_plans.append((label, convspec.plan(spec, backend="cuda"),
                             lambda x, w: rt.conv2d(x, w, padding="same")))
-        if label in ("t4_A", "t5_A"):
+        if label in TWO_STAGE_ROWS:
             paper_plans.append((f"{label}:two_stage", convspec.plan(
                 spec, force="cuconv_two_stage_pallas", backend="cuda"),
                 lambda x, w: rt.conv2d(
@@ -314,14 +334,16 @@ def main() -> None:
                     tc=c.get("tc", 512))
 
     def two_stage_inputs(p, dtype):
+        """Stage 1's operands both ways: the padded input and the HWIO
+        filter (the main path's entry), and the stack of the tap views
+        with the (T, C, M) taps (the reference's interface)."""
         s = p.spec
         kh, kw_, c, m = s.filter_shape
-        n, oh, ow, _ = s.out_shape
-        xp = cuconv._pad_input(randn(s.in_shape, dtype), *s.padding)
-        views = cuconv._tap_views(xp, kh, kw_, oh, ow, 1)
-        xs = torch.stack([v.reshape(n * oh * ow, c) for v in views],
-                         0).contiguous()
-        return xs, randn((kh * kw_, c, m), dtype)
+        xp = cuconv._pad_input(randn(s.in_shape, dtype),
+                               *s.padding).contiguous()
+        w4 = randn(s.filter_shape, dtype)
+        xs = cuconv_stage1.stack_taps(xp, kh, kw_).contiguous()
+        return (xp, w4), (xs, w4.reshape(kh * kw_, c, m))
 
     def case(kernel, label, kfn, pfn, args, kw, pkw, ops, tol,
              peak=FP32_FLOP_PER_S, in_line=True):
@@ -358,12 +380,19 @@ def main() -> None:
                                 gemm_tiles(p), {}, direct_flops, base_tol,
                                 peak=tc_peak))
             elif p.algorithm == "cuconv_two_stage_pallas":
-                xs, wt = two_stage_inputs(p, dtype)
+                padded, stacked = two_stage_inputs(p, dtype)
                 out.append(case("stage1_tap_gemm", label,
+                                cuconv_stage1.stage1_tap_conv,
+                                cuconv_stage1.stage1_tap_conv_plain,
+                                padded, gemm_tiles(p), {}, direct_flops,
+                                base_tol, peak=tc_peak))
+                # the reference's interface on the same values: held to
+                # its plain version and to the entry above, bit for bit
+                out.append(case("stage1_tap_gemm", f"{label}:stacked",
                                 cuconv_stage1.stage1_tap_gemm,
                                 cuconv_stage1.stage1_tap_gemm_plain,
-                                (xs, wt), gemm_tiles(p), {}, direct_flops,
-                                base_tol))
+                                stacked, gemm_tiles(p), {}, direct_flops,
+                                base_tol, peak=tc_peak, in_line=False))
                 temps = randn((kh * kw_, n * oh * ow, m))
                 out.append(case("stage2_tap_sum", label,
                                 cuconv_stage2.stage2_tap_sum,
@@ -393,7 +422,7 @@ def main() -> None:
                     direct_conv.direct_conv_plain,
                     (randn(s.in_shape, dtype), randn(s.filter_shape, dtype)),
                     dict(pkw, tm=p.config["tm"], tc=p.config["tc"]), pkw,
-                    direct_flops, base_tol))
+                    direct_flops, base_tol, peak=tc_peak))
         return out
 
     def int8_cases():
@@ -458,6 +487,7 @@ def main() -> None:
     # -- 3. kernel vs plain --------------------------------------------------
     phase("kernel vs plain")
     max_err = {}
+    stage1_outs = {}          # label -> output of each stage-1 entry
     for dtype, cs in ((torch.float32, cases(torch.float32)
                        + lm_cases(torch.float32)),
                       (torch.bfloat16, cases(torch.bfloat16)
@@ -482,6 +512,16 @@ def main() -> None:
                      f"plain version ({err:.3e} > {bound:.3e})")
             if dtype != torch.bfloat16:
                 max_err[kname] = max(max_err.get(kname, 0.0), err)
+            if kname == "stage1_tap_gemm":
+                stage1_outs[(label, dtype)] = got
+    for (label, dtype), got in stage1_outs.items():
+        if label.endswith(":stacked"):
+            same = torch.equal(got, stage1_outs[(label[:-8], dtype)])
+            print(f"  stage1_tap_gemm  {label[:-8]:28s} {str(dtype)[6:]:8s} "
+                  f"padded-input entry == stacked entry bit for bit: {same}")
+            if not same:
+                fail(f"stage1_tap_gemm {label[:-8]} {dtype}: the two "
+                     f"entries disagree")
 
     # -- 3b. the tensor-core kernels' launch geometry ------------------------
     phase("launch geometry of the tensor-core kernels")
@@ -510,10 +550,25 @@ def main() -> None:
             B, S, H, D = q.shape
             return flash_attention.launch_geometry(B, S, H, D,
                                                    q.element_size())
+        if c["kernel"] == "direct_conv":
+            return direct_conv.launch_geometry(
+                args[0].shape, args[1].shape, kw["stride"], kw["padding"],
+                args[0].element_size())
+        if c["kernel"] == "stage1_tap_gemm":
+            if args[0].dim() == 4:          # the padded input, HWIO filter
+                n, hp, wp, C = args[0].shape
+                kh, kw_, _, M = args[1].shape
+                T, P = kh * kw_, n * (hp - kh + 1) * (wp - kw_ + 1)
+            else:                           # the stacked views
+                (T, P, C), M = args[0].shape, args[1].shape[2]
+            return cuconv_stage1.launch_geometry(T, P, C, M,
+                                                 args[0].element_size())
         return None
 
     report["geometry"] = {}
-    main_rows = set(GEMM_ROWS) | set(FUSED_ROWS) | set(WINOGRAD_ROWS)
+    main_rows = (set(GEMM_ROWS) | set(FUSED_ROWS) | set(WINOGRAD_ROWS)
+                 | {f"{r}:direct" for r in DIRECT_ROWS}
+                 | {f"{r}:two_stage" for r in TWO_STAGE_ROWS})
     for c in (cases(torch.float32) + lm_cases(torch.float32)
               + lm_cases(torch.bfloat16)):
         geo = geometry(c)
@@ -959,8 +1014,16 @@ def main() -> None:
         if kname in ("cuconv_fused", "winograd_fused", "direct_conv"):
             return conv_call(*args, kw.get("stride", (1, 1)), kw["padding"],
                              kw.get("bias"))
-        if kname in ("conv1x1_gemm", "stage1_tap_gemm"):
+        if kname == "conv1x1_gemm":
             return lambda: torch.matmul(*args)
+        if kname == "stage1_tap_gemm":
+            # torch.matmul over the stacked tap views (the stack is made
+            # here, outside the timed call)
+            xp, w4 = args
+            kh, kw_, C, M = w4.shape
+            xs = cuconv_stage1.stack_taps(xp, kh, kw_).contiguous()
+            wt = w4.reshape(kh * kw_, C, M)
+            return lambda: torch.matmul(xs, wt)
         if kname == "int8_gemm":
             (P, K), M = args[0].shape, args[1].shape[1]
             if P > 16 and K % 8 == 0 and M % 8 == 0:
@@ -984,8 +1047,10 @@ def main() -> None:
         return lambda: torch.sum(args[0], dim=0)
 
     timed = [c for c in cases(torch.float32) + int8_cases()
-             if c["kernel"] in ("winograd_fused", "direct_conv", "int8_gemm")
-             or not c["label"].startswith("resnet32")]
+             if (c["kernel"] in ("winograd_fused", "direct_conv",
+                                 "int8_gemm")
+                 or not c["label"].startswith("resnet32"))
+             and not c["label"].endswith(":stacked")]
     timed += lm_cases(torch.bfloat16) + lm_cases(torch.float32)
     totals = {}
     for c in timed:
@@ -1073,47 +1138,79 @@ def main() -> None:
                                 if tot["library_n"] != tot["n"] else "")})
     report["kernels"] = line
 
-    # -- 6. launch-config check: the fused kernel's geometry is its own,
-    # so every feasible candidate of its executor launches the same one
-    # (and gives the same bits)
-    phase("cuconv_fused launch-config check (fp32)")
-    ex = executors.get("cuconv_pallas")
+    # -- 6. launch-config check: the fused, direct and two-stage kernels'
+    # geometry is their own, so every feasible candidate of their
+    # executors launches the same one (and gives the same bits)
+    phase("launch-config check of the fused, direct and two-stage "
+          "executors (fp32)")
     probe = dict(node_plans + [(lb, p) for lb, p, _ in paper_plans])
-    lib = _build.library("cuconv_fused")
-    launcher = lib.cuconv_fused_launch
-    seen = []
 
-    def recording(*a):
-        seen.append(tuple(a[25:34]))       # th, tw, bm, bn, tiles, ...
-        return launcher(*a)
+    def fused_call(p):
+        args, kw = fused_args(p, torch.float32)
+        _, oh, _, m = p.spec.out_shape
+        return lambda cfg: cuconv_fused.cuconv_fused(
+            *args, **dict(kw, tm=min(cfg["tm"], m),
+                          rows=min(cfg["rows"], oh)))
+
+    def direct_call(p):
+        s = p.spec
+        x, w = randn(s.in_shape), randn(s.filter_shape)
+        return lambda cfg: direct_conv.direct_conv(
+            x, w, s.padding, s.stride, tm=cfg["tm"], tc=cfg["tc"])
+
+    def two_stage_call(p):
+        (xp, w4), _ = two_stage_inputs(p, torch.float32)
+        return lambda cfg: cuconv_stage1.stage1_tap_conv(xp, w4, **cfg)
+
+    # executor, library, launcher, the launcher's geometry arguments, the
+    # shapes probed, and a call under a config on operands made once
+    probes = (("cuconv_pallas", "cuconv_fused", "cuconv_fused_launch",
+               slice(25, 34), ("t4_A", "t4_B", "resnet224b1:stem",
+                               "resnet224b1:b1c1"), fused_call),
+              ("direct", "direct_conv", "direct_conv_launch", slice(19, 30),
+               ("t4_B:direct",), direct_call),
+              ("cuconv_two_stage_pallas", "cuconv_stage1",
+               "stage1_tap_gemm_launch", slice(15, 21),
+               ("t4_A:two_stage",), two_stage_call))
     report["config_check"] = []
-    lib.cuconv_fused_launch = recording
-    try:
-        for label in ("t4_A", "t4_B", "resnet224b1:stem",
-                      "resnet224b1:b1c1"):
-            p = probe[label]
-            args, kw = fused_args(p, torch.float32)
-            _, oh, _, m = p.spec.out_shape
-            launched, outs = set(), []
-            for cfg in ex.configs(p.spec):
-                if not ex.config_supports(p.spec, cfg)[0]:
-                    continue
-                kw.update(tm=min(cfg["tm"], m), rows=min(cfg["rows"], oh))
-                seen.clear()
-                outs.append(cuconv_fused.cuconv_fused(*args, **kw))
-                launched |= set(seen)
-            torch.cuda.synchronize()
-            same_bits = all(torch.equal(outs[0], o) for o in outs[1:])
-            report["config_check"].append({
-                "shape": label, "candidates": len(outs),
-                "launches": sorted(launched), "same_bits": same_bits})
-            print(f"  {label:20s} {len(outs)} feasible candidates launch "
-                  f"{sorted(launched)}; outputs bit-identical: {same_bits}")
-            if len(launched) != 1 or not same_bits:
-                fail(f"cuconv_fused {label}: the executor's candidates "
-                     f"launch {sorted(launched)} (same bits: {same_bits})")
-    finally:
-        lib.cuconv_fused_launch = launcher
+    for ex_name, lib_name, fn_name, geo_args, labels, make_call in probes:
+        ex = executors.get(ex_name)
+        lib = _build.library(lib_name)
+        launcher = getattr(lib, fn_name)
+        seen = []
+
+        def recording(*a, launcher=launcher, geo_args=geo_args):
+            seen.append(tuple(a[geo_args]))
+            return launcher(*a)
+        setattr(lib, fn_name, recording)
+        try:
+            for label in labels:
+                p = probe[label]
+                if p.algorithm != ex_name:
+                    fail(f"{label}: planned {p.algorithm}, not {ex_name}")
+                call = make_call(p)
+                launched, outs = set(), []
+                for cfg in ex.configs(p.spec):
+                    if not ex.config_supports(p.spec, cfg)[0]:
+                        continue
+                    seen.clear()
+                    outs.append(call(cfg.as_dict()))
+                    launched |= set(seen)
+                torch.cuda.synchronize()
+                same_bits = all(torch.equal(outs[0], o) for o in outs[1:])
+                report["config_check"].append({
+                    "executor": ex_name, "shape": label,
+                    "candidates": len(outs), "launches": sorted(launched),
+                    "same_bits": same_bits})
+                print(f"  {ex_name:24s} {label:20s} {len(outs)} feasible "
+                      f"candidates launch {sorted(launched)}; outputs "
+                      f"bit-identical: {same_bits}")
+                if len(launched) != 1 or not same_bits:
+                    fail(f"{ex_name} {label}: the executor's candidates "
+                         f"launch {sorted(launched)} (same bits: "
+                         f"{same_bits})")
+        finally:
+            setattr(lib, fn_name, launcher)
     phase(None)
     report["phase_seconds"] = _PHASE["times"]
 

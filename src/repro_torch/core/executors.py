@@ -577,7 +577,14 @@ class Conv1x1PallasExecutor(Executor):
 class TwoStagePallasExecutor(Executor):
     """The paper's two CUDA kernels, stage 1 + stage 2 (stride 1; the
     registry name is the JAX package's): temporaries in device memory —
-    the fused kernel's declared fallback."""
+    the fused kernel's declared fallback.
+
+    Tuning space: the reference's ``tp``/``tm``/``tc`` (stage 1's tiles),
+    ranked by its grid-step model, so plans and cache entries read like
+    the reference's.  On the card they size nothing: stage 1 picks its
+    own block tile from the shape (``cuconv_stage1.launch_geometry``),
+    and ``vmem_bytes`` is that geometry's shared memory, the same for
+    every candidate."""
     name = "cuconv_two_stage_pallas"
     tunable = ("tp", "tm", "tc")
     kernels = ("stage1_tap_gemm", "stage2_tap_sum")
@@ -600,10 +607,10 @@ class TwoStagePallasExecutor(Executor):
         return _gemm_tile_configs(*self._gemm_dims(spec))
 
     def vmem_bytes(self, spec, config=None):
-        # stage 1's tile GEMM stages tc-deep slices: the budget prunes tc
-        from repro_torch.kernels.cuconv_stage1 import smem_bytes
-        return smem_bytes(min(LaunchConfig.of(config).get("tc", 512),
-                              spec.filter_shape[2]))
+        from repro_torch.kernels.cuconv_stage1 import launch_geometry
+        p, m, c = self._gemm_dims(spec)
+        kh, kw = spec.filter_shape[:2]
+        return launch_geometry(kh * kw, p, c, m, _itemsize(spec))["smem"]
 
     def config_cost(self, spec, config):
         p, m, c = self._gemm_dims(spec)
@@ -927,23 +934,30 @@ class DirectConvExecutor(Executor):
     """The im2col-free direct-conv CUDA kernel (Li et al. 1610.03618;
     ``kernels/direct_conv.py``): no patch matrix and no per-tap
     temporaries — each block stages its output tile's input halo once
-    per channel chunk and runs every tap out of shared memory.
+    per channel chunk and runs every tap out of shared memory, on the
+    tensor cores.
 
-    Tuning space: ``tm`` (output channels per block) and ``tc``, the
-    reference's channel slice, which the kernel does not use (it runs
-    all of C inside a block) but the config cost still counts.  Shared
-    memory grows with the filter and the stride, not with C, so the
-    large-C region stays feasible.
+    Tuning space: the reference's ``tm`` (output channels per block) and
+    ``tc`` (its channel slice), ranked by its grid-step model, so plans
+    and cache entries read like the reference's (``_DIRECT_TILES`` and
+    ``config_cost`` are the JAX package's).  On the card they size
+    nothing: the kernel picks its own pixel tile, channel tile, chunk
+    and C-splits from the shape (``direct_conv.launch_geometry``), and
+    ``vmem_bytes`` is that geometry's shared memory, the same for every
+    candidate.  It grows with the filter and the stride, not with C, so
+    the large-C region stays feasible; a spec whose smallest tile does
+    not fit is refused.
     """
     name = "direct"
     tunable = ("tm", "tc")
     kernels = ("direct_conv",)
 
     def _supports(self, spec):
-        if not any(self.config_supports(spec, c)[0]
-                   for c in self.configs(spec)):
-            return False, ("no candidate's filter slice and input halo fit "
-                           "the shared-memory budget")
+        need = self.vmem_bytes(spec)
+        if need > SMEM_LIMIT:
+            return False, (f"direct kernel's filter slice and input halo "
+                           f"stage {need} bytes of shared memory > "
+                           f"{SMEM_LIMIT} budget")
         return True, "im2col-free direct conv (spatial and channel tiles)"
 
     def configs(self, spec):
@@ -952,10 +966,10 @@ class DirectConvExecutor(Executor):
                               for tm, tc in _DIRECT_TILES)
 
     def vmem_bytes(self, spec, config=None):
-        from repro_torch.kernels.direct_conv import smem_bytes
-        cfg = LaunchConfig.of(config)
-        return smem_bytes(spec.filter_shape, tm=cfg.get("tm", 128),
-                          stride=spec.stride)
+        from repro_torch.kernels.direct_conv import launch_geometry
+        return launch_geometry(spec.in_shape, spec.filter_shape,
+                               spec.stride, spec.padding,
+                               _itemsize(spec))["smem"]
 
     def config_cost(self, spec, config):
         n = spec.in_shape[0]
@@ -966,8 +980,10 @@ class DirectConvExecutor(Executor):
 
     def extra_hbm_bytes(self, spec):
         n, h, w_, c = spec.in_shape
-        # the input is re-read once per output-channel tile beyond the
-        # first (default tm=128)
+        # the reference's model (the input re-read once per 128-channel
+        # tile beyond the first), so negotiation ranks alike; the CUDA
+        # kernel re-reads each halo once per bn-channel tile, mostly from
+        # L2, and its C-split partials go through a workspace
         retiles = -(-spec.filter_shape[3] // 128) - 1
         return float(retiles * n * h * w_ * c * _itemsize(spec))
 

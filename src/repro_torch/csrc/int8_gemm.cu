@@ -11,7 +11,7 @@
 // at these sizes, the launch; the int8 tensor cores (1,979 TOP/s) would
 // be the ceiling of a later design.
 //
-// Design.  The tile_gemm.cuh shape with integer arithmetic: one block per
+// Design.  A tiled GEMM with integer arithmetic: one block per
 // (tp pixels, tm channels), walking its region in 64 x 64 sub-tiles; 256
 // threads hold a 4 x 4 int32 accumulator each.  The contraction runs in
 // chunks of tc int8 values, staged as 32-bit words that pack four

@@ -26,7 +26,7 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_HEADERS = ("common.cuh", "tile_gemm.cuh", "mma_tf32.cuh", "splitk.cuh")
+_HEADERS = ("common.cuh", "mma_tf32.cuh", "splitk.cuh")
 
 #: source file -> exported launchers and their ctypes signatures
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -43,8 +43,9 @@ LIBRARIES: Dict[str, Dict[str, Sequence]] = {
         "conv1x1_gemm_launch": [_P] * 5 + [_I] * 8 + [_P],
     },
     "cuconv_stage1": {
-        # xs, w, out, dtype, T, P, C, M, tp, tm, tc, smem, stream
-        "stage1_tap_gemm_launch": [_P] * 3 + [_I] * 9 + [_P],
+        # x, w, out, dtype, T, P, C, M, KW, tap_row, tap_col, OHW, OW, img,
+        # row, bm, bn, tiles, vec_a, vec_b, smem, stream
+        "stage1_tap_gemm_launch": [_P] * 3 + [_I] * 18 + [_P],
     },
     "cuconv_stage2": {
         # temps, out, out_dtype, T, PM, stream
@@ -56,9 +57,10 @@ LIBRARIES: Dict[str, Dict[str, Sequence]] = {
         "winograd_fused_launch": [_P] * 5 + [_I] * 15 + [_P],
     },
     "direct_conv": {
-        # x, w, out, dtype, N, H, W, C, KH, KW, M, sh, sw, ph, pw, OH, OW,
-        # tm, smem, stream
-        "direct_conv_launch": [_P] * 3 + [_I] * 16 + [_P],
+        # x, w, out, ws, counters, dtype, N, H, W, C, KH, KW, M, sh, sw, ph,
+        # pw, OH, OW, th, tw, bm, bn, kc, stages, tiles, splits, vec_a,
+        # vec_b, smem, stream
+        "direct_conv_launch": [_P] * 5 + [_I] * 25 + [_P],
     },
     "int8_gemm": {
         # x2d, w, out, P, K, M, tp, tm, tc, smem, stream

@@ -8,7 +8,6 @@ kernel modules decide, never a fallback here).
 """
 from __future__ import annotations
 
-import torch
 import torch.nn.functional as F
 
 from repro_torch.core.convspec import normalize_stride
@@ -40,19 +39,18 @@ def int8_gemm(x2d, w, tp=256, tm=128, tc=512):
 
 def cuconv_two_stage(x, w, padding=(0, 0), tp=256, tm=128, tc=512):
     """Faithful two-kernel cuConv (stride 1): stage-1 temporaries in
-    device memory, then the stage-2 sum.  ``tp/tm/tc`` are stage 1's
-    launch tiles."""
-    from repro_torch.core.cuconv import _pad_input, _tap_views
+    device memory, then the stage-2 sum.  Stage 1 reads each tap's rows
+    straight from the padded input (no stack of shifted views);
+    ``tp/tm/tc`` are the reference's stage-1 tiles, which size nothing
+    on the card."""
+    from repro_torch.core.cuconv import _pad_input
     N, H, W_, C = x.shape
     KH, KW, _, M = w.shape
     ph, pw = padding
     xp = _pad_input(x, ph, pw)
     OH, OW = H + 2 * ph - KH + 1, W_ + 2 * pw - KW + 1
-    views = _tap_views(xp, KH, KW, OH, OW, 1)
-    xs = torch.stack([v.reshape(N * OH * OW, C) for v in views], 0)
-    temps = _s1.stage1_tap_gemm(xs.contiguous(),
-                                w.reshape(KH * KW, C, M).contiguous(),
-                                tp=tp, tm=tm, tc=tc)
+    temps = _s1.stage1_tap_conv(xp.contiguous(), w.contiguous(), tp=tp,
+                                tm=tm, tc=tc)
     out = _s2.stage2_tap_sum(temps)
     return out.reshape(N, OH, OW, M).to(x.dtype)
 

@@ -8,9 +8,9 @@ summation order differs) and 3e-2 in bf16 (one bf16 rounding of the
 output).  The Winograd kernel sums in another order over the Winograd
 domain than its plain version, so it is held to the reference's own
 Winograd bounds in fp32: 1e-4 at F(2,3), 2e-3 at F(4,3).  The 1x1 GEMM,
-the fused conv, the Winograd products and flash attention run on the
-tensor cores in 3xTF32, which holds the fp32 bounds
-(``tests/test_torch_tensor_cores.py``).  The int8 GEMM
+the fused conv, the direct conv, stage 1, the Winograd products and
+flash attention run on the tensor cores in 3xTF32, which holds the fp32
+bounds (``tests/test_torch_tensor_cores.py``).  The int8 GEMM
 is exact: it must equal its plain version bit for bit.  The LM kernels
 (flash attention, causal conv1d) keep the conv kernels' bounds; the
 flash plain version takes one softmax over all keys where the kernel
@@ -277,6 +277,102 @@ def test_direct_conv_kernel_matches_plain(geom, dtype):
     assert _build.LAUNCHES["direct_conv"] == 1
 
 
+# the paper's rows on the direct conv (chip_smoke's forced rows) and
+# resnet_like's stride-2 b2c1 at 224x224: (x shape, w shape, stride, pad)
+DIRECT_PAPER = {"t3_A": ((1, 7, 7, 832), (1, 1, 832, 256), 1, 0),
+                "t4_B": ((1, 13, 13, 384), (3, 3, 384, 384), 1, 1),
+                "t5_B": ((8, 7, 7, 48), (5, 5, 48, 128), 1, 2),
+                "b2c1@224": ((1, 112, 112, 16), (3, 3, 16, 32), 2, 1)}
+# the paper's rows on the two-stage pipeline: (padded x shape, w shape)
+STAGE1_PAPER = {"t4_A": ((1, 9, 9, 192), (3, 3, 192, 384)),
+                "t5_A": ((1, 11, 11, 48), (5, 5, 48, 128))}
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("label", sorted(DIRECT_PAPER))
+def test_direct_conv_paper_rows_match_plain(label, dtype):
+    x_shape, w_shape, st, pad = DIRECT_PAPER[label]
+    gen = torch.Generator().manual_seed(15)
+    x, w = _randn(gen, x_shape, dtype), _randn(gen, w_shape, dtype)
+    got = direct_conv.direct_conv(x, w, (pad, pad), (st, st))
+    _close(got, direct_conv.direct_conv_plain(x, w, (pad, pad), (st, st)),
+           dtype)
+    assert _build.LAUNCHES["direct_conv"] == 1
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_direct_conv_takes_misaligned_pointers(dtype):
+    """Base pointers off 16 bytes take the scalar-load variants, with a
+    C-split (C = 384 over 16 splits)."""
+    gen = torch.Generator().manual_seed(16)
+    x = _randn(gen, (13 * 13 * 384 + 1,), dtype)[1:].view(1, 13, 13, 384)
+    w = _randn(gen, (9 * 384 * 64 + 1,), dtype)[1:].view(3, 3, 384, 64)
+    assert direct_conv.vectorized(x, w) == (False, False)
+    assert direct_conv.launch_geometry(x.shape, w.shape, padding=(1, 1),
+                                       itemsize=x.element_size())[
+        "splits"] > 1
+    _close(direct_conv.direct_conv(x, w, (1, 1)),
+           direct_conv.direct_conv_plain(x, w, (1, 1)), dtype)
+
+
+@requires_cuda
+def test_direct_conv_split_is_deterministic_and_replays_in_a_cuda_graph():
+    """t4_B's 16 C-splits are summed in split order by whichever block
+    arrives last: calls give the same bits, and a captured call replays
+    to them."""
+    x_shape, w_shape, _, _ = DIRECT_PAPER["t4_B"]
+    gen = torch.Generator().manual_seed(17)
+    x, w = (_randn(gen, x_shape, torch.float32),
+            _randn(gen, w_shape, torch.float32))
+    assert direct_conv.launch_geometry(x_shape, w_shape,
+                                       padding=(1, 1))["splits"] == 16
+    outs = [direct_conv.direct_conv(x, w, (1, 1)) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        direct_conv.direct_conv(x, w, (1, 1))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = direct_conv.direct_conv(x, w, (1, 1))
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, outs[0])
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("label", sorted(STAGE1_PAPER) + ["odd", "misaligned"])
+def test_stage1_entries_match_plain_and_each_other(label, dtype):
+    """Both stage-1 entries at the paper's rows, at a ragged C and M (the
+    scalar loads and stores), and from pointers off 16 bytes: each within
+    the bound of the plain version, and the two equal bit for bit."""
+    gen = torch.Generator().manual_seed(18)
+    xp_shape, w_shape = STAGE1_PAPER.get(label, ((2, 7, 6, 7), (3, 2, 7, 5)))
+    if label == "misaligned":
+        xp_shape, w_shape = (1, 9, 9, 64), (3, 3, 64, 32)
+        n = int(np.prod(xp_shape))
+        xp = _randn(gen, (n + 1,), dtype)[1:].view(xp_shape)
+        assert xp.data_ptr() % 16
+    else:
+        xp = _randn(gen, xp_shape, dtype)
+    w = _randn(gen, w_shape, dtype)
+    kh, kw, c, m = w_shape
+    got = cuconv_stage1.stage1_tap_conv(xp, w)
+    _close(got, cuconv_stage1.stage1_tap_conv_plain(xp, w), torch.float32)
+    stacked = cuconv_stage1.stage1_tap_gemm(
+        cuconv_stage1.stack_taps(xp, kh, kw).contiguous(),
+        w.reshape(kh * kw, c, m))
+    torch.cuda.synchronize()
+    assert torch.equal(got, stacked)
+    assert _build.LAUNCHES["stage1_tap_gemm"] == 2
+
+
 @requires_cuda
 @pytest.mark.parametrize("P,K,M,tiles", [
     (1024, 144, 16, (512, 16, 144)), (256, 288, 32, (256, 32, 288)),
@@ -302,9 +398,12 @@ def test_wrappers_refuse_mixed_devices_and_oversized_configs():
     with pytest.raises(ValueError, match="is on cpu"):
         cuconv_fused.cuconv_fused(x, torch.zeros((3, 3, 4, 8)))
     with pytest.raises(ValueError, match="shared"):
-        cuconv_stage1.stage1_tap_gemm(
-            torch.zeros((1, 8, 1024), device="cuda"),
-            torch.zeros((1, 1024, 8), device="cuda"), tc=1024)
+        direct_conv.direct_conv(torch.zeros((1, 20, 20, 2), device="cuda"),
+                                torch.zeros((15, 15, 2, 64), device="cuda"))
+    with pytest.raises(ValueError, match="shared"):
+        int8_gemm.int8_gemm(
+            torch.zeros((8, 2048), dtype=torch.int8, device="cuda"),
+            torch.zeros((2048, 8), dtype=torch.int8, device="cuda"), tc=2048)
     assert sum(_build.LAUNCHES.values()) == 0
 
 

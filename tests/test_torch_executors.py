@@ -17,7 +17,8 @@ from _torch_parity import (_clear_port_caches, np32, rand, to_jax,  # noqa: F401
 from repro.core import convspec as rcs
 from repro_torch.core import autotune, executors
 from repro_torch.core import convspec as tcs
-from repro_torch.kernels import _build, conv1x1, cuconv_fused
+from repro_torch.kernels import (_build, conv1x1, cuconv_fused,
+                                 cuconv_stage1, direct_conv)
 
 TOLS = {"float32": dict(rtol=3e-4, atol=3e-4),
         "bfloat16": dict(rtol=3e-2, atol=3e-2)}
@@ -172,7 +173,8 @@ def test_shared_memory_budget_prunes_configs_by_the_kernel_model():
     applied to the same model the kernel wrapper launches with.  The
     fused kernel's block tile is its own, the same under every
     candidate, so the budget no longer prunes the 224x224 pooled stem's
-    rows: its default moves from rows=8 to the fewest grid steps."""
+    rows: its default moves from rows=8 to the fewest grid steps.  The
+    same holds for stage 1, the 1x1 GEMM and the direct conv."""
     spec = tcs.ConvSpec((1, 224, 224, 3), (3, 3, 3, 16), padding=(1, 1),
                         epilogue="bias_relu",
                         fused_pool=("max", 2, 2, 2, 2, 0, 0))
@@ -188,14 +190,27 @@ def test_shared_memory_budget_prunes_configs_by_the_kernel_model():
     assert ex.default_config(spec).as_dict() == {"tm": 16, "rows": 16}
     # the pool rules stay: rows must tile the pool stride and OH
     assert not ex.config_supports(spec, {"tm": 16, "rows": 3})[0]
-    # stage 1's tile GEMM stages tc-deep slices, so the budget prunes tc
-    # there; the 1x1 kernel's geometry is its own, the same under every
-    # candidate, and prunes none
+    # stage 1's and the 1x1 kernel's geometries are their own, the same
+    # under every candidate, and prune none: the two-stage default is
+    # the reference's fewest grid steps (tc=512, which the old tile
+    # GEMM's tc-deep slices could not stage)
     gemm = executors.get("cuconv_two_stage_pallas")
     s1 = tcs.ConvSpec((1, 7, 7, 832), (1, 1, 832, 256))
-    assert not gemm.config_supports(s1, {"tp": 49, "tm": 128,
-                                         "tc": 512})[0]
-    assert gemm.default_config(s1).as_dict()["tc"] == 256
+    assert {gemm.vmem_bytes(s1, c) for c in gemm.configs(s1)} == {
+        cuconv_stage1.launch_geometry(1, 49, 832, 256)["smem"]}
+    assert all(gemm.config_supports(s1, c)[0] for c in gemm.configs(s1))
+    assert gemm.default_config(s1).as_dict() == rcs.plan(
+        rcs.ConvSpec((1, 7, 7, 832), (1, 1, 832, 256)),
+        force="cuconv_two_stage_pallas", backend="cpu").config.as_dict() \
+        == {"tp": 49, "tm": 256, "tc": 512}
+    # the direct kernel's likewise, so every candidate of t4_B is feasible
+    direct = executors.get("direct")
+    t4b = tcs.ConvSpec((1, 13, 13, 384), (3, 3, 384, 384), padding=(1, 1))
+    assert {direct.vmem_bytes(t4b, c) for c in direct.configs(t4b)} == {
+        direct_conv.launch_geometry(t4b.in_shape, t4b.filter_shape,
+                                    padding=(1, 1))["smem"]}
+    assert all(direct.config_supports(t4b, c)[0]
+               for c in direct.configs(t4b))
     one = executors.get("conv1x1_pallas")
     assert {one.vmem_bytes(s1, c) for c in one.configs(s1)} == {
         conv1x1.launch_geometry(49, 832, 256)["smem"]}

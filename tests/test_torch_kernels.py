@@ -132,6 +132,44 @@ def test_cuconv_two_stage_ops_matches_pallas(rng, N, H, W, C, KH, KW, M,
     np.testing.assert_allclose(np32(got), np32(want), **TOLS["float32"])
 
 
+# (N, H, W, C, KH, KW, M, pad): stride-1 two-stage shapes, a ragged C and
+# M among them
+TWO_STAGE = [
+    (1, 7, 7, 16, 3, 3, 8, 1),
+    (2, 9, 9, 8, 5, 5, 4, 2),
+    (2, 6, 7, 5, 3, 2, 9, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("geom", TWO_STAGE)
+def test_two_stage_view_free_path_matches_pallas(rng, geom, dtype):
+    """The view-free stage-1 entry, which reads each tap's rows straight
+    from the padded input, against the reference's stage 1 on its
+    stacked views; and ``ops.cuconv_two_stage``, which now calls it,
+    against the reference's two-stage op."""
+    N, H, W, C, KH, KW, M, pad = geom
+    x, w = rand(rng, (N, H, W, C), dtype), rand(rng, (KH, KW, C, M), dtype)
+    xp = np.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    OH, OW = H + 2 * pad - KH + 1, W + 2 * pad - KW + 1
+    xs = np.stack([xp[:, i:i + OH, j:j + OW, :].reshape(-1, C)
+                   for i in range(KH) for j in range(KW)])
+    got = cuconv_stage1.stage1_tap_conv(to_torch(xp, dtype),
+                                        to_torch(w, dtype))
+    want = rks1.stage1_tap_gemm(to_jax(xs, dtype),
+                                to_jax(w.reshape(KH * KW, C, M), dtype),
+                                interpret=True)
+    assert got.dtype == torch.float32
+    assert tuple(got.shape) == tuple(want.shape) == (KH * KW, N * OH * OW, M)
+    np.testing.assert_allclose(np32(got), np32(want), **TOLS[dtype])
+    got = ops.cuconv_two_stage(to_torch(x, dtype), to_torch(w, dtype),
+                               (pad, pad))
+    want = rops.cuconv_two_stage(to_jax(x, dtype), to_jax(w, dtype),
+                                 (pad, pad), interpret=True)
+    assert str(got.dtype)[6:] == dtype
+    np.testing.assert_allclose(np32(got), np32(want), **TOLS[dtype])
+
+
 @pytest.mark.parametrize("kind", ["max", "avg"])
 @pytest.mark.parametrize("window,stride,padding", [
     ((2, 2), (2, 2), (0, 0)), ((3, 3), (2, 2), (1, 1)),
@@ -288,11 +326,23 @@ def test_cuconv_fused_wrapper_refuses(rng, bad, match):
 def test_gemm_wrappers_refuse(rng):
     with pytest.raises(ValueError, match="contract"):
         conv1x1.conv1x1_gemm(torch.zeros(4, 3), torch.zeros(4, 2))
-    # the tile GEMM's staged depth is stage 1's to prune; conv1x1_gemm's
-    # shared memory no longer depends on tc
+    # stage 1's geometry is its own (tc stages nothing, so tc=1024 runs);
+    # what it refuses is a tile that is not a tile, and a filter that
+    # does not contract; the int8 GEMM's staged depth is the one the
+    # budget still prunes
+    assert cuconv_stage1.stage1_tap_gemm(
+        torch.zeros(1, 4, 1024), torch.zeros(1, 1024, 2),
+        tc=1024).shape == (1, 4, 2)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        cuconv_stage1.stage1_tap_gemm(torch.zeros(1, 4, 8),
+                                      torch.zeros(1, 8, 2), tc=0)
+    with pytest.raises(ValueError, match="filter depth"):
+        cuconv_stage1.stage1_tap_conv(torch.zeros(1, 5, 5, 4),
+                                      torch.zeros(3, 3, 3, 2))
     with pytest.raises(ValueError, match="shared memory"):
-        cuconv_stage1.stage1_tap_gemm(torch.zeros(1, 4, 1024),
-                                      torch.zeros(1, 1024, 2), tc=1024)
+        int8_gemm.int8_gemm(torch.zeros((4, 2048), dtype=torch.int8),
+                            torch.zeros((2048, 2), dtype=torch.int8),
+                            tc=2048)
     with pytest.raises(ValueError, match="float32"):
         cuconv_stage2.stage2_tap_sum(torch.zeros(2, 3, 4,
                                                  dtype=torch.bfloat16))
@@ -313,6 +363,10 @@ def test_new_wrappers_refuse(rng):
         winograd_fused.winograd_fused(x, w3, addend=torch.zeros(1, 8, 8, 7))
     with pytest.raises(ValueError, match="dtype"):
         direct_conv.direct_conv(x, w3.double())
+    # 225 taps: even the smallest tile's two-stage ring of filter slices
+    # is more than a block's shared memory
+    assert direct_conv.launch_geometry((1, 20, 20, 2), (15, 15, 2, 64))[
+        "smem"] > _build.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         direct_conv.direct_conv(to_torch(rand(rng, (1, 20, 20, 2))),
                                 torch.zeros((15, 15, 2, 64)), tm=64)
@@ -328,8 +382,8 @@ def test_new_smem_models_are_what_the_kernels_stage():
     """The shapes the kernels pick, and the shared memory that follows:
     the Winograd kernel's block follows m and the channel cap alone and
     stays bounded (it runs all of C inside a block), the direct
-    kernel's grows with the filter and the stride, the int8 GEMM's with
-    the staged depth."""
+    kernel's grows with the filter and the stride (its halo and filter
+    slices), not with C, the int8 GEMM's with the staged depth."""
     narrow = winograd_fused.launch_geometry(2, 256, 16, tm=16)
     assert (narrow["bt"], narrow["bn"], narrow["blocks"]) == (64, 16, 4)
     assert narrow["smem"] == (2 * (64 * (16 * 8 + 8) + 9 * 8 * 16) * 4
@@ -340,10 +394,25 @@ def test_new_smem_models_are_what_the_kernels_stage():
                for m in (2, 4) for tm in (16, 128)) == \
         2 * (32 * (36 * 8 + 8) + 9 * 8 * 16) * 4 + (36 * 32 * 8
                                                      + 36 * 8 * 16) * 4
-    assert direct_conv.tile(32) == (32, 8, 16)
-    assert direct_conv.smem_bytes((3, 3, 16, 32), 32, (2, 2)) == \
-        4 * 8 * ((7 * 2 + 3) * (15 * 2 + 3) + 9 * 32)
-    assert direct_conv.smem_bytes((11, 11, 3, 64), 64) > _build.SMEM_LIMIT
+    # b2c1@224 (3x3, stride 2): a 4 x 8 pixel tile, its 9 x 17 halo of
+    # 8 channels (+ 16 bytes a position) and a 16-channel filter slice,
+    # two stages, after the 612-byte halo table (rounded to 624)
+    geo = direct_conv.launch_geometry((1, 112, 112, 16), (3, 3, 16, 32),
+                                      (2, 2), (1, 1))
+    assert (geo["th"], geo["tw"], geo["bn"], geo["chunk"],
+            geo["stages"]) == (4, 8, 16, 8, 2)
+    assert geo["smem"] == 624 + 2 * (9 * 17 * 12 + 9 * 8 * 24) * 4
+    # C does not size it: t4_B's tile at C = 384 and at C = 3840
+    small, big = (direct_conv.launch_geometry((1, 13, 13, c), (3, 3, c, 384),
+                                              padding=(1, 1))
+                  for c in (384, 3840))
+    assert small["smem"] == big["smem"]
+    # an 11x11 filter fits at the smallest tile only
+    geo = direct_conv.launch_geometry((1, 40, 40, 3), (11, 11, 3, 64))
+    assert (geo["bm"], geo["bn"], geo["stages"]) == (32, 16, 2)
+    assert geo["smem"] <= _build.SMEM_LIMIT < direct_conv.smem_bytes(
+        geo["th"], geo["tw"], 32, 32, geo["chunk"], (11, 11, 3, 64),
+        stages=2)
     assert int8_gemm.smem_bytes(144) == 4 * 36 * 129
 
 
@@ -367,7 +436,12 @@ def test_smem_model_is_what_the_wrapper_launches_with():
     assert max(cuconv_fused.smem_bytes(bm, bn, size) for bm in (32, 64)
                for bn in (16, 32, 64) for size in (2, 4)) < \
         _build.SMEM_LIMIT // 4
-    assert cuconv_stage1.smem_bytes(256) == 4 * 256 * 129
+    # stage 1's 3-stage ring: (bm x (32 + 16 bytes) + 32 x (bn + 8)), or
+    # the finished fp32 tile where that is larger
+    assert cuconv_stage1.smem_bytes(32, 32) == 3 * (32 * 36 + 32 * 40) * 4
+    assert cuconv_stage1.smem_bytes(64, 64, 2) == 3 * (64 * 40 + 32 * 72) * 2
+    assert cuconv_stage1.launch_geometry(9, 49, 192, 384)["smem"] == \
+        cuconv_stage1.smem_bytes(32, 32)
     # the 1x1 GEMM's 3-stage ring: (bm x (32 + 16 bytes) + 32 x 72) each
     assert conv1x1.smem_bytes(64) == 3 * (64 * 36 + 32 * 72) * 4
     assert conv1x1.smem_bytes(32, 2) == 3 * (32 * 40 + 32 * 72) * 2

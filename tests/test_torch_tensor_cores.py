@@ -1,8 +1,9 @@
 """The tensor-core kernels' numerics and launch geometry, on the CPU.
 
-``conv1x1_gemm``, ``cuconv_fused``, ``winograd_fused`` and
-``flash_attention`` run their fp32 products on the TF32 tensor cores in
-the 3xTF32 split (``csrc/mma_tf32.cuh``).  The first tests emulate that
+``conv1x1_gemm``, ``cuconv_fused``, ``winograd_fused``,
+``direct_conv``, ``stage1_tap_gemm`` and ``flash_attention`` run their
+fp32 products on the TF32 tensor cores in the 3xTF32 split
+(``csrc/mma_tf32.cuh``).  The first tests emulate that
 split in torch: round to TF32 as ``cvt.rna.tf32.f32`` does, then
 big*big + big*small + small*big in fp32, at the paper's three 1x1
 shapes, resnet50's two Winograd rows (their per-position products), the
@@ -13,10 +14,12 @@ product misses it, which is why the kernels split.
 
 The rest hold each kernel's ``launch_geometry`` (what the wrapper
 launches, and what the planner's ``vmem_bytes`` reads) to the card: at
-the nine main-path paper shapes it launches at least one wave of 132
+the fourteen main-path paper shapes it launches at least one wave of 132
 blocks, its contraction splits cover the contraction exactly in whole
-32-deep steps, a pooled tile holds whole windows, and the wrapper
-launches with the same geometry and shared memory the executor models.
+steps (or, for the direct conv, whole chunks of channels), a pooled
+tile holds whole windows, the wrapper launches with the same geometry
+and shared memory the executor models, and stage 1's row rule reads,
+from the padded input, the rows of the stacked tap views.
 """
 import contextlib
 
@@ -30,7 +33,8 @@ from repro_torch.core import convspec as tcs
 from repro_torch.core import executors
 from repro_torch.core.winograd import matrices, transform_filters
 from repro_torch.kernels import (_build, conv1x1, cuconv_fused,
-                                 flash_attention, winograd_fused)
+                                 cuconv_stage1, direct_conv, flash_attention,
+                                 ops, winograd_fused)
 
 FP32_TOL = 2e-5
 SMS = 132
@@ -413,3 +417,183 @@ def test_flash_wrapper_launches_its_model(shape, dtype, fake_card):
     assert geo["smem"] == flash_attention.smem_bytes(D, q.element_size())
     assert out.shape == q.shape and out.dtype == dtype
     assert _build.LAUNCHES["flash_attention"] == 1
+
+
+# ---------------------------------------------------------------------------
+# direct_conv and stage1_tap_gemm: the tensor-core redesigns' geometry
+
+# chip_smoke's forced direct rows and resnet_like's stride-2 b2c1 at
+# 224x224: (x shape, w shape, stride, pad)
+DIRECT_ROWS = {f"{label}:direct": ((n, hw, hw, c), (k, k, c, m), 1,
+                                   (k - 1) // 2)
+               for label, (hw, n, k, m, c) in PROFILED.items()
+               if label in ("t3_A", "t4_B", "t5_B")}
+DIRECT_ROWS["b2c1@224:direct"] = ((1, 112, 112, 16), (3, 3, 16, 32), 2, 1)
+# chip_smoke's forced two-stage rows: (T, P, C, M), and x, w, pad
+TWO_STAGE_ROWS = {f"{label}:two_stage": ((k * k, n * hw * hw, c, m),
+                                         ((n, hw, hw, c), (k, k, c, m),
+                                          (k - 1) // 2))
+                  for label, (hw, n, k, m, c) in PROFILED.items()
+                  if label in ("t4_A", "t5_A")}
+PAPER_ROWS = ("t3_A:direct", "t4_B:direct", "t5_B:direct", "t4_A:two_stage",
+              "t5_A:two_stage")
+
+
+def _redesigned_geometry(label, itemsize=4):
+    if label in DIRECT_ROWS:
+        x_shape, w_shape, st, pad = DIRECT_ROWS[label]
+        return direct_conv.launch_geometry(x_shape, w_shape, (st, st),
+                                           (pad, pad), itemsize)
+    return cuconv_stage1.launch_geometry(*TWO_STAGE_ROWS[label][0],
+                                         itemsize=itemsize)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("label", sorted(DIRECT_ROWS)
+                         + sorted(TWO_STAGE_ROWS))
+def test_direct_and_stage1_main_path_shapes_launch_a_wave(label, itemsize):
+    geo = _redesigned_geometry(label, itemsize)
+    if label in PAPER_ROWS:
+        assert geo["blocks"] >= SMS, geo
+    assert geo["blocks"] == geo["tiles"] * (
+        geo["splits"] if label in DIRECT_ROWS else
+        TWO_STAGE_ROWS[label][0][0])
+    assert geo["smem"] <= _build.SMEM_LIMIT
+
+
+def test_direct_and_stage1_geometry_is_the_planned_table():
+    """The rule's geometry at the paper's rows in fp32: t4_B keeps its
+    64 x 64 tile (4 x 13 pixels) and splits C 16 ways; the others shrink
+    to 32 rows and narrower channel tiles first.  Stage 1 needs no
+    split: the taps fill the card."""
+    keys = ("th", "tw", "bn", "splits", "stages", "blocks")
+    got = {label: tuple(_redesigned_geometry(label)[k] for k in keys)
+           for label in DIRECT_ROWS}
+    assert got == {"t3_A:direct": (4, 7, 16, 13, 2, 416),
+                   "t4_B:direct": (4, 13, 64, 16, 3, 384),
+                   "t5_B:direct": (4, 7, 32, 6, 2, 384),
+                   "b2c1@224:direct": (4, 8, 16, 1, 2, 196)}
+    got = {label: tuple(_redesigned_geometry(label)[k] for k in
+                        ("bm", "bn", "tiles", "blocks"))
+           for label in TWO_STAGE_ROWS}
+    assert got == {"t4_A:two_stage": (32, 32, 24, 216),
+                   "t5_A:two_stage": (32, 32, 8, 200)}
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("x_shape,w_shape,stride,pad", [
+    ((1, 7, 7, 832), (1, 1, 832, 256), (1, 1), (0, 0)),     # t3_A
+    ((1, 13, 13, 384), (3, 3, 384, 384), (1, 1), (1, 1)),   # t4_B
+    ((8, 7, 7, 48), (5, 5, 48, 128), (1, 1), (2, 2)),       # t5_B
+    ((1, 112, 112, 16), (3, 3, 16, 32), (2, 2), (1, 1)),    # b2c1@224
+    ((2, 9, 9, 130), (3, 3, 130, 7), (1, 1), (1, 1)),
+    ((1, 5, 5, 3), (1, 1, 3, 5), (1, 1), (0, 0)),
+    ((2, 13, 13, 9), (7, 7, 9, 40), (2, 1), (3, 3)),
+])
+def test_direct_c_splits_cover_c_exactly_in_whole_chunks(x_shape, w_shape,
+                                                         stride, pad,
+                                                         itemsize):
+    geo = direct_conv.launch_geometry(x_shape, w_shape, stride, pad,
+                                      itemsize)
+    C = w_shape[2]
+    chunk = geo["chunk"]
+    assert chunk % direct_conv.KSTEP[itemsize] == 0
+    assert geo["chunks"] == -(-C // chunk)
+    ranges = direct_conv.split_ranges(C, chunk, geo["splits"])
+    assert len(ranges) == geo["splits"] <= min(geo["chunks"],
+                                               direct_conv.MAX_SPLITS)
+    assert ranges[0][0] == 0 and ranges[-1][1] == C
+    for (_, e0), (b1, _) in zip(ranges, ranges[1:]):
+        assert e0 == b1
+    for b, e in ranges:
+        assert b < e and b % chunk == 0
+        assert e == C or e % chunk == 0
+    # the pixel tile fits the block's mma rows and tiles the output
+    OH, OW = cuconv_fused._geometry(x_shape, w_shape, stride, pad)
+    assert geo["th"] * geo["tw"] <= geo["bm"]
+    assert geo["tiles"] == (x_shape[0] * -(-OH // geo["th"])
+                            * -(-OW // geo["tw"])
+                            * -(-w_shape[3] // geo["bn"]))
+    # one wave; or the tiles alone fill it; or the smallest tile
+    assert (geo["blocks"] >= SMS or geo["splits"] == 1
+            and geo["tiles"] >= SMS or (geo["bm"], geo["bn"]) == (32, 16))
+
+
+@pytest.mark.parametrize("label", sorted(DIRECT_ROWS))
+def test_direct_wrapper_launches_the_executors_geometry(label, fake_card):
+    x_shape, w_shape, st, pad = DIRECT_ROWS[label]
+    spec = tcs.ConvSpec(x_shape, w_shape, (st, st), (pad, pad))
+    p = tcs.plan(spec, force="direct", backend="cuda")
+    direct_conv.direct_conv(torch.zeros(x_shape), torch.zeros(w_shape),
+                            (pad, pad), (st, st), **p.config.as_dict())
+    (fn, args), = fake_card
+    geo = direct_conv.launch_geometry(x_shape, w_shape, (st, st), (pad, pad))
+    # ..., OH, OW, th, tw, bm, bn, kc, stages, tiles, splits, vec_a,
+    # vec_b, smem, stream
+    assert fn == "direct_conv_launch"
+    assert args[6:13] == tuple(x_shape) + tuple(w_shape[:2]) + (w_shape[3],)
+    assert args[19:29] == (geo["th"], geo["tw"], geo["bm"], geo["bn"],
+                           geo["chunk"], geo["stages"], geo["tiles"],
+                           geo["splits"], 1, 1)
+    assert args[29] == geo["smem"] == p.executor.vmem_bytes(spec, p.config)
+    assert (args[3] is None) == (geo["splits"] == 1)
+    assert _build.LAUNCHES["direct_conv"] == 1
+
+
+@pytest.mark.parametrize("label", sorted(TWO_STAGE_ROWS))
+def test_stage1_wrappers_launch_the_executors_geometry(label, fake_card):
+    """The executor's path (``ops.cuconv_two_stage``) launches stage 1 on
+    the padded input under the conv row rule, then stage 2; the stacked
+    entry launches the same geometry under the stacked rule."""
+    (T, P, C, M), (x_shape, w_shape, pad) = TWO_STAGE_ROWS[label]
+    spec = tcs.ConvSpec(x_shape, w_shape, padding=(pad, pad))
+    p = tcs.plan(spec, force="cuconv_two_stage_pallas", backend="cuda")
+    ops.cuconv_two_stage(torch.zeros(x_shape), torch.zeros(w_shape),
+                         (pad, pad), **p.config.as_dict())
+    cuconv_stage1.stage1_tap_gemm(torch.zeros((T, P, C)),
+                                  torch.zeros((T, C, M)))
+    (fn, args), (fn2, _), (fn3, args3) = fake_card
+    assert (fn, fn2, fn3) == ("stage1_tap_gemm_launch",
+                              "stage2_tap_sum_launch",
+                              "stage1_tap_gemm_launch")
+    geo = cuconv_stage1.launch_geometry(T, P, C, M)
+    xp_shape = (x_shape[0], x_shape[1] + 2 * pad, x_shape[2] + 2 * pad, C)
+    rules = [cuconv_stage1.conv_rule(xp_shape, w_shape),
+             cuconv_stage1.stacked_rule(T, P, C)]
+    # x, w, out, dtype, T, P, C, M, KW, tap_row, tap_col, OHW, OW, img,
+    # row, bm, bn, tiles, vec_a, vec_b, smem, stream
+    for a, rule in zip((args, args3), rules):
+        assert a[4:8] == (T, P, C, M)
+        assert a[8:15] == tuple(rule[k] for k in ("KW", "tap_row", "tap_col",
+                                                  "OHW", "OW", "img", "row"))
+        assert a[15:21] == (geo["bm"], geo["bn"], geo["tiles"], 1, 1,
+                            geo["smem"])
+    assert geo["smem"] == p.executor.vmem_bytes(spec, p.config)
+    assert _build.LAUNCHES["stage1_tap_gemm"] == 2
+    assert _build.LAUNCHES["stage2_tap_sum"] == 1
+
+
+@pytest.mark.parametrize("xp_shape,kernel", [
+    ((1, 9, 9, 192), (3, 3)),        # t4_A, padded
+    ((1, 11, 11, 48), (5, 5)),       # t5_A, padded
+    ((3, 6, 8, 5), (3, 2)), ((2, 4, 4, 3), (1, 1)), ((1, 3, 7, 2), (3, 7)),
+])
+def test_stage1_row_rule_reads_the_stacked_views(xp_shape, kernel):
+    """The kernel's address rule (``row_offsets``, the arithmetic of
+    ``stage1_tc_kernel``) reads, from the padded input, exactly the rows
+    of the stacked tap views; under the stacked rule it reads the stack
+    itself."""
+    KH, KW = kernel
+    N, Hp, Wp, C = xp_shape
+    T, P = KH * KW, N * (Hp - KH + 1) * (Wp - KW + 1)
+    xp = torch.arange(np.prod(xp_shape), dtype=torch.float64).reshape(
+        xp_shape)
+    stack = cuconv_stage1.stack_taps(xp, KH, KW)
+    assert stack.shape == (T, P, C)
+    cols = torch.arange(C)
+    rule = cuconv_stage1.conv_rule(xp_shape, (KH, KW, C, 1))
+    offs = cuconv_stage1.row_offsets(rule, T, P, C)
+    assert torch.equal(xp.reshape(-1)[offs.unsqueeze(-1) + cols], stack)
+    stacked = cuconv_stage1.stacked_rule(T, P, C)
+    offs = cuconv_stage1.row_offsets(stacked, T, P, C)
+    assert torch.equal(stack.reshape(-1)[offs.unsqueeze(-1) + cols], stack)
