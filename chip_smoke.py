@@ -5,9 +5,13 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the nine CUDA kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version on the card (fp32 and bf16, int8
-for the int8 GEMM) at the shapes the main paths give it, and drives the
-paths through the entry points a user calls:
+each against its plain PyTorch version on the card (fp32 and bf16; the
+int8 kernel bit for bit, both its entries: the conv entry as the int8
+executor launches it, fp32 in with the node's scale, epilogue and
+addend, and on int8 codes, and the stacked GEMM, which must give the
+conv entry's accumulator on the same codes) at the shapes the main
+paths give it, and drives the paths through the entry points a user
+calls:
 
 - the paper's conv rows through ``repro_torch.conv2d``: the profiled
   rows (tables 3-5), resnet50's two 3x3 layers at batch 8 on the
@@ -26,18 +30,23 @@ paths through the entry points a user calls:
   ``conv1d_tap``; then both models cut to 4 layers in fp32, card against
   the CPU.
 
-It prints the launch geometry of the six tensor-core kernels
+It prints the launch geometry of the seven tensor-core kernels
 (``conv1x1_gemm``, ``cuconv_fused``, ``winograd_fused``,
-``direct_conv``, ``stage1_tap_gemm``: block tile, splits, blocks;
-``flash_attention``: grid and shared memory) at their main-path shapes,
+``direct_conv``, ``stage1_tap_gemm``, ``int8_gemm``: block tile,
+splits, blocks; ``flash_attention``: grid and shared memory) at their
+main-path shapes,
 and fails where one of the fourteen paper shapes on the conv kernels
 (t3_A-C, t4_A-B, t5_A-B, resnet50's two 3x3 rows, the forced direct
 t3_A, t4_B and t5_B, the forced two-stage t4_A and t5_A) launches under
-one wave of 132 blocks; the build phase prints every kernel's registers
-and spills, and fails where ``direct_conv`` or ``cuconv_stage1``
-spills.  Both stage-1 entries (the stacked views and the padded input)
+one wave of 132 blocks, or where an ``int8_gemm`` block owns more than
+one output tile; the build phase prints every kernel's registers
+and spills, and fails where ``direct_conv``, ``cuconv_stage1`` or
+``int8_gemm`` spills.  Both stage-1 entries (the stacked views and the padded input)
 must give the same bits.  The launch counters show that each path ran
-its kernels.  It then times served latency over windows of a few
+its kernels.  One warm 32x32 batch per bucket, fp32 and int8, runs
+under ``torch.profiler``: the int8 batch may launch no more CUDA kernels
+than the fp32 one (an int8 node is one launch).  It then times served
+latency over windows of a few
 hundred requests per engine, times each kernel (CUDA graph replays
 between CUDA events, so host dispatch is left out; eager times and the
 host's time per call are kept beside) with its plain version, one
@@ -45,8 +54,11 @@ library call and its bound (work over the rate of the units the kernel
 runs on: 495/3 TFLOP/s for a 3xTF32 product, the fp32 products of the
 six tensor-core kernels; 989 for bf16; 1,979 TOP/s for int8; 67 TFLOP/s
 for fp32 outside the tensor cores, ``stage2_tap_sum``'s adds and
-``conv1d_tap``), and checks that every feasible launch config of the
-fused, direct and two-stage executors launches one geometry.  It prints
+``conv1d_tap``; the int8 conv entry's library call is ``torch._int_mm``
+on its patch matrix, made outside the timed call, and the eager
+composition it replaced is timed beside it), and checks that every
+feasible launch config of the fused, direct, two-stage and int8
+executors launches one geometry.  It prints
 one ``{"kernels": [...]}`` line, the card's name and power limit, and as
 its last line the device record.
 Details go to ``chiprun_out/chip_smoke.json``.  Any failed phase exits
@@ -106,7 +118,7 @@ DIRECT_STRIDED = ("b2c1@224", (1, 112, 112, 16), (3, 3, 16, 32), 2)
 # forced algorithm="cuconv_two_stage_pallas" rows
 TWO_STAGE_ROWS = ("t4_A", "t5_A")
 # the kernels whose ptxas report may show no spill
-NO_SPILL = ("direct_conv", "cuconv_stage1")
+NO_SPILL = ("direct_conv", "cuconv_stage1", "int8_gemm")
 
 # the LM serving path (configs/archs.py), served at full width and depth
 LM_ARCHS = ("qwen2-1.5b", "mamba2-1.3b")
@@ -186,7 +198,7 @@ def main() -> None:
                                      winograd_fused)
     from repro_torch.models import lm
     from repro_torch.models.cnn import resnet_like
-    from repro_torch.quant import Calibrator, QuantPolicy
+    from repro_torch.quant import Calibrator, QuantPolicy, symmetric
     from repro_torch.serve.cnn import CnnServeEngine, ImageRequest
     from repro_torch.serve.engine import Request, ServeEngine
     if "jax" in sys.modules or "repro" in sys.modules:
@@ -426,20 +438,48 @@ def main() -> None:
         return out
 
     def int8_cases():
+        """The int8 kernel's calls at every served int8 node: the conv
+        entry as the executor launches it (fp32 input, the node's
+        calibrated scale, epilogue and addend; in the line), the same
+        entry on int8 codes (the raw accumulator), and the stacked entry
+        on those codes' patch matrix."""
         out = []
         for label, p in node_plans:
             if p.algorithm != "cuconv_int8":
                 continue
-            n, oh, ow, m = p.spec.out_shape
-            kh, kw_, c, _ = p.spec.filter_shape
+            s = p.spec
+            n, oh, ow, m = s.out_shape
+            kh, kw_, c, _ = s.filter_shape
             P, K = n * oh * ow, kh * kw_ * c
-            codes = (torch.randint(-127, 128, (P, K), generator=gen,
-                                   dtype=torch.int8).to(dev),
-                     torch.randint(-127, 128, (K, m), generator=gen,
-                                   dtype=torch.int8).to(dev))
-            out.append(case("int8_gemm", label, int8_gemm.int8_gemm,
-                            int8_gemm.int8_gemm_plain, codes, gemm_tiles(p),
-                            {}, 2 * P * K * m, 0.0, peak=INT8_OP_PER_S))
+            ops = 2 * P * K * m
+            w = torch.randint(-127, 128, (m, kh, kw_, c), generator=gen,
+                              dtype=torch.int8).to(dev)
+            relu = (s.fused_add == "add_relu" if s.fused_add != "none"
+                    else s.wants_relu)
+            pkw = dict(stride=s.stride, padding=s.padding,
+                       scale=executors._scale_on(p.quant.x_scale, dev),
+                       w_scales=torch.rand(m, generator=gen).to(dev) / 127,
+                       bias=randn((m,)) if s.has_bias else None,
+                       addend=(randn(s.out_shape) if s.fused_add != "none"
+                               else None), relu=relu)
+            out.append(case("int8_gemm", label, int8_gemm.int8_conv,
+                            int8_gemm.int8_conv_plain, (randn(s.in_shape), w),
+                            dict(pkw, **gemm_tiles(p)), pkw, ops, 0.0,
+                            peak=INT8_OP_PER_S))
+            codes = torch.randint(-127, 128, s.in_shape, generator=gen,
+                                  dtype=torch.int8).to(dev)
+            geo = dict(stride=s.stride, padding=s.padding)
+            out.append(case("int8_gemm", f"{label}:codes",
+                            int8_gemm.int8_conv, int8_gemm.int8_conv_plain,
+                            (codes, w), dict(geo, **gemm_tiles(p)), geo, ops,
+                            0.0, peak=INT8_OP_PER_S, in_line=False))
+            stacked = (int8_gemm.conv_patches(codes, kh, kw_, s.stride,
+                                              s.padding).contiguous(),
+                       w.reshape(m, K).t().contiguous())
+            out.append(case("int8_gemm", f"{label}:stacked",
+                            int8_gemm.int8_gemm, int8_gemm.int8_gemm_plain,
+                            stacked, gemm_tiles(p), {}, ops, 0.0,
+                            peak=INT8_OP_PER_S, in_line=False))
         return out
 
     lm_cfgs = {arch: get_config(arch) for arch in LM_ARCHS}
@@ -488,6 +528,7 @@ def main() -> None:
     phase("kernel vs plain")
     max_err = {}
     stage1_outs = {}          # label -> output of each stage-1 entry
+    int8_accs = {}            # label -> accumulator of each int8 entry
     for dtype, cs in ((torch.float32, cases(torch.float32)
                        + lm_cases(torch.float32)),
                       (torch.bfloat16, cases(torch.bfloat16)
@@ -504,6 +545,8 @@ def main() -> None:
             err = (got.double() - want.double()).abs().max().item()
             bound = c["tol"] * max(1.0, want.double().abs().max().item())
             ok = bool(torch.isfinite(got.double()).all()) and err <= bound
+            if c["tol"] == 0:                   # int8: bit for bit
+                ok = ok and torch.equal(got, want)
             print(f"  {kname:16s} {label:28s} {str(dtype)[6:]:8s} "
                   f"max|k-p|={err:.3e} bound={bound:.3e} "
                   f"{'ok' if ok else 'FAIL'}")
@@ -514,6 +557,9 @@ def main() -> None:
                 max_err[kname] = max(max_err.get(kname, 0.0), err)
             if kname == "stage1_tap_gemm":
                 stage1_outs[(label, dtype)] = got
+            if kname == "int8_gemm" and label.endswith((":codes",
+                                                         ":stacked")):
+                int8_accs[label] = got
     for (label, dtype), got in stage1_outs.items():
         if label.endswith(":stacked"):
             same = torch.equal(got, stage1_outs[(label[:-8], dtype)])
@@ -522,6 +568,17 @@ def main() -> None:
             if not same:
                 fail(f"stage1_tap_gemm {label[:-8]} {dtype}: the two "
                      f"entries disagree")
+
+    for label, acc in int8_accs.items():
+        if label.endswith(":codes"):
+            node = label[:-len(":codes")]
+            stacked = int8_accs[f"{node}:stacked"]
+            same = torch.equal(acc, stacked.reshape(acc.shape))
+            print(f"  int8_gemm        {node:28s} int8     conv entry == "
+                  f"stacked entry on the same codes: {same}")
+            if not same:
+                fail(f"int8_gemm {node}: the two entries' accumulators "
+                     f"differ")
 
     # -- 3b. the tensor-core kernels' launch geometry ------------------------
     phase("launch geometry of the tensor-core kernels")
@@ -563,6 +620,18 @@ def main() -> None:
                 (T, P, C), M = args[0].shape, args[1].shape[2]
             return cuconv_stage1.launch_geometry(T, P, C, M,
                                                  args[0].element_size())
+        if c["kernel"] == "int8_gemm":
+            if args[0].dim() == 2:          # the stacked entry
+                (P, K), M = args[0].shape, args[1].shape[1]
+            else:                           # the conv entry
+                M, kh, kw_, C = args[1].shape
+                n, h, w_, _ = args[0].shape
+                (sh, sw), (ph, pw) = kw["stride"], kw["padding"]
+                P = (n * ((h + 2 * ph - kh) // sh + 1)
+                     * ((w_ + 2 * pw - kw_) // sw + 1))
+                K = kh * kw_ * C
+            geo = int8_gemm.launch_geometry(P, K, M)
+            return dict(geo, P=P, K=K, M=M)
         return None
 
     report["geometry"] = {}
@@ -570,7 +639,9 @@ def main() -> None:
                  | {f"{r}:direct" for r in DIRECT_ROWS}
                  | {f"{r}:two_stage" for r in TWO_STAGE_ROWS})
     for c in (cases(torch.float32) + lm_cases(torch.float32)
-              + lm_cases(torch.bfloat16)):
+              + lm_cases(torch.bfloat16)
+              + [c for c in int8_cases() if not c["label"].endswith(
+                  ":codes")]):
         geo = geometry(c)
         if geo is None:
             continue
@@ -581,6 +652,13 @@ def main() -> None:
         if c["label"] in main_rows and geo["blocks"] < SMS:
             fail(f"{c['kernel']} {c['label']}: {geo['blocks']} blocks, "
                  f"under one wave of {SMS}")
+        # the int8 kernel: every block owns exactly one output tile
+        if c["kernel"] == "int8_gemm" and not (
+                geo["bm"] <= 32 and geo["bn"] <= 32
+                and geo["blocks"] == geo["tiles"]
+                == -(-geo["P"] // geo["bm"]) * -(-geo["M"] // geo["bn"])):
+            fail(f"int8_gemm {key}: a block owns more than one output "
+                 f"tile ({geo})")
     missing = main_rows - set(report["geometry"])
     if missing:
         fail(f"main-path shapes not on the tensor-core kernels: {missing}")
@@ -714,6 +792,40 @@ def main() -> None:
     if not rel <= INT8_ACCURACY:
         fail(f"int8 serving is {rel:.4e} from fp32 > {INT8_ACCURACY}")
     report["serve"]["int8_vs_fp32_rel_err"] = rel
+
+    # one warm batch per 32x32 bucket, fp32 and int8, under torch.profiler:
+    # an int8 node is one kernel launch, so an int8 batch may launch no
+    # more CUDA kernels than the fp32 batch of the same bucket
+    from torch.profiler import ProfilerActivity, profile
+    report["serve"]["kernels_per_batch"] = {}
+    for b in engines[("int8", small)].buckets:
+        seen = {}
+        for kind in ("fp32", "int8"):
+            eng = engines[(kind, small)]
+            fn = eng.programs.fn(b)
+            xb = eng.programs.put(np.zeros((b,) + small, np.float32))
+            fn(eng.params, xb)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn(eng.params, xb)
+                torch.cuda.synchronize()
+            seen[kind] = {
+                e.key: e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and getattr(e, "self_device_time_total", 0) > 0}
+            print(f"  {kind} 32x32 bucket {b}: "
+                  f"{sum(seen[kind].values())} CUDA kernels per warm batch")
+            for name, n in sorted(seen[kind].items(), key=lambda kv: -kv[1]):
+                print(f"    x{n:<3d} {name[:100]}")
+        totals = {k: sum(v.values()) for k, v in seen.items()}
+        report["serve"]["kernels_per_batch"][str(b)] = {
+            k: {"total": totals[k], "kernels": v} for k, v in seen.items()}
+        if not totals["fp32"]:
+            fail(f"bucket {b}: the profiler saw no CUDA kernel")
+        if totals["int8"] > totals["fp32"]:
+            fail(f"bucket {b}: an int8 batch launches {totals['int8']} CUDA "
+                 f"kernels, the fp32 batch {totals['fp32']}")
 
     # -- 4c. served latency over a window of requests -------------------------
     # A few requests prove the outputs; latency needs hundreds.  Each
@@ -1025,9 +1137,19 @@ def main() -> None:
             wt = w4.reshape(kh * kw_, C, M)
             return lambda: torch.matmul(xs, wt)
         if kname == "int8_gemm":
-            (P, K), M = args[0].shape, args[1].shape[1]
+            a, b = args
+            if a.dim() == 4:
+                # the conv entry: torch._int_mm on its codes' patch matrix
+                # (quantized and stacked here, outside the timed call)
+                M, kh, kw_, C = b.shape
+                if a.dtype != torch.int8:
+                    a = symmetric.quantize_to_int8(a, kw["scale"])
+                a = int8_gemm.conv_patches(a, kh, kw_, kw["stride"],
+                                           kw["padding"]).contiguous()
+                b = b.reshape(M, -1).t().contiguous()
+            (P, K), M = a.shape, b.shape[1]
             if P > 16 and K % 8 == 0 and M % 8 == 0:
-                return lambda: torch._int_mm(*args)
+                return lambda: torch._int_mm(a, b)
             return None
         if kname == "flash_attention":
             q, k, v = (t.transpose(1, 2).contiguous() for t in args)
@@ -1046,11 +1168,40 @@ def main() -> None:
             return conv1d
         return lambda: torch.sum(args[0], dim=0)
 
+    def int8_composition(c):
+        """The int8 executor's eager steps before it was one launch, at a
+        conv entry's call: quantize x and the filter, pad and stack the
+        tap views, the GEMM (the stacked entry), the fp32 epilogue."""
+        (x, wq), kw = c["args"], c["pkw"]
+        M, kh, kw_, C = wq.shape
+        w = (wq.float() * kw["w_scales"].view(M, 1, 1, 1)).permute(
+            1, 2, 3, 0).contiguous()
+
+        def run():
+            ws = symmetric.channel_scales(w)
+            xq = symmetric.quantize_to_int8(x, kw["scale"])
+            acc = int8_gemm.int8_gemm(
+                int8_gemm.conv_patches(xq, kh, kw_, kw["stride"],
+                                       kw["padding"]),
+                symmetric.quantize_to_int8(w, ws).reshape(-1, M))
+            y = acc.float().reshape(x.shape[0], -1, M) * (kw["scale"] * ws)
+            if kw["bias"] is not None:
+                y = y + kw["bias"]
+            if kw["addend"] is not None:
+                y = y + kw["addend"].reshape(y.shape)
+            return torch.relu(y) if kw["relu"] else y
+        return run
+
+    # every kernel call of the main paths once (the stage-1 stack and the
+    # int8 conv entry on codes are checked above, not timed), and the int8
+    # kernel's stacked entry beside its conv entry
     timed = [c for c in cases(torch.float32) + int8_cases()
              if (c["kernel"] in ("winograd_fused", "direct_conv",
                                  "int8_gemm")
                  or not c["label"].startswith("resnet32"))
-             and not c["label"].endswith(":stacked")]
+             and not (c["label"].endswith(":stacked")
+                      and c["kernel"] == "stage1_tap_gemm")
+             and not c["label"].endswith(":codes")]
     timed += lm_cases(torch.bfloat16) + lm_cases(torch.float32)
     totals = {}
     for c in timed:
@@ -1075,6 +1226,13 @@ def main() -> None:
                "bytes": moved, "ops": c["ops"],
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if kname == "int8_gemm" and args[0].dim() == 4:
+            comp = int8_composition(c)
+            row["composition_ms"] = time_ms(comp)
+            row["composition_eager_ms"], _ = eager_ms(comp)
+            print(f"  {'':16s} {label:28s} the eager composition it "
+                  f"replaces: {row['composition_ms']:.6f} ms (eager "
+                  f"{row['composition_eager_ms']:.6f})")
         report["shapes"].append(row)
         lib_s = (f"{row['library_ms']:.6f}" if lib is not None
                  else "none")
@@ -1136,13 +1294,23 @@ def main() -> None:
                      "work": f"{work}, sum over {tot['n']} main-path shapes"
                              + (f" (library call at {tot['library_n']})"
                                 if tot["library_n"] != tot["n"] else "")})
+    # int8_gemm's line is its conv entry, the executor's one launch; its
+    # stacked entry and the eager composition it replaced ride beside it
+    i8 = next(e for e in line if e["name"] == "int8_gemm")
+    i8_rows = [r for r in report["shapes"] if r["kernel"] == "int8_gemm"]
+    i8["stacked_ms"] = sum(r["ms"] for r in i8_rows
+                           if r["shape"].endswith(":stacked"))
+    i8["composition_ms"] = sum(r.get("composition_ms", 0.0)
+                               for r in i8_rows)
+    i8["work"] += (" (conv entry: fp32 in, quantized on load, fp32 "
+                   "epilogue)")
     report["kernels"] = line
 
     # -- 6. launch-config check: the fused, direct and two-stage kernels'
     # geometry is their own, so every feasible candidate of their
     # executors launches the same one (and gives the same bits)
-    phase("launch-config check of the fused, direct and two-stage "
-          "executors (fp32)")
+    phase("launch-config check of the fused, direct, two-stage and int8 "
+          "executors")
     probe = dict(node_plans + [(lb, p) for lb, p, _ in paper_plans])
 
     def fused_call(p):
@@ -1162,6 +1330,12 @@ def main() -> None:
         (xp, w4), _ = two_stage_inputs(p, torch.float32)
         return lambda cfg: cuconv_stage1.stage1_tap_conv(xp, w4, **cfg)
 
+    def int8_call(p):
+        node = next(lb for lb, q in node_plans if q is p)
+        c = next(c for c in int8_cases() if c["label"] == node)
+        return lambda cfg: int8_gemm.int8_conv(*c["args"],
+                                               **dict(c["pkw"], **cfg))
+
     # executor, library, launcher, the launcher's geometry arguments, the
     # shapes probed, and a call under a config on operands made once
     probes = (("cuconv_pallas", "cuconv_fused", "cuconv_fused_launch",
@@ -1171,7 +1345,10 @@ def main() -> None:
                ("t4_B:direct",), direct_call),
               ("cuconv_two_stage_pallas", "cuconv_stage1",
                "stage1_tap_gemm_launch", slice(15, 21),
-               ("t4_A:two_stage",), two_stage_call))
+               ("t4_A:two_stage",), two_stage_call),
+              ("cuconv_int8", "int8_gemm", "int8_gemm_launch",
+               slice(22, 29), ("resnet32b4:int8:b1c1",
+                               "resnet32b1:int8:b2c2"), int8_call))
     report["config_check"] = []
     for ex_name, lib_name, fn_name, geo_args, labels, make_call in probes:
         ex = executors.get(ex_name)

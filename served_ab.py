@@ -12,6 +12,9 @@ run measures, with seed-0 weights:
 - ``resnet_like`` served by ``CnnServeEngine`` at 224x224, bucket 1, fp32:
   ms per batch over 3 windows of 300 one-image requests (host clock
   around ``run()``, which ends in a copy to the host);
+- ``resnet_like`` served in int8 (``QuantPolicy()``, calibrated through
+  ``GraphPlan.warmup`` on one seeded batch of 4) at 32x32, buckets 1 and
+  4: ms per batch over 3 windows of 300 requests of 1-4 images;
 - qwen2-1.5b at full width and depth in bf16: one prefill wave of 4 x 512
   tokens through ``ServeEngine._prefill`` (host clock between
   synchronizes, median of 5), and the device ms of its
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -32,6 +36,24 @@ import time
 
 WINDOWS, WINDOW_REQUESTS = 3, 300
 LM_ARCH, LM_SLOTS, LM_PROMPT, LM_REPS = "qwen2-1.5b", 4, 512, 5
+
+
+def windows(eng, requests, torch) -> list:
+    """ms per batch of each of WINDOWS drains of ``requests`` (arrays of
+    images) through the warm engine."""
+    from repro_torch.serve.cnn import ImageRequest
+    per_batch = []
+    for _ in range(WINDOWS):
+        before = sum(eng.stats["batches"].values())
+        for i, im in enumerate(requests):
+            eng.submit(ImageRequest(i, im))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        batches = sum(eng.stats["batches"].values()) - before
+        per_batch.append((time.perf_counter() - t0) * 1e3 / batches)
+    return per_batch
 
 
 def measure(src: str) -> dict:
@@ -43,7 +65,8 @@ def measure(src: str) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.models import lm
     from repro_torch.models.cnn import resnet_like
-    from repro_torch.serve.cnn import CnnServeEngine, ImageRequest
+    from repro_torch.quant import Calibrator, QuantPolicy
+    from repro_torch.serve.cnn import CnnServeEngine
     from repro_torch.serve.engine import ServeEngine
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -54,16 +77,19 @@ def measure(src: str) -> dict:
     eng = CnnServeEngine(model, params, (224, 224, 3), buckets=(1,))
     eng.warmup()
     img = rng.standard_normal((1, 224, 224, 3), dtype=np.float32)
-    per_batch = []
-    for _ in range(WINDOWS):
-        for i in range(WINDOW_REQUESTS):
-            eng.submit(ImageRequest(i, img))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.run()
-        torch.cuda.synchronize()
-        per_batch.append((time.perf_counter() - t0) * 1e3 / WINDOW_REQUESTS)
-    out["cnn224_ms_per_batch"] = per_batch
+    out["cnn224_ms_per_batch"] = windows(eng, [img] * WINDOW_REQUESTS,
+                                         torch)
+
+    calib = rng.standard_normal((4, 32, 32, 3), dtype=np.float32)
+    model.graph_plan(calib.shape, backend="cuda").warmup(
+        calibrate=Calibrator(calib, params))
+    eng = CnnServeEngine(model, params, (32, 32, 3), buckets=(1, 4),
+                         precision=QuantPolicy())
+    eng.warmup()
+    sizes = rng.integers(1, 5, size=WINDOW_REQUESTS)
+    pool = rng.standard_normal((4, 32, 32, 3), dtype=np.float32)
+    out["int8_32_ms_per_batch"] = windows(eng, [pool[:n] for n in sizes],
+                                          torch)
 
     cfg = get_config(LM_ARCH)
     lparams = lm.init_lm(cfg, seed=0, device=dev)
@@ -118,9 +144,12 @@ def main() -> None:
     a, b = list(trees)
     runs = {a: [], b: []}
     for name in (a, b, b, a):
+        # each run calibrates into its own store inside its tree
+        env = dict(os.environ,
+                   REPRO_CACHE_DIR=f"{trees[name]}/build/served_ab_cache")
         proc = subprocess.run(
             [sys.executable, __file__, "--measure", f"{trees[name]}/src"],
-            capture_output=True, text=True, timeout=900)
+            capture_output=True, text=True, timeout=900, env=env)
         if proc.returncode != 0:
             sys.exit(f"served_ab: run of {name} failed:\n{proc.stderr[-3000:]}")
         row = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -136,8 +165,9 @@ def main() -> None:
         summary[name] = {
             key: statistics.median(v for r in rows for v in (
                 r[key] if isinstance(r[key], list) else [r[key]]))
-            for key in ("cnn224_ms_per_batch", "qwen2_prefill_wave_ms",
-                        "qwen2_wave_device_ms", "qwen2_wave_flash_ms")}
+            for key in ("cnn224_ms_per_batch", "int8_32_ms_per_batch",
+                        "qwen2_prefill_wave_ms", "qwen2_wave_device_ms",
+                        "qwen2_wave_flash_ms")}
     print(json.dumps({"card": smi, "median": summary}))
 
 

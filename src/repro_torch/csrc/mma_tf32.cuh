@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by conv1x1_gemm, cuconv_fused,
-// winograd_fused and flash_attention: warp-level mma.sync on TF32 with
-// the 3xTF32 split and on bf16, ldmatrix, cp.async copies into shared
-// memory, and the warp tile of the implicit-GEMM rings.
+// winograd_fused, direct_conv, stage1_tap_gemm, flash_attention and
+// int8_gemm: warp-level mma.sync on TF32 with the 3xTF32 split, on bf16
+// and on int8, ldmatrix, cp.async copies into shared memory, and the
+// warp tile of the implicit-GEMM rings.
 //
 // Why mma.sync and not wgmma: these products are 21-822 MFLOP with as
 // few as 49 rows (attention: 64-row query tiles of one head).  wgmma's 64-row warpgroup tiles and TMA descriptors buy
@@ -70,6 +71,20 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b on int8 (m16n8k32, s8 x s8 -> s32, exact while the sum fits
+// int32).  Each register holds 4 consecutive k, the lowest in the low
+// byte: a = {(g, 4t..4t+3), (g + 8, 4t..), (g, 16 + 4t..), (g + 8,
+// 16 + 4t..)}, b = {(4t..4t+3, g), (16 + 4t.., g)}; d as for tf32.
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a,
+                                       const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 

@@ -63,8 +63,10 @@ LIBRARIES: Dict[str, Dict[str, Sequence]] = {
         "direct_conv_launch": [_P] * 5 + [_I] * 25 + [_P],
     },
     "int8_gemm": {
-        # x2d, w, out, P, K, M, tp, tm, tc, smem, stream
-        "int8_gemm_launch": [_P] * 3 + [_I] * 7 + [_P],
+        # x, w, out, scale, wscale, bias, addend, in_float, w_km, N, H, W,
+        # C, KH, KW, M, sh, sw, ph, pw, OH, OW, bm, bn, kc, relu, vec_a,
+        # vec_b, smem, stream
+        "int8_gemm_launch": [_P] * 7 + [_I] * 22 + [_P],
     },
     "flash_attention": {
         # q, k, v, out, dtype, B, Sq, Sk, H, KVH, D, dp, scale, causal,

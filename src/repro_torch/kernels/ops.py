@@ -30,11 +30,19 @@ def conv1x1(x, w, tp=256, tm=128, tc=512):
     return out.reshape(N, H, W_, -1)
 
 
-def int8_gemm(x2d, w, tp=256, tm=128, tc=512):
-    """x2d: (P, K) int8; w: (K, M) int8.  Returns (P, M) int32 — the raw
-    accumulator; dequantization is the int8 executor's epilogue."""
-    return _i8.int8_gemm(x2d.contiguous(), w.contiguous(), tp=tp, tm=tm,
-                         tc=tc)
+def int8_conv(x, w, stride=(1, 1), padding=(0, 0), scale=None,
+              w_scales=None, bias=None, addend=None, relu=False, tp=256,
+              tm=128, tc=512):
+    """x: (N, H, W, C) int8 codes or fp32; w: (M, KH, KW, C) int8 codes.
+    The int8 conv in one kernel: the int32 accumulator on codes; on fp32,
+    quantized on load with ``scale`` and requantized with ``w_scales``,
+    ``bias``, ``addend`` and ReLU (see ``kernels/int8_gemm.py``)."""
+    return _i8.int8_conv(
+        x.contiguous(), w.contiguous(), normalize_stride(stride),
+        tuple(padding), scale=scale, w_scales=w_scales,
+        bias=None if bias is None else bias.contiguous(),
+        addend=None if addend is None else addend.contiguous(), relu=relu,
+        tp=tp, tm=tm, tc=tc)
 
 
 def cuconv_two_stage(x, w, padding=(0, 0), tp=256, tm=128, tc=512):

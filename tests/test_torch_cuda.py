@@ -11,7 +11,8 @@ Winograd bounds in fp32: 1e-4 at F(2,3), 2e-3 at F(4,3).  The 1x1 GEMM,
 the fused conv, the direct conv, stage 1, the Winograd products and
 flash attention run on the tensor cores in 3xTF32, which holds the fp32
 bounds (``tests/test_torch_tensor_cores.py``).  The int8 GEMM
-is exact: it must equal its plain version bit for bit.  The LM kernels
+is exact: both its entries must equal their plain versions bit for bit,
+the conv entry's fp32 epilogue too.  The LM kernels
 (flash attention, causal conv1d) keep the conv kernels' bounds; the
 flash plain version takes one softmax over all keys where the kernel
 keeps a running max, which in bf16 rounds p against another max (within
@@ -392,6 +393,79 @@ def test_int8_gemm_kernel_is_exact(P, K, M, tiles):
     assert _build.LAUNCHES["int8_gemm"] == 1
 
 
+# the int8 conv entry: (N, H, W, C, KH, KW, M, stride, pad, epilogue,
+# input): two served node shapes, a ragged P (105 rows) with M = 24,
+# C = 6 at stride 2 without padding (byte-wise gather), a zero scale,
+# inputs far beyond +-127 s (clamped), exact half-way ties x = (k + 1/2) s
+# at s = 1/4 (round half to even), and a misaligned input
+INT8_CONV = {
+    "b1c1": (1, 16, 16, 16, 3, 3, 16, 1, 1, "bias_relu", "normal"),
+    "b2c1": (4, 16, 16, 16, 3, 3, 32, 2, 1, "bias_relu", "normal"),
+    "b1c2": (1, 16, 16, 16, 3, 3, 16, 1, 1, "add_relu", "normal"),
+    "ragged_p": (3, 5, 7, 16, 3, 3, 24, 1, 1, "bias", "normal"),
+    "c6_stride2": (2, 9, 9, 6, 3, 3, 5, 2, 0, "add_relu", "normal"),
+    "zero_scale": (1, 6, 6, 16, 3, 3, 8, 1, 1, "bias", "zero"),
+    "clamp": (1, 8, 8, 32, 3, 3, 16, 1, 1, "bias_relu", "clamp"),
+    "ties": (2, 7, 7, 16, 3, 3, 16, 1, 1, "bias", "ties"),
+    "ties_c6": (1, 7, 7, 6, 3, 3, 8, 2, 1, "bias", "ties"),
+    "misaligned": (1, 8, 8, 16, 3, 3, 16, 1, 1, "bias", "misaligned"),
+}
+
+
+@requires_cuda
+@pytest.mark.parametrize("label", sorted(INT8_CONV))
+def test_int8_conv_entry_is_bit_equal_to_plain(label):
+    """The conv entry's fp32 output (quantized on load, the epilogue in
+    the reference's order) and its int32 accumulator on codes equal the
+    eager composition bit for bit; the stacked entry on the patch matrix
+    gives the same accumulator."""
+    from repro_torch.quant import symmetric
+    N, H, W, C, KH, KW, M, s, p, epi, kind = INT8_CONV[label]
+    gen = torch.Generator().manual_seed(7)
+    stride, pad = (s, s), (p, p)
+    scale = torch.tensor(0.02, device="cuda")
+    x = torch.randn((N, H, W, C), generator=gen).cuda()
+    if kind == "zero":
+        scale = torch.zeros((), device="cuda")
+    elif kind == "clamp":
+        x = x * 20
+    elif kind == "ties":
+        scale = torch.tensor(0.25, device="cuda")
+        x = ((torch.randint(-140, 140, (N, H, W, C), generator=gen).float()
+              + 0.5) * 0.25).cuda()
+    elif kind == "misaligned":
+        x = torch.randn(x.numel() + 1, generator=gen).cuda()[1:].view(
+            x.shape)
+        assert x.data_ptr() % 16
+    w = torch.randint(-127, 128, (M, KH, KW, C), generator=gen,
+                      dtype=torch.int8).cuda()
+    w_scales = (torch.rand(M, generator=gen) * 1e-2 + 1e-3).cuda()
+    oh, ow = (H + 2 * p - KH) // s + 1, (W + 2 * p - KW) // s + 1
+    kw = dict(relu=epi.endswith("relu"))
+    if epi.startswith("bias"):
+        kw["bias"] = torch.randn(M, generator=gen).cuda()
+    if epi.startswith("add"):
+        kw["addend"] = torch.randn((N, oh, ow, M), generator=gen).cuda()
+    got = int8_gemm.int8_conv(x, w, stride, pad, scale, w_scales, **kw)
+    want = int8_gemm.int8_conv_plain(x, w, stride, pad, scale, w_scales,
+                                     **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    codes = symmetric.quantize_to_int8(x, scale)
+    if kind == "misaligned":
+        codes = torch.cat([codes.new_zeros(1), codes.reshape(-1)])[1:] \
+            .view(codes.shape)
+        assert codes.data_ptr() % 16
+    acc = int8_gemm.int8_conv(codes, w, stride, pad)
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc, int8_gemm.int8_conv_plain(codes, w, stride, pad))
+    patches = int8_gemm.conv_patches(codes, KH, KW, stride, pad).contiguous()
+    stacked = int8_gemm.int8_gemm(patches, w.reshape(M, -1).t().contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(stacked.reshape(acc.shape), acc)
+    assert _build.LAUNCHES["int8_gemm"] == 3
+
+
 @requires_cuda
 def test_wrappers_refuse_mixed_devices_and_oversized_configs():
     x = torch.zeros((1, 8, 8, 4), device="cuda")
@@ -400,10 +474,14 @@ def test_wrappers_refuse_mixed_devices_and_oversized_configs():
     with pytest.raises(ValueError, match="shared"):
         direct_conv.direct_conv(torch.zeros((1, 20, 20, 2), device="cuda"),
                                 torch.zeros((15, 15, 2, 64), device="cuda"))
-    with pytest.raises(ValueError, match="shared"):
+    # the int8 GEMM's tile is its own (tc=2048 sizes nothing); what it
+    # refuses is a contraction long enough to overflow int32
+    with pytest.raises(ValueError, match="overflow"):
         int8_gemm.int8_gemm(
-            torch.zeros((8, 2048), dtype=torch.int8, device="cuda"),
-            torch.zeros((2048, 8), dtype=torch.int8, device="cuda"), tc=2048)
+            torch.zeros((8, int8_gemm.K_MAX + 1), dtype=torch.int8,
+                        device="cuda"),
+            torch.zeros((int8_gemm.K_MAX + 1, 8), dtype=torch.int8,
+                        device="cuda"), tc=2048)
     assert sum(_build.LAUNCHES.values()) == 0
 
 

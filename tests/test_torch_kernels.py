@@ -328,8 +328,8 @@ def test_gemm_wrappers_refuse(rng):
         conv1x1.conv1x1_gemm(torch.zeros(4, 3), torch.zeros(4, 2))
     # stage 1's geometry is its own (tc stages nothing, so tc=1024 runs);
     # what it refuses is a tile that is not a tile, and a filter that
-    # does not contract; the int8 GEMM's staged depth is the one the
-    # budget still prunes
+    # does not contract; the int8 GEMM's geometry is its own too, and
+    # what it refuses is a contraction long enough to overflow int32
     assert cuconv_stage1.stage1_tap_gemm(
         torch.zeros(1, 4, 1024), torch.zeros(1, 1024, 2),
         tc=1024).shape == (1, 4, 2)
@@ -339,10 +339,11 @@ def test_gemm_wrappers_refuse(rng):
     with pytest.raises(ValueError, match="filter depth"):
         cuconv_stage1.stage1_tap_conv(torch.zeros(1, 5, 5, 4),
                                       torch.zeros(3, 3, 3, 2))
-    with pytest.raises(ValueError, match="shared memory"):
-        int8_gemm.int8_gemm(torch.zeros((4, 2048), dtype=torch.int8),
-                            torch.zeros((2048, 2), dtype=torch.int8),
-                            tc=2048)
+    with pytest.raises(ValueError, match="overflow"):
+        int8_gemm.int8_gemm(
+            torch.zeros((4, int8_gemm.K_MAX + 1), dtype=torch.int8),
+            torch.zeros((int8_gemm.K_MAX + 1, 2), dtype=torch.int8),
+            tc=2048)
     with pytest.raises(ValueError, match="float32"):
         cuconv_stage2.stage2_tap_sum(torch.zeros(2, 3, 4,
                                                  dtype=torch.bfloat16))
@@ -383,7 +384,8 @@ def test_new_smem_models_are_what_the_kernels_stage():
     the Winograd kernel's block follows m and the channel cap alone and
     stays bounded (it runs all of C inside a block), the direct
     kernel's grows with the filter and the stride (its halo and filter
-    slices), not with C, the int8 GEMM's with the staged depth."""
+    slices), not with C, the int8 GEMM's with its one output tile and
+    the staged depth."""
     narrow = winograd_fused.launch_geometry(2, 256, 16, tm=16)
     assert (narrow["bt"], narrow["bn"], narrow["blocks"]) == (64, 16, 4)
     assert narrow["smem"] == (2 * (64 * (16 * 8 + 8) + 9 * 8 * 16) * 4
@@ -413,7 +415,9 @@ def test_new_smem_models_are_what_the_kernels_stage():
     assert geo["smem"] <= _build.SMEM_LIMIT < direct_conv.smem_bytes(
         geo["th"], geo["tw"], 32, 32, geo["chunk"], (11, 11, 3, 64),
         stages=2)
-    assert int8_gemm.smem_bytes(144) == 4 * 36 * 129
+    # b2c2 at batch 1: a 16 x 32 tile, all 288 codes of K staged for
+    # 16 + 32 rows, 16 bytes of padding each
+    assert int8_gemm.launch_geometry(64, 288, 32)["smem"] == 48 * 304
 
 
 def test_smem_model_is_what_the_wrapper_launches_with():

@@ -18,10 +18,12 @@ the fourteen main-path paper shapes it launches at least one wave of 132
 blocks, its contraction splits cover the contraction exactly in whole
 steps (or, for the direct conv, whole chunks of channels), a pooled
 tile holds whole windows, the wrapper launches with the same geometry
-and shared memory the executor models, and stage 1's row rule reads,
-from the padded input, the rows of the stacked tap views.
+and shared memory the executor models, stage 1's row rule reads,
+from the padded input, the rows of the stacked tap views, and at the
+served int8 nodes each ``int8_gemm`` block owns one output tile.
 """
 import contextlib
+import types
 
 import numpy as np
 import pytest
@@ -597,3 +599,80 @@ def test_stage1_row_rule_reads_the_stacked_views(xp_shape, kernel):
     stacked = cuconv_stage1.stacked_rule(T, P, C)
     offs = cuconv_stage1.row_offsets(stacked, T, P, C)
     assert torch.equal(stack.reshape(-1)[offs.unsqueeze(-1) + cols], stack)
+
+
+# ---------------------------------------------------------------------------
+# int8_gemm: one output tile per block at the served int8 nodes
+
+_INT8_SERVED = {}     # label -> (spec, calibrated activation scale)
+INT8_LABELS = [f"resnet32b{b}:int8:{n}" for b in (1, 4)
+               for n in ("b1c1", "b1c2", "b2c1", "b2c2")]
+
+
+@pytest.fixture
+def served_int8():
+    """The int8 conv nodes of resnet_like served at 32x32 (buckets 1 and
+    4) under the default ``QuantPolicy``, calibrated on one seeded batch
+    as chip_smoke does; planned once per process (before a fake
+    card is set up: calibration runs the model)."""
+    if not _INT8_SERVED:
+        from repro_torch.models.cnn import resnet_like
+        from repro_torch.quant import Calibrator, QuantPolicy
+        m = resnet_like(num_classes=10)
+        params = m.init(0, device="cpu")
+        x = np.random.default_rng(0).standard_normal((4, 32, 32, 3),
+                                                     dtype=np.float32)
+        m.graph_plan(x.shape).warmup(device="cpu",
+                                     calibrate=Calibrator(x, params))
+        for b in (1, 4):
+            gp = m.graph_plan((b, 32, 32, 3), backend="cuda",
+                              precision=QuantPolicy())
+            for n, p in gp.conv_plans.items():
+                if p.algorithm == "cuconv_int8":
+                    _INT8_SERVED[f"resnet32b{b}:int8:{n}"] = (
+                        p.spec, p.quant.x_scale)
+        assert sorted(_INT8_SERVED) == sorted(INT8_LABELS)
+    return _INT8_SERVED
+
+
+@pytest.mark.parametrize("label", INT8_LABELS)
+def test_int8_wrapper_launches_one_tile_per_block(label, served_int8,
+                                                  fake_card):
+    """At the served int8 shapes each block owns one output tile (``bn``
+    is M rounded up to 8, no tile over 32 x 32), the tile's staging fits
+    a block's shared memory, and the executor's node launches the
+    conv entry once with the geometry and shared memory the planner
+    reads."""
+    from repro_torch.kernels import int8_gemm
+    spec, x_scale = served_int8[label]
+    ex = executors.get("cuconv_int8")
+    P, M, K = ex._gemm_dims(spec)
+    assert (P, K, M) in {(256, 144, 16), (64, 144, 32), (64, 288, 32),
+                         (1024, 144, 16), (256, 144, 32), (256, 288, 32)}
+    geo = int8_gemm.launch_geometry(P, K, M)
+    assert geo["bn"] == -(-M // 8) * 8 and geo["bm"] in (16, 32)
+    assert geo["blocks"] == geo["tiles"] == (-(-P // geo["bm"])
+                                             * -(-M // geo["bn"]))
+    assert geo["kc"] >= K and geo["chunks"] == 1      # K staged in one go
+    assert geo["smem"] <= _build.SMEM_LIMIT
+    cfg = ex.default_config(spec)
+    assert geo["smem"] == ex.vmem_bytes(spec, cfg)
+    x = torch.zeros(spec.in_shape)
+    addend = (torch.zeros(spec.out_shape) if spec.fused_add != "none"
+              else None)
+    ex.execute(spec, x, torch.zeros(spec.filter_shape), torch.zeros(M),
+               addend, config=cfg,
+               quant=types.SimpleNamespace(x_scale=x_scale))
+    (fn, args), = fake_card
+    # x, w, out, scale, wscale, bias, addend, in_float, w_km, N, H, W, C,
+    # KH, KW, M, sh, sw, ph, pw, OH, OW, bm, bn, kc, relu, vec_a, vec_b,
+    # smem, stream
+    assert fn == "int8_gemm_launch"
+    assert args[7:9] == (1, 0) and (args[6] is None) == (addend is None)
+    assert args[9:22] == (spec.in_shape + spec.filter_shape[:2] + (M,)
+                          + spec.stride + spec.padding + spec.out_shape[1:3])
+    relu = (spec.fused_add == "add_relu" if spec.fused_add != "none"
+            else spec.wants_relu)
+    assert args[22:29] == (geo["bm"], geo["bn"], geo["kc"], int(relu), 1, 1,
+                           geo["smem"])
+    assert _build.LAUNCHES["int8_gemm"] == 1
