@@ -37,19 +37,33 @@ splits, blocks; ``flash_attention``: grid and shared memory) at their
 main-path shapes,
 and fails where one of the fourteen paper shapes on the conv kernels
 (t3_A-C, t4_A-B, t5_A-B, resnet50's two 3x3 rows, the forced direct
-t3_A, t4_B and t5_B, the forced two-stage t4_A and t5_A) launches under
-one wave of 132 blocks, or where an ``int8_gemm`` block owns more than
-one output tile; the build phase prints every kernel's registers
-and spills, and fails where ``direct_conv``, ``cuconv_stage1`` or
-``int8_gemm`` spills.  Both stage-1 entries (the stacked views and the padded input)
-must give the same bits.  The launch counters show that each path ran
-its kernels.  One warm 32x32 batch per bucket, fp32 and int8, runs
-under ``torch.profiler``: the int8 batch may launch no more CUDA kernels
+t3_A, t4_B and t5_B, the forced two-stage t4_A and t5_A), or
+``stage2_tap_sum`` at t4_A or t5_A, launches under one wave of 132
+blocks, or where an ``int8_gemm`` block owns more than one output tile;
+the build phase prints every kernel's registers and spills, and fails
+where ``direct_conv``, ``cuconv_stage1`` or ``int8_gemm`` spills.  Both
+stage-1 entries (the stacked views and the padded input) must give the
+same bits.  The served programs run as CUDA graphs
+(``serve/graphs.py``): every CNN bucket's replay must equal its eager
+program bit for bit, each served batch must be one replay, a warm
+engine may resolve no plan, and the LM engines' tokens (first wave and
+first decode step eager, the rest replayed) must equal eager
+``lm.prefill``/``lm.decode_step`` tokens; the LM trace reports device
+time and idle share of replayed prefill and decode steps, and phase 4d
+the peak device memory of the served run and of the eager one.  Each
+served run (CNN and LM) runs under ``torch.profiler``, whose trace
+counts by CUDA symbol the kernels that ran on the card, graph replays
+included: they must equal the plans, as must those of one replayed
+batch per 32x32 bucket and of a replayed LM prefill wave (its decode
+steps run none).  The launch counters (replays add what their capture
+recorded) are kept beside as bookkeeping.  One warm 32x32 batch per bucket, fp32 and int8,
+runs under ``torch.profiler``: the int8 batch may launch no more CUDA kernels
 than the fp32 one (an int8 node is one launch).  It then times served
 latency over windows of a few
 hundred requests per engine, times each kernel (CUDA graph replays
-between CUDA events, so host dispatch is left out; eager times and the
-host's time per call are kept beside) with its plain version, one
+between CUDA events, so host dispatch is left out; eager times, the
+host's time per call and an empty kernel's time in the same harness,
+the launch floor, are kept beside) with its plain version, one
 library call and its bound (work over the rate of the units the kernel
 runs on: 495/3 TFLOP/s for a 3xTF32 product, the fp32 products of the
 six tensor-core kernels; 989 for bf16; 1,979 TOP/s for int8; 67 TFLOP/s
@@ -68,7 +82,9 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -117,6 +133,10 @@ DIRECT_ROWS = ("t3_A", "t4_B", "t5_B")
 DIRECT_STRIDED = ("b2c1@224", (1, 112, 112, 16), (3, 3, 16, 32), 2)
 # forced algorithm="cuconv_two_stage_pallas" rows
 TWO_STAGE_ROWS = ("t4_A", "t5_A")
+# stage 2's time over its two main-path shapes before its redesign (the
+# grid-stride pass, as this script timed it on an NVIDIA H100 80GB HBM3
+# at 700 W), printed beside the redesigned kernel's
+STAGE2_EARLIER_MS = 0.003832
 # the kernels whose ptxas report may show no spill
 NO_SPILL = ("direct_conv", "cuconv_stage1", "int8_gemm")
 
@@ -128,6 +148,18 @@ LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_STEPS = 4, 2, 64, 4
 LM_CPU_TOL = 1e-3                # x * max|CPU logits|
 LM_KERNELS = ("flash_attention", "conv1d_tap")
 LM_TRACE_STEPS = 4               # decode steps under the profiler
+TRACE_PAD_S = 0.05               # a gated trace held open past its region
+# each launch counter's CUDA kernel (csrc/*.cu), by which a profiler
+# trace counts what ran on the card, graph replays included
+KERNEL_SYMBOLS = {"cuconv_fused": "cuconv_fused_kernel",
+                  "conv1x1_gemm": "conv1x1_tc_kernel",
+                  "stage1_tap_gemm": "stage1_tc_kernel",
+                  "stage2_tap_sum": "stage2_tap_sum_kernel",
+                  "winograd_fused": "winograd_fused_kernel",
+                  "direct_conv": "direct_conv_tc_kernel",
+                  "int8_gemm": "int8_gemm_kernel",
+                  "flash_attention": "flash_attention_kernel",
+                  "conv1d_tap": "conv1d_tap_kernel"}
 
 _PHASE = {"name": None, "t0": 0.0, "times": {}}
 
@@ -148,6 +180,22 @@ def phase(name) -> None:
     _PHASE["name"], _PHASE["t0"] = name, now
     if name is not None:
         print(f"== {name}", flush=True)
+
+
+def traced_launches(prof) -> dict:
+    """The launch counters' kernels that ran in a ``torch.profiler``
+    trace, by counter name (kernels in graph replays too); zeros left
+    out."""
+    import re
+    import torch
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k, sym in KERNEL_SYMBOLS.items():
+            if re.search(rf"\b{sym}\b", e.key):
+                counts[k] = counts.get(k, 0) + e.count
+    return counts
 
 
 def ptxas_entries(log: str) -> list:
@@ -580,8 +628,8 @@ def main() -> None:
                 fail(f"int8_gemm {node}: the two entries' accumulators "
                      f"differ")
 
-    # -- 3b. the tensor-core kernels' launch geometry ------------------------
-    phase("launch geometry of the tensor-core kernels")
+    # -- 3b. the launch geometry of the tensor-core kernels and stage 2 -------
+    phase("launch geometry of the tensor-core kernels and stage 2")
 
     def geometry(c):
         """What the wrapper launches for this call (the kernel's own
@@ -632,12 +680,16 @@ def main() -> None:
                 K = kh * kw_ * C
             geo = int8_gemm.launch_geometry(P, K, M)
             return dict(geo, P=P, K=K, M=M)
+        if c["kernel"] == "stage2_tap_sum":
+            return cuconv_stage2.launch_geometry(*args[0].shape)
         return None
 
     report["geometry"] = {}
+    # stage 2's rows are keyed "<row>:two_stage:sum" beside stage 1's
     main_rows = (set(GEMM_ROWS) | set(FUSED_ROWS) | set(WINOGRAD_ROWS)
                  | {f"{r}:direct" for r in DIRECT_ROWS}
-                 | {f"{r}:two_stage" for r in TWO_STAGE_ROWS})
+                 | {f"{r}:two_stage" for r in TWO_STAGE_ROWS}
+                 | {f"{r}:two_stage:sum" for r in TWO_STAGE_ROWS})
     for c in (cases(torch.float32) + lm_cases(torch.float32)
               + lm_cases(torch.bfloat16)
               + [c for c in int8_cases() if not c["label"].endswith(
@@ -645,12 +697,14 @@ def main() -> None:
         geo = geometry(c)
         if geo is None:
             continue
-        key = (c["label"] if c["kernel"] != "flash_attention"
-               else f"{c['label']}:{str(c['args'][0].dtype)[6:]}")
+        key = (f"{c['label']}:{str(c['args'][0].dtype)[6:]}"
+               if c["kernel"] == "flash_attention" else
+               f"{c['label']}:sum" if c["kernel"] == "stage2_tap_sum"
+               else c["label"])
         report["geometry"][key] = geo
         print(f"  {c['kernel']:16s} {key:28s} {geo}")
-        if c["label"] in main_rows and geo["blocks"] < SMS:
-            fail(f"{c['kernel']} {c['label']}: {geo['blocks']} blocks, "
+        if key in main_rows and geo["blocks"] < SMS:
+            fail(f"{c['kernel']} {key}: {geo['blocks']} blocks, "
                  f"under one wave of {SMS}")
         # the int8 kernel: every block owns exactly one output tile
         if c["kernel"] == "int8_gemm" and not (
@@ -661,7 +715,7 @@ def main() -> None:
                  f"tile ({geo})")
     missing = main_rows - set(report["geometry"])
     if missing:
-        fail(f"main-path shapes not on the tensor-core kernels: {missing}")
+        fail(f"main-path shapes without a geometry: {missing}")
 
     # -- 4a. the per-call conv path: the paper's rows ------------------------
     phase("main path: paper rows through repro_torch.conv2d")
@@ -704,8 +758,23 @@ def main() -> None:
                        for n in sizes]
                for shape, sizes in (((32, 32, 3), [1, 3, 2, 4, 1]),
                                     ((224, 224, 3), [1, 2]))}
+    from torch.profiler import ProfilerActivity, profile
+
+    @contextlib.contextmanager
+    def profiled():
+        """``torch.profiler`` (CPU and CUDA) around a region, held open
+        TRACE_PAD_S past its end: a kernel record delivered after the
+        trace closes is lost (a trace closed right after a replayed
+        qwen2 prefill once held 24 of the 28 flash kernels it ran)."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            yield prof
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+
     engines = {}
     served = {}
+    plans_per_batch = {}          # (kind, shape) -> bucket -> launches
     for kind, shape, buckets, pol in serve_policies:
         eng = CnnServeEngine(model, params, shape, buckets=buckets,
                              precision=pol)
@@ -743,14 +812,26 @@ def main() -> None:
         for i, im in enumerate(traffic[shape]):
             eng.submit(ImageRequest(i, im))
             ref.submit(ImageRequest(i, im))
+        graphs = eng.programs.graphs
+        if sorted(graphs) != list(eng.buckets) or any(
+                g.captures != 1 for g in graphs.values()):
+            fail(f"serving {kind} {shape}: warmup captured "
+                 f"{ {b: g.captures for b, g in graphs.items()} }, not one "
+                 f"CUDA graph per bucket")
+        replays = {b: g.replays for b, g in graphs.items()}
         torch.cuda.synchronize()
         convspec.reset_plan_stats()
         _build.reset_launches()
-        t0 = time.perf_counter()
-        done = eng.run()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        # under the profiler: the kernels the replays ran are counted in
+        # the trace, beside the counters' bookkeeping
+        with profiled() as prof:
+            t0 = time.perf_counter()
+            done = eng.run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
         counts = dict(_build.LAUNCHES)
+        traced = traced_launches(prof)
+        replays = {b: g.replays - replays[b] for b, g in graphs.items()}
         for k, v in counts.items():
             launches[k] += v
         want = {}
@@ -758,14 +839,39 @@ def main() -> None:
             for k, v in per_batch[b].items():
                 if n_batches:
                     want[k] = want.get(k, 0) + n_batches * v
+        plans_per_batch[(kind, shape)] = per_batch
         print(f"  {kind} {shape}: {eng.stats['images']} images in "
               f"{sum(eng.stats['batches'].values())} batches "
-              f"{eng.stats['batches']}, {secs * 1e3:.2f} ms; launches "
-              f"{counts}; planned {want}; plan() resolutions "
-              f"{convspec.PLAN_STATS['resolutions']}")
+              f"{eng.stats['batches']}, {secs * 1e3:.2f} ms (profiled); "
+              f"graph replays {replays}; kernels in the trace {traced}; "
+              f"launch counters {counts}; planned {want}; plan() "
+              f"resolutions {convspec.PLAN_STATS['resolutions']}")
+        if traced != want:
+            fail(f"serving {kind} {shape}: the trace ran {traced} != "
+                 f"planned {want}")
         if {k: v for k, v in counts.items() if v} != want:
             fail(f"serving {kind} {shape}: launches {counts} != planned "
                  f"{want}")
+        if replays != eng.stats["batches"] or any(
+                g.captures != 1 for g in graphs.values()):
+            fail(f"serving {kind} {shape}: graph replays {replays} != "
+                 f"batches {eng.stats['batches']} (or a bucket re-captured)")
+        if convspec.PLAN_STATS["resolutions"]:
+            fail(f"serving {kind} {shape}: a warm engine made "
+                 f"{convspec.PLAN_STATS['resolutions']} plan() resolutions")
+        # each bucket's graph replays the eager program bit for bit
+        for b in eng.buckets:
+            xb = rng.normal(size=(b,) + shape).astype(np.float32)
+            want_y = eng.programs.fn(b)(eng.params, eng.programs.put(xb))
+            got_y = eng.programs.serve_batch(b, xb).clone()
+            torch.cuda.synchronize()
+            same = torch.equal(got_y, want_y)
+            print(f"  {kind} {shape} bucket {b}: graph replay == eager "
+                  f"program bit for bit: {same}")
+            if not same:
+                fail(f"serving {kind} {shape} bucket {b}: the graph's "
+                     f"replay differs from the eager program by "
+                     f"{(got_y - want_y).abs().max().item():.3e}")
         ref_done = ref.run()
         served[(kind, shape)] = done
         for a, r in zip(done, ref_done):
@@ -780,8 +886,10 @@ def main() -> None:
               f"{SERVE_TOL} of their abs max")
         report["serve"][f"{kind} {shape}"] = {
             "batches": {str(k): v for k, v in eng.stats["batches"].items()},
-            "images": eng.stats["images"], "run_ms": secs * 1e3,
-            "launches": counts, "library_nodes": library_nodes,
+            "images": eng.stats["images"], "run_ms_profiled": secs * 1e3,
+            "graph_replays": {str(k): v for k, v in replays.items()},
+            "launches": counts, "traced_launches": traced,
+            "library_nodes": library_nodes,
             "serve_dtypes": {str(b): eng.programs.serve_dtype(b)
                              for b in eng.buckets}}
     q_out = np.concatenate([r.out for r in served[("int8", small)]])
@@ -793,31 +901,37 @@ def main() -> None:
         fail(f"int8 serving is {rel:.4e} from fp32 > {INT8_ACCURACY}")
     report["serve"]["int8_vs_fp32_rel_err"] = rel
 
-    # one warm batch per 32x32 bucket, fp32 and int8, under torch.profiler:
-    # an int8 node is one kernel launch, so an int8 batch may launch no
-    # more CUDA kernels than the fp32 batch of the same bucket
-    from torch.profiler import ProfilerActivity, profile
+    # one served batch per 32x32 bucket, fp32 and int8 (the bucket's graph
+    # replayed), under torch.profiler: its counted kernels must be the
+    # bucket's plan, and, an int8 node being one kernel launch, an int8
+    # batch may launch no more CUDA kernels than the fp32 batch
     report["serve"]["kernels_per_batch"] = {}
     for b in engines[("int8", small)].buckets:
         seen = {}
         for kind in ("fp32", "int8"):
             eng = engines[(kind, small)]
-            fn = eng.programs.fn(b)
-            xb = eng.programs.put(np.zeros((b,) + small, np.float32))
-            fn(eng.params, xb)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn(eng.params, xb)
+            xb = np.zeros((b,) + small, np.float32)
+            replays = eng.programs.graphs[b].replays
+            with profiled() as prof:
+                eng.programs.serve_batch(b, xb)
                 torch.cuda.synchronize()
+            if eng.programs.graphs[b].replays != replays + 1:
+                fail(f"{kind} 32x32 bucket {b}: the batch replayed no graph")
             seen[kind] = {
                 e.key: e.count for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and getattr(e, "self_device_time_total", 0) > 0}
+                and getattr(e, "self_device_time_total", 0) > 0
+                and not e.key.startswith(("Memcpy", "Memset"))}
+            traced = traced_launches(prof)
             print(f"  {kind} 32x32 bucket {b}: "
-                  f"{sum(seen[kind].values())} CUDA kernels per warm batch")
+                  f"{sum(seen[kind].values())} CUDA kernels per replayed "
+                  f"batch; counted kernels {traced}")
             for name, n in sorted(seen[kind].items(), key=lambda kv: -kv[1]):
                 print(f"    x{n:<3d} {name[:100]}")
+            if traced != plans_per_batch[(kind, small)][b]:
+                fail(f"{kind} 32x32 bucket {b}: a replayed batch ran "
+                     f"{traced}, planned "
+                     f"{plans_per_batch[(kind, small)][b]}")
         totals = {k: sum(v.values()) for k, v in seen.items()}
         report["serve"]["kernels_per_batch"][str(b)] = {
             k: {"total": totals[k], "kernels": v} for k, v in seen.items()}
@@ -832,7 +946,8 @@ def main() -> None:
     # window drains WINDOW_REQUESTS requests of 1..max(bucket) images
     # through the warm engine; ms per batch is the window's wall time
     # over its batches (every batch ends in a copy to the host).
-    phase(f"served latency: {WINDOWS} windows of {WINDOW_REQUESTS} requests")
+    phase(f"served latency through the bucket graphs: {WINDOWS} windows "
+          f"of {WINDOW_REQUESTS} requests")
     for kind, shape, buckets, _ in serve_policies:
         eng = engines[(kind, shape)]
         sizes = rng.integers(1, max(buckets) + 1, size=WINDOW_REQUESTS)
@@ -869,9 +984,11 @@ def main() -> None:
     waves = -(-LM_REQUESTS // LM_SLOTS)
 
     def serve_lm(cfg, params, prompts, timed):
-        """One ``ServeEngine.run`` over ``prompts``; each prefill and
-        decode call's logits are checked finite and, if ``timed``, its
-        wall time taken between synchronizes."""
+        """One ``ServeEngine.run`` over ``prompts`` (on the card: the
+        first wave and the first decode step eager, each then captured
+        as a CUDA graph and replayed after); each prefill and decode
+        call's logits are checked finite and, if ``timed``, its wall time
+        taken between synchronizes, as ``(ms, replayed)``."""
         eng = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
                           device=dev)
         times, nonfinite = {"_prefill": [], "_decode": []}, []
@@ -879,11 +996,14 @@ def main() -> None:
             def wrapped(*a, fn=getattr(eng, name), name=name):
                 if timed:
                     torch.cuda.synchronize()
+                before = sum(g.replays for g in eng.graphs.values())
                 t0 = time.perf_counter()
                 logits, cache = fn(*a)
                 if timed:
                     torch.cuda.synchronize()
-                    times[name].append((time.perf_counter() - t0) * 1e3)
+                    times[name].append((
+                        (time.perf_counter() - t0) * 1e3,
+                        sum(g.replays for g in eng.graphs.values()) > before))
                 if not bool(torch.isfinite(logits).all()):
                     nonfinite.append(name)
                 return logits, cache
@@ -894,7 +1014,45 @@ def main() -> None:
         t0 = time.perf_counter()
         done = eng.run(prompt_len=LM_PROMPT)
         torch.cuda.synchronize()
-        return done, times, nonfinite, (time.perf_counter() - t0) * 1e3
+        wall = (time.perf_counter() - t0) * 1e3
+        graphs = {str(k): (g.captures, g.replays)
+                  for k, g in eng.graphs.items()}
+        return done, times, nonfinite, wall, graphs
+
+    def memory_mark():
+        """Empty the allocator's cache, reset its peaks; the bytes held."""
+        gc.collect()                # an engine of an earlier run
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    def memory_peak(base):
+        """Peak device memory since ``memory_mark()`` above what it held,
+        GiB (allocated, reserved)."""
+        torch.cuda.synchronize()
+        return ((torch.cuda.max_memory_allocated() - base[0]) / 2 ** 30,
+                (torch.cuda.max_memory_reserved() - base[1]) / 2 ** 30)
+
+    def eager_tokens(cfg, params, prompts):
+        """The served greedy tokens recomputed by eager ``lm.prefill`` and
+        ``lm.decode_step`` calls, wave by wave, on a cache of their own."""
+        out = []
+        for w in range(0, len(prompts), LM_SLOTS):
+            cache = logits = None          # one wave's cache at a time
+            cache = lm.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+            toks = torch.from_numpy(prompts[w:w + LM_SLOTS]).to(dev)
+            logits, cache = lm.prefill(params, cfg, {"tokens": toks}, cache)
+            cur = logits[:, -1, :cfg.vocab_size].float().argmax(-1)
+            seq = [cur]
+            for t in range(LM_NEW - 1):
+                logits, cache = lm.decode_step(
+                    params, cfg, {"tokens": cur[:, None].to(torch.int32)},
+                    cache, LM_PROMPT + t)
+                cur = logits[:, -1, :cfg.vocab_size].float().argmax(-1)
+                seq.append(cur)
+            out.extend(torch.stack(seq, 1).cpu().tolist())
+        return out
 
     def kernel_group(name):
         for key, group in (("flash_attention", "flash_attention"),
@@ -905,25 +1063,35 @@ def main() -> None:
                 return group
         return "other"
 
-    def trace_lm(cfg, params, prompts):
-        """One prefill wave and LM_TRACE_STEPS decode steps under
-        torch.profiler: device time by kernel group and the device's
-        idle share of the wall time (host clock, synchronized)."""
-        from torch.profiler import ProfilerActivity, profile
+    def trace_lm(cfg, params, prompts, per_wave):
+        """One prefill wave and LM_TRACE_STEPS decode steps, each step's
+        logits sampled to the host as the engine does, replayed from the
+        engine's CUDA graphs (captured first, outside the trace) under
+        torch.profiler: device time by kernel group and the device's idle
+        share of the wall time (host clock, synchronized).  The replayed
+        prefill must run ``per_wave``'s counted kernels, the decode steps
+        none."""
         eng = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
                           device=dev)
         toks = torch.from_numpy(prompts).to(dev)
         step = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=dev)
-        calls = {"prefill": lambda: eng._prefill(eng.params,
-                                                 {"tokens": toks}, eng.cache),
-                 "decode": lambda: [eng._decode(eng.params, {"tokens": step},
-                                                eng.cache, LM_PROMPT + t)
-                                    for t in range(LM_TRACE_STEPS)]}
+
+        def prefill():
+            eng._sample(eng._prefill(eng.params, {"tokens": toks},
+                                     eng.cache)[0])
+
+        def decode():
+            for t in range(LM_TRACE_STEPS):
+                eng._sample(eng._decode(eng.params, {"tokens": step},
+                                        eng.cache, LM_PROMPT + t)[0])
+        prefill()
+        decode()                       # eager, then captured
+        replays = sum(g.replays for g in eng.graphs.values())
+        calls = {"prefill": prefill, "decode": decode}
         out = {}
         for what, fn in calls.items():
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profiled() as prof:
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
@@ -939,7 +1107,15 @@ def main() -> None:
                 g = kernel_group(name)
                 groups[g] = groups.get(g, 0.0) + ms
             top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+            traced = traced_launches(prof)
+            want = per_wave if what == "prefill" else {}
+            print(f"  {cfg.name} replayed {what}: kernels in the trace "
+                  f"{traced}, planned {want}")
+            if traced != want:
+                fail(f"{cfg.name} replayed {what}: the trace ran {traced} "
+                     f"!= planned {want}")
             out[what] = {"wall_ms": wall, "device_ms": busy,
+                         "traced_launches": traced,
                          "idle_share": 1 - busy / wall if busy else None,
                          "groups_ms": groups,
                          "top": [(n[:80], ms, c) for n, (ms, c) in top]}
@@ -953,6 +1129,9 @@ def main() -> None:
                   f"{ {g: round(ms, 4) for g, ms in groups.items()} }")
             for n, ms, c in out[what]["top"][:4]:
                 print(f"    {ms:10.4f} ms  x{c:<5d} {n}")
+        if sum(g.replays for g in eng.graphs.values()) - replays != (
+                LM_TRACE_STEPS + 1):
+            fail(f"{cfg.name}: the traced calls did not all replay graphs")
         return out
 
     for arch, cfg in lm_cfgs.items():
@@ -967,13 +1146,26 @@ def main() -> None:
             .astype(np.int32)
         torch.cuda.synchronize()
         _build.reset_launches()
-        done, _, nonfinite, wall = serve_lm(cfg, params, prompts, False)
+        # the main run under the profiler, which counts the kernels that
+        # ran (the eager first wave's and every replay's), and its peak
+        # device memory above the params (engine, cache, graphs' pool)
+        base = memory_mark()
+        with profiled() as prof:
+            done, _, nonfinite, wall, graphs = serve_lm(cfg, params,
+                                                        prompts, False)
+        peak_graphs = memory_peak(base)
         counts = dict(_build.LAUNCHES)
+        traced = traced_launches(prof)
+        del prof
         for k in LM_KERNELS:
             launches[k] += counts[k]
         print(f"  {arch}: {cfg.num_params() / 1e9:.3f} B params (init "
-              f"{init_s:.1f} s), {len(done)} requests in {wall:.1f} ms; "
-              f"launches {counts}; planned {planned}")
+              f"{init_s:.1f} s), {len(done)} requests in {wall:.1f} ms "
+              f"(profiled); kernels in the trace {traced}; launch counters "
+              f"{counts}; planned {planned}; graphs (captures, replays) "
+              f"{graphs}")
+        if traced != {k: v for k, v in planned.items() if v}:
+            fail(f"{arch}: the trace ran {traced} != planned {planned}")
         if len(done) != LM_REQUESTS or any(
                 len(r.out_tokens) != LM_NEW
                 or not all(0 <= t < cfg.vocab_size for t in r.out_tokens)
@@ -985,23 +1177,68 @@ def main() -> None:
         if {k: v for k, v in counts.items() if v} != {
                 k: v for k, v in planned.items() if v}:
             fail(f"{arch}: launches {counts} != planned {planned}")
-        done, times, nonfinite, wall = serve_lm(cfg, params, prompts, True)
+        # wave 1 eager, then captured; wave 2 and every later step replayed
+        want_graphs = {str(("prefill", LM_PROMPT)): (1, waves - 1),
+                       "decode": (1, waves * (LM_NEW - 1) - 1)}
+        if graphs != want_graphs:
+            fail(f"{arch}: graphs (captures, replays) {graphs} != "
+                 f"{want_graphs}")
+        base = memory_mark()
+        eager = eager_tokens(cfg, params, prompts)
+        peak_eager = memory_peak(base)
+        print(f"  {arch}: peak device memory above the params, GiB "
+              f"(allocated, reserved): served through graphs "
+              f"{peak_graphs}, eager lm.prefill/decode_step {peak_eager}")
+        served_toks = {r.rid: r.out_tokens for r in done}
+        same = all(served_toks[i] == eager[i] for i in range(LM_REQUESTS))
+        print(f"  {arch}: served tokens (graphs) == eager lm.prefill/"
+              f"decode_step tokens for all {LM_REQUESTS} requests: {same}")
+        if not same:
+            fail(f"{arch}: the graphs' tokens differ from the eager tokens")
+        done, times, nonfinite, wall, _ = serve_lm(cfg, params, prompts,
+                                                   True)
         tokens = sum(len(r.out_tokens) for r in done)
+
+        def call_ms(name, replayed):
+            return [t for t, r in times[name] if r == replayed]
+        prefill_ms, decode_ms = (call_ms("_prefill", True),
+                                 call_ms("_decode", True))
         row = {"params": cfg.num_params(), "launches": counts,
-               "prefill_ms_per_wave": float(np.mean(times["_prefill"])),
-               "decode_ms_per_step": float(np.mean(times["_decode"])),
-               "prefill_ms": times["_prefill"], "decode_ms": times["_decode"],
+               "prefill_ms_per_wave": float(np.median(prefill_ms)),
+               "decode_ms_per_step": float(np.median(decode_ms)),
+               "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+               "eager_then_capture_ms": {
+                   "prefill": call_ms("_prefill", False),
+                   "decode": call_ms("_decode", False)},
                "run_ms": wall, "tokens": tokens,
                "tokens_per_s": tokens / wall * 1e3,
-               "sample_tokens": done[0].out_tokens}
+               "sample_tokens": done[0].out_tokens,
+               "graph_tokens_equal_eager": same,
+               "peak_gib_graphs": peak_graphs,
+               "peak_gib_eager": peak_eager}
         report["lm_serve"][arch] = row
-        print(f"  {arch}: prefill {row['prefill_ms_per_wave']:.4f} ms per "
-              f"wave of {LM_SLOTS}x{LM_PROMPT}, decode "
-              f"{row['decode_ms_per_step']:.4f} ms per step of {LM_SLOTS}; "
-              f"{tokens} tokens in {wall:.2f} ms = "
-              f"{row['tokens_per_s']:.1f} tokens/s; request 0 "
-              f"{done[0].out_tokens[:6]}...")
-        row["trace"] = trace_lm(cfg, params, prompts[:LM_SLOTS])
+        print(f"  {arch} (graph replays, median): prefill "
+              f"{row['prefill_ms_per_wave']:.4f} ms per wave of "
+              f"{LM_SLOTS}x{LM_PROMPT}, decode "
+              f"{row['decode_ms_per_step']:.4f} ms per step of {LM_SLOTS} "
+              f"(first wave / step eager and captured: "
+              f"{row['eager_then_capture_ms']}); {tokens} tokens in "
+              f"{wall:.2f} ms = {row['tokens_per_s']:.1f} tokens/s; request "
+              f"0 {done[0].out_tokens[:6]}...")
+        row["trace"] = trace_lm(cfg, params, prompts[:LM_SLOTS],
+                                {k: v // waves for k, v in planned.items()
+                                 if v})
+        busy = row["trace"]["decode"]["device_ms"]
+        if busy:
+            # the profiler stretches the host's side of a step: the traced
+            # device ms per step over the untraced host ms per step too
+            row["decode_device_ms_per_step"] = busy / LM_TRACE_STEPS
+            row["decode_idle_share_untraced"] = 1 - (
+                row["decode_device_ms_per_step"] / row["decode_ms_per_step"])
+            print(f"  {arch} decode: device {busy / LM_TRACE_STEPS:.4f} ms "
+                  f"per step (traced) against {row['decode_ms_per_step']:.4f}"
+                  f" ms per step untraced: idle share "
+                  f"{row['decode_idle_share_untraced']:.3f}")
         del params
         torch.cuda.empty_cache()
     for k, v in launches.items():
@@ -1203,6 +1440,12 @@ def main() -> None:
                       and c["kernel"] == "stage1_tap_gemm")
              and not c["label"].endswith(":codes")]
     timed += lm_cases(torch.bfloat16) + lm_cases(torch.float32)
+    # the floor under every row: an empty kernel (one block of 32 threads,
+    # from the stage-2 library) in the same harness
+    floor_ms = time_ms(lambda: cuconv_stage2.empty_launch(dev))
+    report["launch_floor_ms"] = floor_ms
+    print(f"  launch floor: an empty kernel {floor_ms:.6f} ms per launch "
+          f"(CUDA graph replays, as every row below)")
     totals = {}
     for c in timed:
         kname, label, kfn, args, kw = (c["kernel"], c["label"], c["kfn"],
@@ -1223,6 +1466,7 @@ def main() -> None:
                "eager_ms": eager, "host_ms_per_call": host,
                "plain_ms": time_ms(lambda: c["pfn"](*args, **c["pkw"])),
                "library_ms": time_ms(lib) if lib is not None else None,
+               "launch_floor_ms": floor_ms,
                "bytes": moved, "ops": c["ops"],
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -1242,7 +1486,7 @@ def main() -> None:
               f"{row['ms']:.6f} ms  eager "
               f"{eager:.6f} (host {host:.6f})  plain {row['plain_ms']:.6f}"
               f"  library {lib_s}  bound {row['bound_ms']:.6f} "
-              f"({row['bound_by']})  {shape_s}")
+              f"({row['bound_by']})  floor {floor_ms:.6f}  {shape_s}")
         if not c["in_line"]:
             continue
         tot = totals.setdefault(kname, {"ms": 0.0, "plain_ms": 0.0,
@@ -1291,6 +1535,7 @@ def main() -> None:
                      else "operations",
                      "library_ms": (tot["library_ms"] if tot["library_n"]
                                     else None),
+                     "launch_floor_ms": floor_ms * tot["n"],
                      "work": f"{work}, sum over {tot['n']} main-path shapes"
                              + (f" (library call at {tot['library_n']})"
                                 if tot["library_n"] != tot["n"] else "")})
@@ -1304,6 +1549,30 @@ def main() -> None:
                                for r in i8_rows)
     i8["work"] += (" (conv entry: fp32 in, quantized on load, fp32 "
                    "epilogue)")
+    # stage 2 beside its launch floor and its time before the redesign
+    # (a constant, printed here and kept out of the kernels line)
+    s2 = next(e for e in line if e["name"] == "stage2_tap_sum")
+    print(f"  stage2_tap_sum: {s2['ms']:.6f} ms over "
+          f"{totals['stage2_tap_sum']['n']} shapes; launch floor "
+          f"{s2['launch_floor_ms']:.6f} ms; before the redesign "
+          f"{STAGE2_EARLIER_MS:.6f} ms; bound {s2['bound_ms']:.6f} ms")
+    # its two bodies at the main path's taps: the unrolled one the wrapper
+    # launches and the runtime-T loop, timed unrolled, loop, loop, unrolled
+    report["stage2_bodies"] = {}
+    for c in timed:
+        if c["kernel"] != "stage2_tap_sum" or not c["in_line"]:
+            continue
+        temps = c["args"][0]
+        ms = {True: [], False: []}
+        for unroll in (True, False, False, True):
+            ms[unroll].append(time_ms(
+                lambda u=unroll: cuconv_stage2.stage2_tap_sum(
+                    temps, unroll=u, **c["kw"])))
+        body = {"T": temps.shape[0], "unrolled_ms": ms[True],
+                "loop_ms": ms[False]}
+        report["stage2_bodies"][c["label"]] = body
+        print(f"  stage2_tap_sum {c['label']} (T = {temps.shape[0]}): "
+              f"unrolled {ms[True]} ms, runtime-T loop {ms[False]} ms")
     report["kernels"] = line
 
     # -- 6. launch-config check: the fused, direct and two-stage kernels'

@@ -18,7 +18,12 @@ run measures, with seed-0 weights:
 - qwen2-1.5b at full width and depth in bf16: one prefill wave of 4 x 512
   tokens through ``ServeEngine._prefill`` (host clock between
   synchronizes, median of 5), and the device ms of its
-  ``flash_attention`` kernels and of all kernels under ``torch.profiler``.
+  ``flash_attention`` kernels and of all kernels under ``torch.profiler``;
+- qwen2-1.5b and mamba2-1.3b at full width and depth in bf16: ms per
+  decode step of 4 slots after a 512-token prefill, as the engine's loop
+  runs it (``ServeEngine._decode``, then the greedy sample to the host
+  fed back as the next tokens): 16 steps a repetition, host clock
+  between synchronizes, median of 5 repetitions after 2 warm ones.
 
 One JSON line per run goes to standard output, then the card's name and
 power limit; the last line is a JSON summary of medians per tree.
@@ -36,6 +41,7 @@ import time
 
 WINDOWS, WINDOW_REQUESTS = 3, 300
 LM_ARCH, LM_SLOTS, LM_PROMPT, LM_REPS = "qwen2-1.5b", 4, 512, 5
+DECODE_ARCHS, DECODE_STEPS = ("qwen2-1.5b", "mamba2-1.3b"), 16
 
 
 def windows(eng, requests, torch) -> list:
@@ -125,6 +131,38 @@ def measure(src: str) -> dict:
                 flash += us / 1e3
     out["qwen2_wave_device_ms"] = busy
     out["qwen2_wave_flash_ms"] = flash
+    del seng, lparams
+
+    for arch in DECODE_ARCHS:
+        cfg = get_config(arch)
+        lparams = lm.init_lm(cfg, seed=0, device=dev)
+        seng = ServeEngine(cfg, lparams, slots=LM_SLOTS,
+                           max_len=LM_PROMPT + DECODE_STEPS, device=dev)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (LM_SLOTS, LM_PROMPT))
+                                .astype(np.int32)).to(dev)
+        logits, _ = seng._prefill(seng.params, {"tokens": toks}, seng.cache)
+        first = seng._sample(logits)
+
+        def steps():
+            cur = first
+            for t in range(DECODE_STEPS):
+                step = torch.from_numpy(cur[:, None].astype(np.int32)).to(dev)
+                logits, _ = seng._decode(seng.params, {"tokens": step},
+                                         seng.cache, LM_PROMPT + t)
+                cur = seng._sample(logits)
+        for _ in range(2):
+            steps()
+        per_step = []
+        for _ in range(LM_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps()
+            torch.cuda.synchronize()
+            per_step.append((time.perf_counter() - t0) * 1e3 / DECODE_STEPS)
+        out[f"{arch.split('-')[0]}_decode_ms_per_step"] = per_step
+        del seng, lparams
+        torch.cuda.empty_cache()
     return out
 
 
@@ -167,7 +205,8 @@ def main() -> None:
                 r[key] if isinstance(r[key], list) else [r[key]]))
             for key in ("cnn224_ms_per_batch", "int8_32_ms_per_batch",
                         "qwen2_prefill_wave_ms", "qwen2_wave_device_ms",
-                        "qwen2_wave_flash_ms")}
+                        "qwen2_wave_flash_ms", "qwen2_decode_ms_per_step",
+                        "mamba2_decode_ms_per_step")}
     print(json.dumps({"card": smi, "median": summary}))
 
 

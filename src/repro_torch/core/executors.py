@@ -1112,7 +1112,7 @@ class Int8PallasExecutor(Executor):
                 quant=None):
         # full override: the base cast-to-spec-dtype would truncate float
         # operands to int8 — quantization IS the cast here
-        from repro_torch.kernels import ops
+        from repro_torch.kernels import _build, ops
         from repro_torch.quant import symmetric
         if spec.fused_add != "none" and addend is None:
             raise ValueError(f"fused-add spec {spec.key()} needs an addend")
@@ -1122,6 +1122,8 @@ class Int8PallasExecutor(Executor):
         else:
             x_scale = symmetric.scale_for(symmetric.abs_max(x))
         codes, w_scales = self._quantized_filter(w)
+        # cached tensors: a graph captured here reads them on every replay
+        _build.keep_for_graph(x_scale, codes, w_scales)
         relu = (spec.fused_add == "add_relu" if spec.fused_add != "none"
                 else spec.wants_relu)
         cfg = LaunchConfig.of(config)

@@ -3,44 +3,189 @@
 //
 // Replaces kernels/cuconv_stage2.py::stage2_tap_sum of the JAX package.
 // One add per element read: bound by device-memory bytes (T*P*M*4 read,
-// P*M written).  The design is a flat grid-stride pass in which
-// neighbouring threads read neighbouring addresses of each tap plane,
-// so every read is a coalesced 128-byte line; the TPU's (tp, tm) block
-// tiling has no counterpart here.
+// P*M written).  At the main path's shapes (t4_A: T = 9, PM = 18,816;
+// t5_A: T = 25, PM = 6,272) that is about 0.2 us at 3.35 TB/s, so the
+// time is the latency of one round of loads plus the launch: what
+// matters is that every load is in flight at once, on every SM.
+//
+// Design.  The output is cut into quads of 4 neighbouring elements
+// ("columns"); a block owns `cols` columns (blockDim.x) and splits the
+// tap axis across `rows` = ceil(sqrt(T)) thread rows (blockDim.y), each
+// row summing a contiguous run of ceil(T / rows) taps.  A thread issues
+// all its (column, tap) loads back to back, then the rows' partials meet
+// in shared memory and row 0 adds them in row order: one fixed order, so
+// two runs give the same bits.  At the taps the main path sums (9 and
+// 25: t4_A's 3x3, t5_A's 5x5) T is a template parameter and the run is
+// fully unrolled; any other T takes the runtime-T body, a loop in the
+// same order (the same bits), which `unroll` = 0 also picks at 9 and 25
+// so chip_smoke can time the two there (PERF.md §6: unrolled is faster).
+// Columns per block are chosen by the wrapper (kernels/cuconv_stage2.py
+// launch_geometry) so the grid holds at least one wave of 132 blocks.
+// Loads are 16 bytes where PM % 4 == 0 and temps is 16-byte aligned,
+// stores 16 bytes (fp32) or 8 (bf16) where out is aligned alike; each
+// operand that is not takes masked scalar accesses in the same body.
 #include "common.cuh"
 
-constexpr int kSumThreads = 256;
+// ceil(sqrt(T)) thread rows: a run of about sqrt(T) loads a thread, and
+// about sqrt(T) partials for row 0 to add
+__host__ __device__ constexpr int groups_for(int T) {
+  int g = 1;
+  while (g * g < T) ++g;
+  return g;
+}
 
 template <typename TOut>
-__global__ void __launch_bounds__(kSumThreads)
-stage2_tap_sum_kernel(const float* __restrict__ temps, TOut* __restrict__ out,
-                      int T, int64_t PM) {
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < PM;
-       i += step) {
-    float s = 0.f;
-    for (int t = 0; t < T; ++t) s += temps[t * PM + i];
-    out[i] = from_f32<TOut>(s);
+__device__ __forceinline__ void store_quad(TOut* out, int64_t i0, int PM,
+                                           float4 s, bool vec);
+
+template <>
+__device__ __forceinline__ void store_quad<float>(float* out, int64_t i0,
+                                                  int PM, float4 s,
+                                                  bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(out + i0) = s;
+    return;
   }
+  const float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (i0 + e < PM) out[i0 + e] = v[e];
+}
+
+template <>
+__device__ __forceinline__ void store_quad<__nv_bfloat16>(
+    __nv_bfloat16* out, int64_t i0, int PM, float4 s, bool vec) {
+  const float v[4] = {s.x, s.y, s.z, s.w};
+  if (vec) {
+    __align__(8) __nv_bfloat16 h[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) h[e] = __float2bfloat16(v[e]);
+    *reinterpret_cast<uint2*>(out + i0) = *reinterpret_cast<uint2*>(h);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (i0 + e < PM) out[i0 + e] = __float2bfloat16(v[e]);
+}
+
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ p,
+                                            int64_t i0, int PM, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const float4*>(p + i0));
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = i0 + e < PM ? __ldg(p + i0 + e) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// kT > 0: T and the rows are compile-time and the run is unrolled;
+// kT == 0: any T, rows given by the launch
+template <int kT, typename TOut>
+__global__ void stage2_tap_sum_kernel(const float* __restrict__ temps,
+                                      TOut* __restrict__ out, int T_rt,
+                                      int PM, int vec_in, int vec_out) {
+  extern __shared__ float4 partial[];           // [rows][blockDim.x]
+  constexpr int kRows = groups_for(kT), kPer = (kT + kRows - 1) / kRows;
+  const int T = kT > 0 ? kT : T_rt;
+  const int rows = kT > 0 ? kRows : (int)blockDim.y;
+  const int per = kT > 0 ? kPer : (T + rows - 1) / rows;
+  const int x = threadIdx.x, g = threadIdx.y;
+  const int64_t i0 = ((int64_t)blockIdx.x * blockDim.x + x) * 4;
+  const int t0 = g * per;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i0 < PM) {
+    if (kT > 0) {
+      float4 v[kPer > 0 ? kPer : 1];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        v[j] = t0 + j < T ? load_quad(temps + (int64_t)(t0 + j) * PM, i0,
+                                      PM, vec_in)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) acc = add4(acc, v[j]);
+    } else {
+      const int t1 = min(t0 + per, T);
+#pragma unroll 4
+      for (int t = t0; t < t1; ++t)
+        acc = add4(acc, load_quad(temps + (int64_t)t * PM, i0, PM, vec_in));
+    }
+  }
+  if (rows > 1) {
+    partial[g * blockDim.x + x] = acc;
+    __syncthreads();
+    if (g != 0) return;
+    acc = partial[x];
+    for (int r = 1; r < rows; ++r)
+      acc = add4(acc, partial[r * blockDim.x + x]);
+  }
+  if (i0 < PM) store_quad<TOut>(out, i0, PM, acc, vec_out);
+}
+
+// an empty kernel: the floor under any launch, timed beside stage 2
+__global__ void empty_kernel() {}
+
+template <int kT, typename TOut>
+static cudaError_t launch_t(const float* temps, TOut* out, int T, int PM,
+                            int cols, int rows, int blocks, int vec_in,
+                            int vec_out, cudaStream_t s) {
+  const dim3 block(cols, rows);
+  const int smem = rows > 1 ? rows * cols * (int)sizeof(float4) : 0;
+  stage2_tap_sum_kernel<kT, TOut><<<blocks, block, smem, s>>>(
+      temps, out, T, PM, vec_in, vec_out);
+  return cudaGetLastError();
+}
+
+template <typename TOut>
+static cudaError_t launch(const float* temps, TOut* out, int T, int PM,
+                          int cols, int rows, int blocks, int vec_in,
+                          int vec_out, int unroll, cudaStream_t s) {
+  // the compile-time runs exist only at the rows groups_for(T) gives
+#define STAGE2_CASE(K)                                                    \
+  if (unroll && T == K && rows == groups_for(K))                          \
+    return launch_t<K, TOut>(temps, out, T, PM, cols, rows, blocks,       \
+                             vec_in, vec_out, s);
+  STAGE2_CASE(9)
+  STAGE2_CASE(25)
+#undef STAGE2_CASE
+  return launch_t<0, TOut>(temps, out, T, PM, cols, rows, blocks, vec_in,
+                           vec_out, s);
 }
 
 REPRO_ERROR_STRING_EXPORT
 
 REPRO_EXPORT int stage2_tap_sum_launch(const void* temps, void* out,
                                        int out_dtype, int T, int PM,
-                                       void* stream) {
+                                       int cols, int rows, int blocks,
+                                       int vec_in, int vec_out,
+                                       int unroll, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t want = ((int64_t)PM + kSumThreads - 1) / kSumThreads;
-  const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
+  const int out_align = out_dtype == kFloat32 ? 16 : 8;
+  if (T < 1 || PM < 1 || cols < 1 || rows < 1 || blocks < 1 ||
+      cols * rows > 1024 || (int64_t)blocks * cols * 4 < PM ||
+      (vec_in && (PM % 4 != 0 ||
+                  reinterpret_cast<uintptr_t>(temps) % 16 != 0)) ||
+      (vec_out && (PM % 4 != 0 ||
+                   reinterpret_cast<uintptr_t>(out) % out_align != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* t = static_cast<const float*>(temps);
+  cudaError_t e;
   if (out_dtype == kFloat32) {
-    stage2_tap_sum_kernel<float><<<blocks, kSumThreads, 0, s>>>(
-        static_cast<const float*>(temps), static_cast<float*>(out), T, PM);
+    e = launch<float>(t, static_cast<float*>(out), T, PM, cols, rows,
+                      blocks, vec_in, vec_out, unroll, s);
   } else if (out_dtype == kBFloat16) {
-    stage2_tap_sum_kernel<__nv_bfloat16><<<blocks, kSumThreads, 0, s>>>(
-        static_cast<const float*>(temps), static_cast<__nv_bfloat16*>(out),
-        T, PM);
+    e = launch<__nv_bfloat16>(t, static_cast<__nv_bfloat16*>(out), T, PM,
+                              cols, rows, blocks, vec_in, vec_out, unroll,
+                              s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(e);
+}
+
+REPRO_EXPORT int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,6 +15,7 @@ turns a non-zero code into an exception.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _HEADERS = ("common.cuh", "mma_tf32.cuh", "splitk.cuh")
@@ -48,8 +49,11 @@ LIBRARIES: Dict[str, Dict[str, Sequence]] = {
         "stage1_tap_gemm_launch": [_P] * 3 + [_I] * 18 + [_P],
     },
     "cuconv_stage2": {
-        # temps, out, out_dtype, T, PM, stream
-        "stage2_tap_sum_launch": [_P] * 2 + [_I] * 3 + [_P],
+        # temps, out, out_dtype, T, PM, cols, rows, blocks, vec_in,
+        # vec_out, unroll, stream
+        "stage2_tap_sum_launch": [_P] * 2 + [_I] * 9 + [_P],
+        # stream: an empty kernel, the launch floor
+        "empty_launch": [_P],
     },
     "winograd_fused": {
         # x, w, bias, addend, out, dtype, N, H, W, C, M, ph, pw, OH, OW,
@@ -98,6 +102,44 @@ _LOCK = threading.Lock()
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count launches that ran without their wrappers: a CUDA graph's
+    replay adds what its capture recorded."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n
+
+
+#: the records of the CUDA-graph captures in progress (innermost last)
+_CAPTURES: List[Dict] = []
+
+
+@contextlib.contextmanager
+def graph_capture():
+    """Around a CUDA-graph capture.  The wrappers count the launches they
+    record, but nothing runs: on exit ``LAUNCHES`` is put back, and the
+    yielded record's ``"launches"`` holds what was recorded, per kernel.
+    Its ``"keep"`` collects what ``keep_for_graph`` was given during the
+    capture, for the graph's owner to hold as long as the graph."""
+    before = dict(LAUNCHES)
+    rec: Dict = {"launches": {}, "keep": []}
+    _CAPTURES.append(rec)
+    try:
+        yield rec
+    finally:
+        _CAPTURES.pop()
+        rec["launches"].update({k: LAUNCHES[k] - n for k, n in before.items()
+                                if LAUNCHES[k] != n})
+        LAUNCHES.update(before)
+
+
+def keep_for_graph(*tensors) -> None:
+    """A tensor that a cache hands to a kernel, and may drop later: if a
+    CUDA graph is being captured, it reads that memory on every replay,
+    so its owner must hold the tensor."""
+    if _CAPTURES:
+        _CAPTURES[-1]["keep"].extend(tensors)
 
 
 def build_dir() -> Path:

@@ -257,7 +257,13 @@ def prefill(params, cfg: ModelConfig, batch, cache):
 
 
 def decode_step(params, cfg: ModelConfig, batch, cache, offset):
-    """One token step against an existing cache."""
+    """One token step against an existing cache.  ``offset``, the cache
+    position of the step's first token, is taken as a 0-d int64 tensor
+    on the batch's device (a Python int is made one), as the reference's
+    jitted step traces it: positions, cache writes and the mask are
+    computed from it on the device."""
+    dev = next(iter(batch.values())).device
+    offset = torch.as_tensor(offset, dtype=torch.int64, device=dev)
     logits, cache, _ = lm_forward(params, cfg, batch, cache=cache,
                                   offset=offset, mode="decode")
     return logits, cache

@@ -10,7 +10,10 @@ Three functions compute attention, all numerically equivalent:
   * ``exact_attention`` and ``chunked_attention``: the JAX package's
     plain versions, kept as references;
   * decode: one query token against the cache, the plain masked einsum
-    (the JAX package computes it outside any kernel too).
+    (the JAX package computes it outside any kernel too), reading the
+    (B, Lmax, KVH, D) cache in place by kv head, as ``flash_attention``
+    reads it by stride: no key or value is copied or repeated per query
+    head.
 
 MLA (deepseek-v2) waits for the MoE/MLA item of ROADMAP queue 1.
 """
@@ -56,14 +59,6 @@ def _qkv(p, cfg, x, positions):
     return q, k, v
 
 
-def _repeat_kv(k, num_heads):
-    """(B, S, KVH, D) -> (B, S, H, D) by head-group broadcast."""
-    B, S, KVH, D = k.shape
-    rep = num_heads // KVH
-    return k[:, :, :, None, :].expand(B, S, KVH, rep, D).reshape(
-        B, S, num_heads, D)
-
-
 def _softmax_attend(q, k, v, valid):
     """softmax over keys of masked fp32 scores, in q's dtype, times v.
     q: (B,Sq,H,D); k, v: (B,Sk,H,D); valid: (Sq, Sk) bool."""
@@ -72,6 +67,29 @@ def _softmax_attend(q, k, v, valid):
     scores = scores.masked_fill(~valid, float("-inf"))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", *L.promote(w, v))
+
+
+def grouped_attend(q, k, v, valid):
+    """``_softmax_attend`` with the kv heads read in place: query head h
+    attends kv head h // (H/KVH), one kv head at a time, through batched
+    products on (B, Sk, D) strided views of k and v, so no key or value
+    is copied.  q: (B, Sq, H, D); k, v: (B, Sk, KVH, D); valid: (Sq, Sk)
+    bool."""
+    B, Sq, H, D = q.shape
+    KVH = k.shape[2]
+    rep = H // KVH
+    scale = torch.tensor(D, dtype=torch.float32).sqrt()
+    masked = ~valid[:, None, :]                             # (Sq, 1, Sk)
+    outs = []
+    for g in range(KVH):
+        qg = q[:, :, g * rep:(g + 1) * rep].reshape(B, Sq * rep, D)
+        scores = torch.bmm(*L.promote(qg, k[:, :, g].transpose(1, 2)))
+        scores = (scores.float() / scale).reshape(B, Sq, rep, -1)
+        scores = scores.masked_fill(masked, float("-inf"))
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.bmm(*L.promote(w.reshape(B, Sq * rep, -1), v[:, :, g]))
+        outs.append(out.reshape(B, Sq, rep, D))
+    return torch.cat(outs, dim=2)
 
 
 def exact_attention(q, k, v, causal=True):
@@ -128,7 +146,10 @@ def gqa_fwd(p, cfg, x, positions, cache=None, offset=0, mode="train"):
     mode: "train" (no cache), "prefill" (attend within the batch, write
     the cache at ``offset``), "decode" (attend against the cache).
     cache: (k_buf, v_buf) of shape (B, Lmax, KVH, D), updated in place
-    (the JAX package donates it to its jitted step instead).
+    (the JAX package donates it to its jitted step instead).  In decode
+    ``offset`` may be a 0-d int64 tensor on the cache's device: the
+    write, the mask and (in the caller) the positions come from it on
+    the device, so one captured CUDA graph serves every step.
     """
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
@@ -140,12 +161,10 @@ def gqa_fwd(p, cfg, x, positions, cache=None, offset=0, mode="train"):
             cv[:, offset:offset + S] = v.to(cv.dtype)
     else:
         ck, cv = cache                             # (B, Lmax, KVH, D) x2
-        ck[:, offset:offset + S] = k.to(ck.dtype)
-        cv[:, offset:offset + S] = v.to(cv.dtype)
-        kf = _repeat_kv(ck, cfg.num_heads)
-        vf = _repeat_kv(cv, cfg.num_heads)
+        qi = offset + torch.arange(S, device=x.device)      # int64 (S,)
+        ck.index_copy_(1, qi, k.to(ck.dtype))
+        cv.index_copy_(1, qi, v.to(cv.dtype))
         ki = torch.arange(ck.shape[1], device=x.device)[None, :]
-        qi = offset + torch.arange(S, device=x.device)[:, None]
-        out = _softmax_attend(q, kf, vf, ki <= qi)
+        out = grouped_attend(q, ck, cv, ki <= qi[:, None])
     out = out.reshape(B, S, cfg.q_dim)
     return L.dense_fwd(p["wo"], out), cache

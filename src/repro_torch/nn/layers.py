@@ -123,5 +123,7 @@ def apply_rope(x, positions, theta=1e6, sections=(), impl="f32"):
 
 
 def make_positions(batch, seq, offset=0, device="cpu"):
+    """(batch, seq) int32 positions from ``offset``: an int, or a 0-d
+    int64 tensor on ``device`` (the decode step's traced offset)."""
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
     return (pos + offset).expand(batch, seq)

@@ -6,9 +6,10 @@ that fits the remaining queue; short remainders ride the smallest
 bucket with zero-padded slots.  Plans are resolved once per bucket (and
 persisted via the graph-level cache), so a warm engine serves any
 request mix with zero plan() resolutions and at most ``len(buckets)``
-bucket programs.  Each bucket program is a plain call of the bucket's
-``GraphPlan``: PyTorch is eager, so the JAX package's per-bucket
-``jax.jit`` has no counterpart.
+bucket programs.  Each bucket program is a call of the bucket's
+``GraphPlan`` (``BucketPrograms.fn``); on the card it is captured as one
+CUDA graph per bucket (``serve/graphs.py``), the counterpart of the JAX
+package's per-bucket ``jax.jit``, and the CPU runs it eagerly.
 
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``); its plans are made for the card's backend
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.convspec import backend_for, resolve_device
+from repro_torch.serve import graphs
 
 
 @dataclasses.dataclass
@@ -91,9 +93,9 @@ class BucketPrograms:
     """One geometry's bucket programs: build, warm, pick, pack.
 
     Owns the ``{bucket: program}`` table for one ``(image_shape,
-    buckets)`` pair on one device.  ``input_dtype()`` is the single
-    source of truth for the dtype requests are packed to AND the dtype
-    ``warmup()`` runs.
+    buckets)`` pair on one device, and on the card each bucket's CUDA
+    graph.  ``input_dtype()`` is the single source of truth for the
+    dtype requests are packed to AND the dtype ``warmup()`` runs.
     """
 
     def __init__(self, model, params, image_shape: Tuple[int, int, int], *,
@@ -114,6 +116,10 @@ class BucketPrograms:
         self._input_dtype = np.dtype(input_dtype or np.float32)
         self._fns: Dict[int, Callable] = {}    # bucket -> program
         self._plans: Dict[int, object] = {}    # bucket -> GraphPlan
+        #: on the card: bucket -> its CUDA graph, all in one memory pool
+        self.graphs: Dict[int, graphs.GraphedProgram] = {}
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if graphs.used_on(self.device) else None)
 
     # ------------------------------------------------------------------
     def input_dtype(self) -> np.dtype:
@@ -166,6 +172,27 @@ class BucketPrograms:
             self._fns[b] = f
         return f
 
+    def serve_batch(self, b: int, xb: np.ndarray) -> torch.Tensor:
+        """Bucket ``b``'s program on one packed ``(b, H, W, C)`` batch.
+        On the card: the batch is copied into the bucket's static input
+        and its CUDA graph replayed (captured after the bucket's first
+        eager batch, and again after any parameter tensor changed); the
+        result is the graph's static output, overwritten by the bucket's
+        next batch.  On the CPU: the eager program ``fn(b)``."""
+        f = self.fn(b)
+        if not graphs.used_on(self.device):
+            return f(self.params, self.put(xb))
+        g = self.graphs.get(b)
+        if g is None:
+            static = torch.empty(
+                (b,) + self.image_shape, device=self.device,
+                dtype=torch.from_numpy(np.empty(0, self._input_dtype)).dtype)
+            g = self.graphs[b] = graphs.GraphedProgram(
+                lambda params, _, x: f(params, x), [static],
+                pool=self._pool)
+        return g(self.params, None,
+                 torch.from_numpy(np.ascontiguousarray(xb)))
+
     def pack(self, chunk: Sequence[Tuple[ImageRequest, int]],
              bucket: int) -> np.ndarray:
         return pack_units(chunk, bucket, self.image_shape,
@@ -177,8 +204,9 @@ class BucketPrograms:
 
     def warmup(self, *, tune: Optional[str] = None) -> Dict[int, float]:
         """Resolve every bucket's plan and run it once on zeros (which
-        builds the kernels on first use).  ``tune`` is not ported yet and
-        raises.  Returns per-bucket first-run milliseconds."""
+        builds the kernels on first use), then on the card capture its
+        CUDA graph.  ``tune`` is not ported yet and raises.  Returns
+        per-bucket milliseconds of the first run (and capture)."""
         if tune is not None:
             raise NotImplementedError(
                 f"tune={tune!r}: the measured autotune sweep is not ported "
@@ -186,10 +214,10 @@ class BucketPrograms:
         H, W, C = self.image_shape
         out = {}
         for b in self.buckets:
-            f = self.fn(b)
-            x = self.put(np.zeros((b, H, W, C), self.input_dtype()))
+            self.fn(b)
+            x = np.zeros((b, H, W, C), self.input_dtype())
             t0 = time.perf_counter()
-            f(self.params, x)
+            self.serve_batch(b, x)
             self.sync()
             out[b] = (time.perf_counter() - t0) * 1e3
         return out
@@ -269,8 +297,7 @@ class CnnServeEngine:
         while cursor < len(units):
             b = self.programs.pick_bucket(len(units) - cursor)
             chunk = units[cursor:cursor + b]
-            xb = self.programs.pack(chunk, b)
-            y = self.programs.fn(b)(self.params, self.programs.put(xb))
+            y = self.programs.serve_batch(b, self.programs.pack(chunk, b))
             scatter_outputs(chunk, y.float().cpu().numpy())
             self.stats["batches"][b] += 1
             self.stats["padded_slots"] += b - len(chunk)

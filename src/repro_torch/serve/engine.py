@@ -8,15 +8,20 @@ offset, then decoded step by step until every member finishes; then the
 next wave is admitted.  Sampling is greedy over ``[:vocab_size]``.
 
 The reference jits one prefill and one decode function and donates the
-cache to them; here both run eagerly and update the cache in place.
-Prefill attention and the Mamba2 prefill conv run the hand-written
-kernels (``flash_attention``, ``conv1d_tap``).  Decode is not captured
-in a CUDA graph (later performance work).
+cache to them.  Here, on the card, each is captured as a CUDA graph
+(``serve/graphs.py``): one prefill graph per prompt length, captured
+after that length's first eager wave, and one decode graph, captured
+after the first eager step, over static tokens and a 0-d int64 offset
+tensor; both update the engine's cache buffers in place inside the
+graph.  On the CPU both run eagerly.  Prefill attention and the Mamba2
+prefill conv run the hand-written kernels (``flash_attention``,
+``conv1d_tap``).  Sampling stays outside the graphs and reads their
+static last-position logits.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -24,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.convspec import resolve_device
 from repro_torch.models import lm
+from repro_torch.serve import graphs
 
 
 @dataclasses.dataclass
@@ -47,15 +53,54 @@ class ServeEngine:
         self.offset = 0                   # shared left-aligned cursor
         self.active: List[Optional[Request]] = [None] * slots
         self.queue: List[Request] = []
+        #: on the card: ("prefill", prompt_len) and "decode" -> graph,
+        #: all in one memory pool
+        self.graphs: Dict[object, graphs.GraphedProgram] = {}
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if graphs.used_on(self.device) else None)
+
+    def _prefill_fn(self, params, cache, tokens):
+        logits, _ = lm.prefill(params, self.cfg, {"tokens": tokens}, cache)
+        # a copy, so a graph's static output holds (slots, V), not the
+        # whole (slots, prompt_len, V) logits behind a view
+        return logits[:, -1, :].contiguous()
+
+    def _decode_fn(self, params, cache, tokens, offset):
+        logits, _ = lm.decode_step(params, self.cfg, {"tokens": tokens},
+                                   cache, offset)
+        return logits[:, -1, :]
 
     def _prefill(self, params, batch, cache):
-        logits, cache = lm.prefill(params, self.cfg, batch, cache)
-        return logits[:, -1, :], cache
+        """Last-position logits of a prefill wave; the cache is written
+        in place.  On the card through the wave length's CUDA graph."""
+        tokens = batch["tokens"]
+        if not graphs.used_on(self.device):
+            return self._prefill_fn(params, cache, tokens), cache
+        key = ("prefill", tokens.shape[1])
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = graphs.GraphedProgram(
+                self._prefill_fn, [torch.empty(
+                    tokens.shape, dtype=tokens.dtype, device=self.device)],
+                pool=self._pool)
+        return g(params, cache, tokens), cache
 
     def _decode(self, params, batch, cache, offset):
-        logits, cache = lm.decode_step(params, self.cfg, batch, cache,
-                                       offset)
-        return logits[:, -1, :], cache
+        """Last-position logits of one decode step at ``offset``; the
+        cache is updated in place.  On the card through the decode
+        CUDA graph."""
+        tokens = batch["tokens"]
+        if not graphs.used_on(self.device):
+            return self._decode_fn(params, cache, tokens, offset), cache
+        g = self.graphs.get("decode")
+        if g is None:
+            g = self.graphs["decode"] = graphs.GraphedProgram(
+                self._decode_fn,
+                [torch.empty(tokens.shape, dtype=tokens.dtype,
+                             device=self.device),
+                 torch.zeros((), dtype=torch.int64, device=self.device)],
+                pool=self._pool)
+        return g(params, cache, tokens, offset), cache
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -72,7 +117,7 @@ class ServeEngine:
             if r is not None:
                 p = r.prompt[:prompts_len]
                 toks[s, prompts_len - len(p):] = p       # right-pack
-        return torch.from_numpy(toks).to(self.device)
+        return torch.from_numpy(toks)
 
     def run(self, prompt_len: int = 32) -> List[Request]:
         """Serve until queue and slots drain, one wave at a time.
@@ -111,7 +156,7 @@ class ServeEngine:
         for s, r in enumerate(self.active):
             if r is not None and r.out_tokens:
                 toks[s, 0] = r.out_tokens[-1]
-        return torch.from_numpy(toks).to(self.device)
+        return torch.from_numpy(toks)
 
     def _sample(self, logits) -> np.ndarray:
         return logits[..., :self.cfg.vocab_size].float().argmax(-1).cpu() \

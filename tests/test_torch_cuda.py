@@ -1,6 +1,9 @@
 """Each CUDA kernel against its plain PyTorch version, on the card.
 
-Every test here needs the card and skips without one.  On a machine with
+Every test here needs the card and skips without one.  The stage-2 sum
+is held to the fp32 bound and must repeat its bits; the served
+programs' CUDA graphs (``serve/graphs.py``) must replay bit-equal to the
+eager programs and count the same launches.  On a machine with
 a card: ``PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py``.
 The bounds are ``max|kernel - plain| <= tol * max(1, max|plain|)`` with
 tol 2e-5 in fp32 (both sides FFMA/cuBLAS fp32, TF32 off; only the
@@ -618,3 +621,178 @@ def _cpu(node):
     if isinstance(node, list):
         return [_cpu(v) for v in node]
     return node.cpu()
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T,P,M,off", [
+    (9, 49, 384, 0), (25, 49, 128, 0),      # t4_A, t5_A
+    (9, 7, 7, 0), (9, 49, 384, 1),          # PM % 4 != 0; a misaligned view
+    (2, 50, 33, 0), (49, 98, 64, 0), (10, 40, 12, 0)])
+def test_stage2_tap_sum_matches_plain_and_repeats_its_bits(T, P, M, off,
+                                                           dtype):
+    """The unrolled taps (9, 25), the runtime ones (2, 10, 49), the
+    scalar loads and stores (PM % 4 != 0, temps off 16 bytes); two runs
+    give the same bits (the thread rows add in one fixed order)."""
+    gen = torch.Generator().manual_seed(19)
+    temps = _randn(gen, (T * P * M + off,), torch.float32)[off:].view(T, P,
+                                                                     M)
+    assert (temps.data_ptr() % 16 != 0) == bool(off)
+    got = cuconv_stage2.stage2_tap_sum(temps, out_dtype=dtype)
+    _close(got, cuconv_stage2.stage2_tap_sum_plain(temps, dtype), dtype)
+    again = cuconv_stage2.stage2_tap_sum(temps, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _build.LAUNCHES["stage2_tap_sum"] == 2
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T,P,M", [(9, 49, 384), (25, 49, 128)])
+def test_stage2_tap_sum_runtime_loop_gives_the_unrolled_bits(T, P, M, dtype):
+    """At t4_A and t5_A the runtime-T loop (``unroll=False``) adds in the
+    unrolled body's order: the same bits, both near the plain sum."""
+    gen = torch.Generator().manual_seed(23)
+    temps = _randn(gen, (T, P, M), torch.float32)
+    unrolled = cuconv_stage2.stage2_tap_sum(temps, out_dtype=dtype)
+    loop = cuconv_stage2.stage2_tap_sum(temps, out_dtype=dtype, unroll=False)
+    torch.cuda.synchronize()
+    _close(loop, cuconv_stage2.stage2_tap_sum_plain(temps, dtype), dtype)
+    assert torch.equal(unrolled, loop)
+
+
+def _served_engines():
+    """resnet_like's served buckets: fp32 at 224x224 (b1) and 32x32 (b1,
+    b4), int8 at 32x32 (b1, b4; calibrated on one seeded batch of 4, so
+    b1c1-b2c2 run the int8 kernel)."""
+    from repro_torch.models.cnn import resnet_like
+    from repro_torch.quant import Calibrator, QuantPolicy
+    from repro_torch.serve.cnn import CnnServeEngine
+    model = resnet_like(num_classes=10)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    calib = np.random.default_rng(3).standard_normal((4, 32, 32, 3),
+                                                     dtype=np.float32)
+    model.graph_plan(calib.shape, backend="cuda").warmup(
+        calibrate=Calibrator(calib, params))
+    return params, [
+        CnnServeEngine(model, params, (224, 224, 3), buckets=(1,)),
+        CnnServeEngine(model, params, (32, 32, 3), buckets=(1, 4)),
+        CnnServeEngine(model, params, (32, 32, 3), buckets=(1, 4),
+                       precision=QuantPolicy())]
+
+
+@requires_cuda
+def test_served_bucket_graphs_replay_bit_equal_to_eager():
+    """Every served bucket, fp32 and int8: the graph's replay equals the
+    eager program ``fn(b)`` bit for bit, and launches what it launches."""
+    _, engines = _served_engines()
+    rng = np.random.default_rng(0)
+    for eng in engines:
+        eng.warmup()
+        progs = eng.programs
+        for b in eng.buckets:
+            assert progs.graphs[b].captures == 1
+            xb = rng.normal(size=(b,) + eng.image_shape).astype(np.float32)
+            _build.reset_launches()
+            want = progs.fn(b)(eng.params, progs.put(xb))
+            torch.cuda.synchronize()
+            eager = dict(_build.LAUNCHES)
+            _build.reset_launches()
+            got = progs.serve_batch(b, xb).clone()
+            torch.cuda.synchronize()
+            assert dict(_build.LAUNCHES) == eager
+            assert sum(eager.values()) >= 6
+            assert progs.graphs[b].replays == 1
+            assert torch.equal(got, want), (eng.image_shape, b)
+    assert all(n == 4 for n in (
+        sum(p.algorithm == "cuconv_int8"
+            for p in engines[2].programs.plan(b).conv_plans.values())
+        for b in (1, 4)))
+
+
+@requires_cuda
+def test_a_capture_survives_graphs_left_in_reference_cycles():
+    """CUDA graphs held by reference cycles are freed by the garbage
+    collector; one freed during a capture would invalidate it, so a
+    capture collects first and holds the collector off."""
+    import gc
+    from repro_torch.serve.graphs import GraphedProgram
+    x = torch.arange(4096, dtype=torch.float32, device="cuda")
+    for _ in range(16):
+        cycle = {"graph": torch.cuda.CUDAGraph()}
+        with torch.cuda.graph(cycle["graph"]):
+            cycle["out"] = x * 2
+        cycle["self"] = cycle
+    del cycle
+    prog = GraphedProgram(
+        lambda p, _, t: [t * p["w"] + i for i in range(8)][-1],
+        [torch.zeros_like(x)])
+    params = {"w": torch.full_like(x, 3.0)}
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)             # collect at almost every object
+    try:
+        eager = prog(params, None, x).clone()
+        replayed = prog(params, None, x).clone()
+    finally:
+        gc.set_threshold(*threshold)
+    torch.cuda.synchronize()
+    assert (prog.captures, prog.replays) == (1, 1)
+    assert torch.equal(eager, x * 3 + 7) and torch.equal(replayed, eager)
+
+
+@requires_cuda
+def test_a_changed_parameter_recaptures_the_bucket_graph():
+    params, engines = _served_engines()
+    progs = engines[1].programs
+    xb = np.random.default_rng(1).normal(size=(4, 32, 32, 3)).astype(
+        np.float32)
+    before = progs.serve_batch(4, xb).clone()
+    progs.serve_batch(4, xb)
+    assert (progs.graphs[4].captures, progs.graphs[4].replays) == (1, 1)
+    params["stem"]["w"].mul_(2.0)                 # in place
+    got = progs.serve_batch(4, xb).clone()        # eager, then capture
+    assert progs.graphs[4].captures == 2
+    again = progs.serve_batch(4, xb).clone()      # the new graph
+    want = progs.fn(4)(params, progs.put(xb))
+    torch.cuda.synchronize()
+    assert progs.graphs[4].replays == 2
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert not torch.equal(before, want)
+
+
+@requires_cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"])
+def test_decode_graph_gives_the_eager_tokens(arch):
+    """16 greedy decode steps at full size (bf16, 4 slots, prompts of
+    64) through the engine's graphs and through eager ``lm`` calls: the
+    same tokens.  The largest logit difference is printed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    cfg = get_config(arch)
+    params = lm.init_lm(cfg, seed=0)
+    slots, S, steps = 4, 64, 16
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (slots, S)).astype(np.int32))
+    eng = ServeEngine(cfg, params, slots=slots, max_len=S + steps)
+    cache = lm.init_cache(cfg, slots, S + steps)
+    sample = (lambda lg: lg[..., :cfg.vocab_size].float().argmax(-1)
+              .view(slots, 1).to(torch.int32))
+    lg_g, _ = eng._prefill(params, {"tokens": toks}, eng.cache)
+    lg_e, cache = lm.prefill(params, cfg, {"tokens": toks.cuda()}, cache)
+    lg_e = lg_e[:, -1, :]
+    got, want, diff = [], [], 0.0
+    cur_g, cur_e = sample(lg_g), sample(lg_e)
+    for t in range(steps):
+        lg_g, _ = eng._decode(params, {"tokens": cur_g}, eng.cache, S + t)
+        lg_e, cache = lm.decode_step(params, cfg, {"tokens": cur_e}, cache,
+                                     S + t)
+        lg_e = lg_e[:, -1, :]
+        diff = max(diff, (lg_g.float() - lg_e.float()).abs().max().item())
+        cur_g, cur_e = sample(lg_g), sample(lg_e)
+        got.append(cur_g.cpu())
+        want.append(cur_e.cpu())
+    g = eng.graphs["decode"]
+    print(f"{arch}: max |graph - eager| logit over {steps} steps: {diff}")
+    assert (g.captures, g.replays) == (1, steps - 1)
+    assert torch.equal(torch.cat(got, 1), torch.cat(want, 1))

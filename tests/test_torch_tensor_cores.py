@@ -35,8 +35,8 @@ from repro_torch.core import convspec as tcs
 from repro_torch.core import executors
 from repro_torch.core.winograd import matrices, transform_filters
 from repro_torch.kernels import (_build, conv1x1, cuconv_fused,
-                                 cuconv_stage1, direct_conv, flash_attention,
-                                 ops, winograd_fused)
+                                 cuconv_stage1, cuconv_stage2, direct_conv,
+                                 flash_attention, ops, winograd_fused)
 
 FP32_TOL = 2e-5
 SMS = 132
@@ -572,6 +572,63 @@ def test_stage1_wrappers_launch_the_executors_geometry(label, fake_card):
                             geo["smem"])
     assert geo["smem"] == p.executor.vmem_bytes(spec, p.config)
     assert _build.LAUNCHES["stage1_tap_gemm"] == 2
+    assert _build.LAUNCHES["stage2_tap_sum"] == 1
+
+
+@pytest.mark.parametrize("T,P,M", [
+    (9, 49, 384), (25, 49, 128),     # t4_A, t5_A
+    (1, 7, 5), (2, 33, 7), (49, 196, 64), (10, 3, 3), (400, 50, 12),
+    (9, 1000, 999)])
+def test_stage2_geometry_covers_every_output(T, P, M):
+    """Every quad of 4 outputs has a column, every tap a row's run, and
+    the two-stage paper rows launch one wave of blocks or more."""
+    geo = cuconv_stage2.launch_geometry(T, P, M)
+    quads = -(-(P * M) // 4)
+    assert geo["quads"] == quads
+    assert geo["blocks"] * geo["cols"] >= quads > (geo["blocks"] - 1) \
+        * geo["cols"]
+    assert geo["rows"] * geo["taps_per_thread"] >= T
+    assert geo["rows"] == int(np.ceil(np.sqrt(T)))
+    assert geo["threads"] == geo["cols"] * geo["rows"] <= 1024
+    assert geo["smem"] == (16 * geo["threads"] if geo["rows"] > 1 else 0)
+    if (T, P, M) in ((9, 49, 384), (25, 49, 128)):
+        assert geo["blocks"] >= SMS
+    if quads >= SMS:
+        assert geo["blocks"] >= SMS
+
+
+def test_stage2_wrapper_launches_its_geometry(fake_card):
+    """t4_A's and t5_A's sums, and a misaligned view and PM % 4 != 0
+    (scalar loads), in both output dtypes."""
+    shapes = [((9, 49, 384), 0), ((25, 49, 128), 0), ((9, 49, 384), 1),
+              ((4, 5, 7), 0)]
+    for (T, P, M), off in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            fake_card.clear()
+            temps = torch.zeros(T * P * M + off)[off:].view(T, P, M)
+            out = cuconv_stage2.stage2_tap_sum(temps, out_dtype=dtype)
+            assert out.shape == (P, M) and out.dtype == dtype
+            (fn, args), = fake_card
+            geo = cuconv_stage2.launch_geometry(T, P, M)
+            vec = int((P * M) % 4 == 0 and off == 0)
+            # temps, out, out_dtype, T, PM, cols, rows, blocks, vec_in,
+            # vec_out, unroll, stream
+            assert fn == "stage2_tap_sum_launch"
+            assert args[2:11] == (int(dtype == torch.bfloat16), T, P * M,
+                                  geo["cols"], geo["rows"], geo["blocks"],
+                                  vec, int((P * M) % 4 == 0), 1)
+    assert _build.LAUNCHES["stage2_tap_sum"] == 8
+
+
+@pytest.mark.parametrize("unroll", [True, False])
+def test_stage2_wrapper_passes_which_body(fake_card, unroll):
+    """``unroll=False`` asks the kernel for its runtime-T loop at t4_A's
+    9 taps; the geometry is the same either way."""
+    cuconv_stage2.stage2_tap_sum(torch.zeros(9, 49, 384), unroll=unroll)
+    (fn, args), = fake_card
+    geo = cuconv_stage2.launch_geometry(9, 49, 384)
+    assert args[5:8] == (geo["cols"], geo["rows"], geo["blocks"])
+    assert args[10] == int(unroll)
     assert _build.LAUNCHES["stage2_tap_sum"] == 1
 
 
