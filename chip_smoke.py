@@ -72,9 +72,48 @@ for fp32 outside the tensor cores, ``stage2_tap_sum``'s adds and
 on its patch matrix, made outside the timed call, and the eager
 composition it replaced is timed beside it), and checks that every
 feasible launch config of the fused, direct, two-stage and int8
-executors launches one geometry.  It prints
-one ``{"kernels": [...]}`` line, the card's name and power limit, and as
-its last line the device record.
+executors launches one geometry.
+
+Two phases then run under plan stores of their own
+(``build/chip_smoke_cache/tuned`` and ``.../models``; the untuned
+phases' store is restored after each):
+
+- measured autotuning: ``plan(spec, tune="algo")`` races every capable
+  executor (``autotune.device_ms``, the harness the kernel times above
+  come from; TF32 off) on nine rows, the seven profiled rows and
+  resnet50's two 3x3 rows at batch 8, printing each candidate's device
+  ms, the winner and the winner over cuDNN (``lax``).  It fails where a
+  hand-written executor that supports a row was not timed or failed (a
+  failed kernel ends the sweep with its error), where the winner is not
+  the fastest timing or is off ``F.conv2d`` (3e-4, 2e-3 on F(4,3)), or
+  where the replay after ``autotune.clear_cache()`` measures anything.
+  ``plan(spec, tune="full")`` on r50_56x56x64 (Winograd pinned where
+  the race gave the row to another executor) then races Winograd's
+  launch configs, the one executor whose configs change the launch: it
+  fails unless F(2,3) and F(4,3) were both timed, the plan takes the
+  fastest config, its output is within 2e-3 of ``F.conv2d`` and its
+  replay measures nothing.  Then ``resnet_like`` 224x224 (bucket 1) is
+  served after ``warmup(tune="full")`` (each node's executor, config
+  and fusion verdict printed): its trace must count its tuned plans'
+  kernels, its replay equal its eager program, its outputs match the
+  CPU engine and the untuned engine within 3e-4 of their abs max, and a
+  second engine over the same store must warm with no measurement and
+  no plan() resolution.  Last, a warm ``squeezenet_like`` 224x224
+  engine is tuned with ``warmup(tune="full")``: at least one node must
+  change executor and the bucket's CUDA graph be captured again, and
+  the served run is held to the tuned plans, the replay and the CPU
+  engine as above.  Served latency of the tuned and untuned engines is
+  printed for both models, with no gate on speed;
+- the other CNN models: ``squeezenet_like``, ``mobilenet_like`` and
+  ``fire_like`` at 224x224 and ``tiny_cnn`` at 32x32 (buckets 1 and 4,
+  seed-0 params) served by ``CnnServeEngine``: each trace must count its
+  plans' kernels, each replay equal its eager program, the outputs
+  match the CPU engine within 3e-4 of their abs max, and only the
+  grouped conv nodes (mobilenet's ``dw1`` and ``dw2``) may plan onto a
+  library executor.
+
+It prints one ``{"kernels": [...]}`` line, the card's name and power
+limit, and as its last line the device record.
 Details go to ``chiprun_out/chip_smoke.json``.  Any failed phase exits
 non-zero.
 Without CUDA, or without the repository beside it, it exits non-zero and
@@ -113,7 +152,6 @@ INT8_ACCURACY = 0.05             # int8 vs fp32 (quant/accuracy.py)
 
 SMS = 132                        # the H100's streaming multiprocessors
 WINDOWS, WINDOW_REQUESTS = 3, 300   # served-latency windows per engine
-GRAPH_CALLS, GRAPH_REPLAYS = 20, 10  # calls captured per graph, replays
 
 # resnet50's 3x3 layers of configs/cnn_paper.py NETWORKS, (H=W, K, M, C)
 # at batch 8, with the launch config the JAX package's planner picks for
@@ -149,6 +187,11 @@ LM_CPU_TOL = 1e-3                # x * max|CPU logits|
 LM_KERNELS = ("flash_attention", "conv1d_tap")
 LM_TRACE_STEPS = 4               # decode steps under the profiler
 TRACE_PAD_S = 0.05               # a gated trace held open past its region
+# launches in a gated trace's warm-up step, whose records are dropped: a
+# trace loses its first device records, more of them the more CUDA
+# graphs the process has made (a probe on the card: 1 of 12 kernels
+# after 105 timing graphs, 4 after 400; 100 launches absorbed the loss)
+TRACE_WARM_LAUNCHES = 2000
 # each launch counter's CUDA kernel (csrc/*.cu), by which a profiler
 # trace counts what ran on the card, graph replays included
 KERNEL_SYMBOLS = {"cuconv_fused": "cuconv_fused_kernel",
@@ -238,14 +281,17 @@ def main() -> None:
     from repro_torch.configs.base import SHAPES, get_config
     from repro_torch.configs.cnn_paper import PROFILED
     from repro_torch.configs.serve import SMOKE_FRONTEND
-    from repro_torch.core import convspec, cuconv, executors
+    from repro_torch.core import autotune, convspec, cuconv, executors
+    from repro_torch.core import graph as tgraph
     from repro_torch.kernels import (_build, conv1d_tap, conv1x1,
                                      cuconv_fused, cuconv_stage1,
                                      cuconv_stage2, direct_conv,
                                      flash_attention, int8_gemm,
                                      winograd_fused)
     from repro_torch.models import lm
-    from repro_torch.models.cnn import resnet_like
+    from repro_torch.models.cnn import (fire_like, mobilenet_like,
+                                        resnet_like, squeezenet_like,
+                                        tiny_cnn)
     from repro_torch.quant import Calibrator, QuantPolicy, symmetric
     from repro_torch.serve.cnn import CnnServeEngine, ImageRequest
     from repro_torch.serve.engine import Request, ServeEngine
@@ -758,16 +804,27 @@ def main() -> None:
                        for n in sizes]
                for shape, sizes in (((32, 32, 3), [1, 3, 2, 4, 1]),
                                     ((224, 224, 3), [1, 2]))}
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     @contextlib.contextmanager
     def profiled():
-        """``torch.profiler`` (CPU and CUDA) around a region, held open
-        TRACE_PAD_S past its end: a kernel record delivered after the
-        trace closes is lost (a trace closed right after a replayed
-        qwen2 prefill once held 24 of the 28 flash kernels it ran)."""
+        """``torch.profiler`` (CPU and CUDA) around a region, after a
+        warm-up step of TRACE_WARM_LAUNCHES small launches whose records
+        are dropped, and held open TRACE_PAD_S past its end.  Kernel
+        records are lost at both ends otherwise: a trace closed right
+        after a replayed qwen2 prefill once held 24 of the 28 flash
+        kernels it ran, and after the timing phases' hundreds of CUDA
+        graphs a trace opened right before a served run missed its first
+        batch."""
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            warm = torch.zeros(256, device=dev)
+            for _ in range(TRACE_WARM_LAUNCHES):
+                warm.add_(1)
+            torch.cuda.synchronize()
+            prof.step()
             yield prof
             torch.cuda.synchronize()
             time.sleep(TRACE_PAD_S)
@@ -1299,31 +1356,10 @@ def main() -> None:
     phase("timing (CUDA graph replays between CUDA events)")
     assert not torch.backends.cuda.matmul.allow_tf32
 
-    def time_ms(fn):
-        """Device ms of one ``fn()``: GRAPH_CALLS calls captured in one
-        CUDA graph and replayed GRAPH_REPLAYS times between two events,
-        so the wrapper's host work is not in the interval."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):       # warm: build, allocator, cuDNN
-            for _ in range(3):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(GRAPH_CALLS):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(GRAPH_REPLAYS):
-            graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / (GRAPH_REPLAYS * GRAPH_CALLS)
+    # device ms of one fn(): calls captured in one CUDA graph and replayed
+    # between two events, so the wrapper's host work is not in the
+    # interval (the harness the autotune sweep times its candidates with)
+    time_ms = autotune.device_ms
 
     def eager_ms(fn, reps=50):
         """``(ms, host_ms)`` of one eager ``fn()`` called back to back:
@@ -1657,6 +1693,403 @@ def main() -> None:
                          f"{same_bits})")
         finally:
             setattr(lib, fn_name, launcher)
+
+    # -- serving helpers of phases 7 and 8 ----------------------------------
+    def per_batch_launches(eng):
+        """Kernel launches per batch of each bucket, from its plans."""
+        out = {}
+        for b in eng.buckets:
+            out[b] = {}
+            for p in eng.programs.plan(b).conv_plans.values():
+                for k in p.executor.kernels:
+                    out[b][k] = out[b].get(k, 0) + 1
+        return out
+
+    def serve_checked(label, eng, ref, shape, sizes):
+        """Serve requests of ``sizes`` images through the warm engine
+        under the profiler and through ``ref``; fails unless the trace
+        counts the plans' kernels, the counters agree, no plan() is
+        resolved, each bucket's replay equals its eager program bit for
+        bit, and the outputs match ``ref``'s within SERVE_TOL of their abs
+        max.  Returns the served requests."""
+        per_batch = per_batch_launches(eng)
+        before = dict(eng.stats["batches"])
+        for i, n in enumerate(sizes):
+            im = rng.normal(size=(n,) + shape).astype(np.float32)
+            eng.submit(ImageRequest(i, im))
+            ref.submit(ImageRequest(i, im))
+        torch.cuda.synchronize()
+        convspec.reset_plan_stats()
+        _build.reset_launches()
+        with profiled() as prof:
+            done = eng.run()
+            torch.cuda.synchronize()
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        traced = traced_launches(prof)
+        want = {}
+        for b, n in eng.stats["batches"].items():
+            for k, v in per_batch[b].items():
+                if n - before[b]:
+                    want[k] = want.get(k, 0) + (n - before[b]) * v
+        print(f"  {label}: batches {eng.stats['batches']}; kernels in the "
+              f"trace {traced}; launch counters {counts}; planned {want}; "
+              f"plan() resolutions {convspec.PLAN_STATS['resolutions']}")
+        if traced != want or counts != want:
+            fail(f"{label}: the trace ran {traced} (counters {counts}) != "
+                 f"planned {want}")
+        if convspec.PLAN_STATS["resolutions"]:
+            fail(f"{label}: a warm engine resolved a plan")
+        for b in eng.buckets:
+            xb = rng.normal(size=(b,) + shape).astype(np.float32)
+            want_y = eng.programs.fn(b)(eng.params, eng.programs.put(xb))
+            got_y = eng.programs.serve_batch(b, xb).clone()
+            torch.cuda.synchronize()
+            if not torch.equal(got_y, want_y):
+                fail(f"{label} bucket {b}: the graph's replay differs from "
+                     f"the eager program")
+        ref_done = ref.run()
+        for a, r in zip(done, ref_done):
+            if a.out.shape != r.out.shape or not np.isfinite(a.out).all():
+                fail(f"{label} request {a.rid}: bad output")
+            err = float(np.abs(a.out - r.out).max())
+            bound = SERVE_TOL * float(np.abs(r.out).max())
+            if not err <= bound:
+                fail(f"{label} request {a.rid}: {err:.3e} from the "
+                     f"reference > {bound:.3e}")
+        print(f"  {label}: outputs within {SERVE_TOL} of the reference's "
+              f"abs max; each bucket's replay == its eager program")
+        return done
+
+    def use_cache(path, fresh=False):
+        """Point the persisted plan stores at ``path`` (emptied first if
+        ``fresh``) and drop their in-memory mirrors."""
+        if fresh:
+            shutil.rmtree(path, ignore_errors=True)
+        os.environ["REPRO_CACHE_DIR"] = str(path)
+        autotune.clear_cache()
+        tgraph.clear_cache()
+
+    def to_cpu(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.cpu()
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        return [to_cpu(v) for v in tree]
+
+    def failed_kernels(stats):
+        """The hand-written executors among a sweep's failed candidates."""
+        return [r for r in stats["failed"]
+                if executors.get(r["algorithm"].split("+")[0]).kernels]
+
+    untuned_cache = os.environ["REPRO_CACHE_DIR"]
+    cache_root = ROOT / "build" / "chip_smoke_cache"
+
+    # -- 7. measured autotuning: the paper's race, then tuned serving --------
+    phase("measured autotuning on the card (tune='algo' on the paper's "
+          "rows, tune='full' on served resnet_like)")
+    use_cache(cache_root / "tuned", fresh=True)
+    report["tuning"] = {"rows": {}}
+    race = [(label, convspec.ConvSpec(
+        (n, hw, hw, c), (k, k, c, m), padding=((k - 1) // 2,) * 2))
+        for label, (hw, n, k, m, c) in PROFILED.items()]
+    race += [(label, convspec.ConvSpec((8, hw, hw, c), (k, k, c, m),
+                                       padding=(1, 1)))
+             for label, ((hw, k, m, c), _) in WINOGRAD_ROWS.items()]
+    mem0 = torch.cuda.memory_reserved()
+    t_race = time.perf_counter()
+    for label, spec in race:
+        autotune.reset_measure_stats()
+        p = convspec.plan(spec, tune="algo")
+        stats = autotune.reset_measure_stats()
+        times = {r["algorithm"]: r["ms"] for r in stats["timed"]}
+        hand = {n for n in executors.supporting(spec)
+                if executors.get(n).kernels}
+        if failed_kernels(stats):
+            fail(f"race {label}: hand-written candidates failed: "
+                 f"{failed_kernels(stats)}")
+        if not hand <= set(times) or "lax" not in times:
+            fail(f"race {label}: timed {sorted(times)}, not every "
+                 f"hand-written executor {sorted(hand)} and lax")
+        if p.source != "measured" or times[p.algorithm] != min(
+                times.values()):
+            fail(f"race {label}: planned {p.algorithm} [{p.source}], not "
+                 f"the fastest of {times}")
+        x, w = randn(spec.in_shape), randn(spec.filter_shape)
+        y = p(x, w)
+        want = cuconv.conv_lax(x, w, stride=spec.stride,
+                               padding=spec.padding)
+        err = (y - want).abs().max().item()
+        tol = 2e-3 if p.config.get("m") == 4 else 3e-4
+        bound = tol * max(1.0, want.abs().max().item())
+        if not err <= bound:
+            fail(f"race {label}: the winner {p.algorithm} is {err:.3e} "
+                 f"from F.conv2d > {bound:.3e}")
+        autotune.clear_cache()          # a later process reads the file
+        again = convspec.plan(spec, tune="algo")
+        replay = autotune.reset_measure_stats()
+        if again.algorithm != p.algorithm or any(replay.values()):
+            fail(f"race {label}: the replay planned {again.algorithm} and "
+                 f"measured {replay}")
+        ratio = times[p.algorithm] / times["lax"]
+        report["tuning"]["rows"][label] = {
+            "spec": spec.key(), "device_ms": times, "winner": p.algorithm,
+            "config": p.config.as_dict(), "winner_over_lax": ratio,
+            "failed": stats["failed"], "max_abs_err": err}
+        print(f"  {label:14s} winner {p.algorithm:24s} "
+              f"{times[p.algorithm]:.6f} ms = {ratio:.3f}x cuDNN "
+              f"({times['lax']:.6f} ms); max|y-F.conv2d| {err:.2e}; "
+              f"replayed with no measurement")
+        print("      " + "  ".join(f"{a} {t:.6f}" for a, t in sorted(
+            times.items(), key=lambda kv: kv[1])))
+        for r in stats["failed"]:
+            print(f"      failed (not a kernel): {r['algorithm']}: "
+                  f"{r['error']}")
+    torch.cuda.synchronize()
+    report["tuning"]["race_s"] = time.perf_counter() - t_race
+    report["tuning"]["reserved_growth_gib"] = (
+        torch.cuda.memory_reserved() - mem0) / 2 ** 30
+    print(f"  race: {report['tuning']['race_s']:.1f} s; reserved memory "
+          f"{report['tuning']['reserved_growth_gib']:+.3f} GiB over it")
+
+    # tune="full" on a row whose winner has launch configs that change the
+    # launch: Winograd's F(2,3) against F(4,3).  Where the race gave the
+    # row to another executor in this run, Winograd is pinned, so its
+    # config race runs on the card all the same.
+    label = "r50_56x56x64"
+    spec = dict(race)[label]
+    p = convspec.plan(spec, tune="full")
+    if p.algorithm != "winograd_pallas":
+        p = convspec.plan(spec, tune="full", force="winograd_pallas")
+    stats = autotune.reset_measure_stats()
+    cfg_times = [(r["config"], r["ms"]) for r in stats["timed"]
+                 if r["kind"] == "config"]
+    variants = sorted({c["m"] for c, _ in cfg_times})
+    print(f"  {label} tune='full': {p.algorithm} [{p.source}] config "
+          f"{p.config.as_dict()} [{p.config_source}]; "
+          f"{stats['config_sweeps']} config race over "
+          f"{len(cfg_times)} launches: " + "  ".join(
+              f"{c} {t:.6f}" for c, t in sorted(cfg_times,
+                                                key=lambda ct: ct[1])))
+    fastest = min(cfg_times, key=lambda ct: ct[1])[0] if cfg_times else None
+    if stats["config_sweeps"] != 1 or variants != [2, 4] or \
+            p.config.as_dict() != fastest or p.config_source != "measured":
+        fail(f"{label} tune='full': config races "
+             f"{stats['config_sweeps']}, F(m,3) variants timed {variants}, "
+             f"planned {p.config.as_dict()} [{p.config_source}], fastest "
+             f"{fastest}")
+    x, w = randn(spec.in_shape), randn(spec.filter_shape)
+    want = cuconv.conv_lax(x, w, stride=spec.stride, padding=spec.padding)
+    err = (p(x, w) - want).abs().max().item()
+    bound = 2e-3 * max(1.0, want.abs().max().item())
+    if not err <= bound:
+        fail(f"{label} tune='full': the winner {p.algorithm} "
+             f"{p.config.as_dict()} is {err:.3e} from F.conv2d > "
+             f"{bound:.3e}")
+    autotune.clear_cache()
+    force = None if p.source == "measured" else p.algorithm
+    again = convspec.plan(spec, tune="full", force=force)
+    replay = autotune.reset_measure_stats()
+    if (again.algorithm, again.config) != (p.algorithm, p.config) or \
+            any(replay.values()):
+        fail(f"{label} tune='full': the replay planned {again.algorithm} "
+             f"{again.config.as_dict()} and measured {replay}")
+    print(f"  {label} tune='full': max|y-F.conv2d| {err:.2e} (bound "
+          f"{bound:.2e}); replayed with no measurement")
+    report["tuning"]["config_race"] = {
+        "row": label, "algorithm": p.algorithm, "source": p.source,
+        "config": p.config.as_dict(), "device_ms": cfg_times,
+        "max_abs_err": err}
+
+    shape224 = (224, 224, 3)
+    untuned = engines[("fp32", shape224)]
+    params = untuned.params           # resnet_like's (the LM's went)
+    tuned = CnnServeEngine(resnet_like(num_classes=10), params, shape224,
+                           buckets=(1,))
+    ref224 = CnnServeEngine(model, params_cpu, shape224, buckets=(1,),
+                            device="cpu", backend="cuda")
+    t0 = time.perf_counter()
+    tuned.warmup(tune="full")
+    stats = autotune.reset_measure_stats()
+    tune_s = time.perf_counter() - t0
+    if failed_kernels(stats):
+        fail(f"tuned serving: hand-written candidates failed: "
+             f"{failed_kernels(stats)}")
+    gp = tuned.programs.plan(1)
+    print(gp.explain())
+    verdicts = {}
+    for r in stats["timed"]:
+        if r["kind"] == "fusion":
+            verdicts.setdefault(r["spec"], {})[r["algorithm"]] = r["ms"]
+    for key, t in verdicts.items():
+        print(f"  fusion {key}: {t}")
+    nodes = {}
+    for node in gp.graph.conv_nodes:
+        p = gp.conv_plans[node.name]
+        v = autotune.fusion_verdict(node.spec) if node.spec.has_fusion \
+            else None
+        nodes[node.name] = {"algorithm": p.algorithm, "source": p.source,
+                            "config": p.config.as_dict(),
+                            "fused": gp.fused.get(node.name),
+                            "fusion_wins": v}
+        print(f"  tuned {node.name:8s} {p.algorithm:24s} [{p.source}] "
+              f"cfg {p.config.as_dict()} fused {gp.fused.get(node.name)} "
+              f"verdict {v}")
+    print(f"  tune='full' warmup: {tune_s:.1f} s, "
+          f"{stats['algo_sweeps']} algorithm, {stats['config_sweeps']} "
+          f"config and {stats['fusion_sweeps']} fusion sweeps, "
+          f"{len(stats['timed'])} timings")
+    tuned_out = serve_checked("tuned resnet_like 224x224", tuned, ref224,
+                              shape224, [1, 1])
+    for i in range(2):
+        im = rng.normal(size=(1,) + shape224).astype(np.float32)
+        untuned.submit(ImageRequest(i, im))
+        tuned.submit(ImageRequest(i, im))
+    a_out = np.concatenate([r.out for r in untuned.run()])
+    b_out = np.concatenate([r.out for r in tuned.run()])
+    rel = float(np.abs(a_out - b_out).max() / np.abs(a_out).max())
+    print(f"  tuned vs untuned engine: max|d| / max|untuned| = {rel:.3e}")
+    if not rel <= SERVE_TOL:
+        fail(f"tuned serving differs from untuned by {rel:.3e} of its abs "
+             f"max > {SERVE_TOL}")
+    # a second engine over the same cache: zero measurement, zero plans
+    use_cache(cache_root / "tuned")
+    convspec.reset_plan_stats()
+    second = CnnServeEngine(resnet_like(num_classes=10), params, shape224,
+                            buckets=(1,))
+    second.warmup(tune="full")
+    again = autotune.reset_measure_stats()
+    plans2 = {n: (p.algorithm, p.config)
+              for n, p in second.programs.plan(1).conv_plans.items()}
+    print(f"  second engine over the cache: measurements {again}, plan() "
+          f"resolutions {convspec.PLAN_STATS['resolutions']}")
+    if any(again.values()) or convspec.PLAN_STATS["resolutions"] or \
+            plans2 != {n: (p.algorithm, p.config)
+                       for n, p in gp.conv_plans.items()}:
+        fail("a second engine over the tuned cache measured, resolved a "
+             "plan, or serves other plans")
+    windows = {"untuned": [], "tuned": []}
+    pool = rng.standard_normal((1,) + shape224, dtype=np.float32)
+    for kind in ("untuned", "tuned", "tuned", "untuned"):
+        eng = untuned if kind == "untuned" else tuned
+        for i in range(WINDOW_REQUESTS):
+            eng.submit(ImageRequest(i, pool))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        windows[kind].append((time.perf_counter() - t0) * 1e3
+                             / WINDOW_REQUESTS)
+    print(f"  served 224x224 bucket 1, ms per batch over windows of "
+          f"{WINDOW_REQUESTS} (untuned, tuned, tuned, untuned): untuned "
+          f"{windows['untuned']}, tuned {windows['tuned']}")
+    report["tuning"]["resnet224"] = {
+        "nodes": nodes, "fusion_ms": verdicts, "warmup_s": tune_s,
+        "sweeps": {k: stats[k] for k in ("algo_sweeps", "config_sweeps",
+                                         "fusion_sweeps")},
+        "timings": len(stats["timed"]), "tuned_vs_untuned": rel,
+        "ms_per_batch": windows,
+        "outputs": [r.out.tolist() for r in tuned_out]}
+
+    # a model whose measured plan differs from its heuristic one: the
+    # tune must drop the bucket's program and CUDA graph and capture the
+    # tuned launches again.  Each engine has a model of its own, since a
+    # model memoises the GraphPlan that warmup(tune=...) retunes.
+    sq_params = squeezenet_like().init(torch.Generator().manual_seed(0),
+                                       device=dev)
+    sq_untuned = CnnServeEngine(squeezenet_like(), sq_params, shape224,
+                                buckets=(1,))
+    sq_untuned.warmup()
+    sq = CnnServeEngine(squeezenet_like(), sq_params, shape224,
+                        buckets=(1,))
+    sq.warmup()
+    heur = {n: p.algorithm
+            for n, p in sq.programs.plan(1).conv_plans.items()}
+    old_graph = sq.programs.graphs[1]
+    t0 = time.perf_counter()
+    sq.warmup(tune="full")
+    stats = autotune.reset_measure_stats()
+    tune_s = time.perf_counter() - t0
+    gp = sq.programs.plan(1)
+    print(gp.explain())
+    moved = {n: (heur.get(n), p.algorithm)
+             for n, p in gp.conv_plans.items()
+             if heur.get(n) != p.algorithm}
+    g = sq.programs.graphs[1]
+    print(f"  squeezenet_like tune='full' warmup: {tune_s:.1f} s, "
+          f"{stats['algo_sweeps']} algorithm, {stats['config_sweeps']} "
+          f"config and {stats['fusion_sweeps']} fusion sweeps; nodes "
+          f"that changed executor (heuristic, measured): {moved}; bucket "
+          f"graph captured again: {g is not old_graph} "
+          f"(captures {g.captures})")
+    if not moved:
+        fail("tuned squeezenet_like: no node changed executor, so the "
+             "re-capture after a tune was not exercised")
+    if g is old_graph or g.captures != 1:
+        fail("tuned squeezenet_like: the bucket's CUDA graph was not "
+             "captured again after the tune")
+    sq_ref = CnnServeEngine(squeezenet_like(), to_cpu(sq_params), shape224,
+                            buckets=(1,), device="cpu", backend="cuda")
+    serve_checked("tuned squeezenet_like 224x224", sq, sq_ref, shape224,
+                  [1, 1])
+    sq_windows = {"untuned": [], "tuned": []}
+    for kind in ("untuned", "tuned", "tuned", "untuned"):
+        eng = sq_untuned if kind == "untuned" else sq
+        for i in range(WINDOW_REQUESTS):
+            eng.submit(ImageRequest(i, pool))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        sq_windows[kind].append((time.perf_counter() - t0) * 1e3
+                                / WINDOW_REQUESTS)
+    print(f"  squeezenet_like 224x224 bucket 1, ms per batch (untuned, "
+          f"tuned, tuned, untuned): untuned {sq_windows['untuned']}, "
+          f"tuned {sq_windows['tuned']}")
+    report["tuning"]["squeezenet224"] = {
+        "moved": moved, "warmup_s": tune_s,
+        "executors": {n: p.algorithm for n, p in gp.conv_plans.items()},
+        "sweeps": {k: stats[k] for k in ("algo_sweeps", "config_sweeps",
+                                         "fusion_sweeps")},
+        "ms_per_batch": sq_windows}
+    del sq, sq_untuned, sq_ref, sq_params
+    use_cache(untuned_cache)
+
+    # -- 8. the other CNN models --------------------------------------------
+    phase("the other CNN models served on the card (squeezenet_like, "
+          "mobilenet_like, fire_like at 224x224; tiny_cnn at 32x32)")
+    use_cache(cache_root / "models", fresh=True)
+    report["models"] = {}
+
+    for name, make, shape, buckets, sizes in (
+            ("squeezenet_like", squeezenet_like, shape224, (1, 4), [4, 1]),
+            ("mobilenet_like", mobilenet_like, shape224, (1, 4), [4, 1]),
+            ("fire_like", fire_like, shape224, (1, 4), [4, 1]),
+            ("tiny_cnn", tiny_cnn, small, (1, 4), [1, 3, 2, 4, 1])):
+        m = make()
+        prm = m.init(torch.Generator().manual_seed(0), device=dev)
+        eng = CnnServeEngine(m, prm, shape, buckets=buckets)
+        ref = CnnServeEngine(m, to_cpu(prm), shape, buckets=buckets,
+                             device="cpu", backend="cuda")
+        eng.warmup()
+        library = {}
+        for b in buckets:
+            gp = eng.programs.plan(b)
+            print(gp.explain())
+            library[str(b)] = sorted(
+                n for n, p in gp.conv_plans.items() if not p.executor.kernels)
+            grouped = sorted(n for n, p in gp.conv_plans.items()
+                             if p.spec.groups != 1)
+            if library[str(b)] != grouped:
+                fail(f"{name} bucket {b}: conv nodes on a library executor "
+                     f"{library[str(b)]}, grouped nodes {grouped}")
+        serve_checked(f"{name} {shape[0]}x{shape[1]}", eng, ref, shape,
+                      sizes)
+        report["models"][name] = {
+            "shape": list(shape), "library_nodes": library,
+            "executors": {str(b): {n: p.algorithm for n, p in
+                                   eng.programs.plan(b).conv_plans.items()}
+                          for b in buckets}}
+    use_cache(untuned_cache)
     phase(None)
     report["phase_seconds"] = _PHASE["times"]
 

@@ -15,9 +15,10 @@ from repro_torch.core.convspec import ConvPlan, ConvSpec, plan  # noqa: F401
 from repro_torch.core.executors import (  # noqa: F401
     Executor, LaunchConfig, register, unregister)
 from repro_torch.core.graph import (  # noqa: F401
-    AddOp, ConcatOp, ConvOp, DenseOp, GapOp, Graph, GraphBuilder,
+    AddOp, ConcatOp, ConvGraph, ConvOp, DenseOp, GapOp, Graph, GraphBuilder,
     GraphPlan, PoolOp, PrecisionPolicy, plan_graph)
 from repro_torch.models.cnn import (  # noqa: F401
-    GraphModel, params_from_numpy, resnet_like)
+    GraphModel, SimpleCNN, fire_like, mobilenet_like, params_from_numpy,
+    resnet_like, squeezenet_like, tiny_cnn)
 from repro_torch.serve.cnn import (  # noqa: F401
     BucketPrograms, CnnServeEngine, ImageRequest)

@@ -394,7 +394,7 @@ def _with_config(spec, algorithm, source, reason, backend,
 def plan(spec: ConvSpec, force: Optional[str] = None,
          backend: Optional[str] = None,
          tune: Optional[str] = None,
-         config=None) -> ConvPlan:
+         config=None, device=None) -> ConvPlan:
     """All conv algorithm choice, in one place, resolving an
     ``(algorithm, launch config)`` pair.
 
@@ -404,17 +404,30 @@ def plan(spec: ConvSpec, force: Optional[str] = None,
     executors' heuristic region claims > cheapest supported executor.
     ``config`` forces a launch config, validated against the executor's
     ``config_supports`` (an infeasible one raises, naming executor,
-    config and spec).  ``tune`` (the measured sweep) is not ported yet
-    and raises.
+    config and spec).
+
+    ``tune`` runs the measured sweep on ``device`` first (default: the
+    card; ``backend`` defaults to the device's, and must be it):
+    ``"algo"`` times every capable executor — with ``force`` the sweep
+    still runs and records the unforced winner, the pin only decides
+    what this plan serves; ``"full"`` also settles a fused spec against
+    its unfused form and races the launch configs of the forced
+    executor, or of the winner.  The winners persist, so the plan
+    returned already serves them and every later ``plan()`` replays them
+    with zero measurement.
     """
     PLAN_STATS["resolutions"] += 1
-    backend = backend or default_backend()
+    if backend is None:
+        backend = default_backend() if device is None \
+            else backend_for(device)
     from repro_torch.core import autotune, executors
 
+    if tune not in (None, "algo", "full"):
+        raise ValueError(f'tune must be None, "algo" or "full"; '
+                         f'got {tune!r}')
     if tune is not None:
-        raise NotImplementedError(
-            f"tune={tune!r}: the measured autotune sweep is not ported to "
-            f"repro_torch yet; plans replay persisted winners only")
+        autotune.tune_spec(spec, tune=tune, backend=backend,
+                           algorithm=force, device=device)
 
     if force is not None:
         ex = executors.get(force)      # KeyError names the registry

@@ -143,6 +143,9 @@ class Executor:
     #: the hand-written CUDA kernels one execution launches (empty for
     #: library calls and plain PyTorch); names of ``_build.LAUNCHES``
     kernels: Tuple[str, ...] = ()
+    #: whether the launch config sizes the launch; False where the kernel
+    #: picks its own geometry from the shape (``launch_key``)
+    config_sizes_launch: bool = True
 
     # -- capability ------------------------------------------------------
     def supports(self, spec) -> Tuple[bool, str]:
@@ -212,6 +215,15 @@ class Executor:
     def config_cost(self, spec, config) -> float:
         """Abstract cost of ``spec`` under ``config`` (only ranks)."""
         return 0.0
+
+    def launch_key(self, spec, config) -> tuple:
+        """What of ``config`` reaches the launch: configs with equal keys
+        launch the same kernels the same way (the config race times one
+        of them).  Every config is its own launch by default; none
+        changes it where the kernel picks its own geometry."""
+        if not self.config_sizes_launch:
+            return ()
+        return LaunchConfig.of(config).dims
 
     def default_config(self, spec) -> LaunchConfig:
         """The cheapest feasible candidate by ``config_cost`` (ties keep
@@ -540,6 +552,7 @@ class Conv1x1PallasExecutor(Executor):
     name = "conv1x1_pallas"
     tunable = ("tp", "tm", "tc")
     kernels = ("conv1x1_gemm",)
+    config_sizes_launch = False
 
     def _supports(self, spec):
         if (not spec.is_1x1 or not spec.unit_stride
@@ -589,6 +602,7 @@ class TwoStagePallasExecutor(Executor):
     name = "cuconv_two_stage_pallas"
     tunable = ("tp", "tm", "tc")
     kernels = ("stage1_tap_gemm", "stage2_tap_sum")
+    config_sizes_launch = False
 
     def _supports(self, spec):
         if not spec.unit_stride:
@@ -648,6 +662,7 @@ class FusedPallasExecutor(Executor):
     fuses_epilogue = True
     tunable = ("tm", "rows")
     kernels = ("cuconv_fused",)
+    config_sizes_launch = False
 
     @staticmethod
     def _pool3(spec):
@@ -873,6 +888,16 @@ class WinogradPallasExecutor(Executor):
         return launch_geometry(fm, p, m, cfg.get("tm", 128),
                                _itemsize(spec))["smem"]
 
+    def launch_key(self, spec, config):
+        # the F(m,3) variant and the block the kernel takes for it (tm
+        # picks the 16-channel block); tt and tc size nothing
+        from repro_torch.kernels.winograd_fused import launch_geometry
+        cfg = LaunchConfig.of(config)
+        fm = cfg.get("m", 2)
+        p, m, _ = self._tile_counts(spec, fm)
+        geo = launch_geometry(fm, p, m, cfg.get("tm", 128), _itemsize(spec))
+        return (fm, geo["bt"], geo["bn"])
+
     def config_cost(self, spec, config):
         fm = config.get("m", 2)
         p, m, c = self._tile_counts(spec, fm)
@@ -952,6 +977,7 @@ class DirectConvExecutor(Executor):
     name = "direct"
     tunable = ("tm", "tc")
     kernels = ("direct_conv",)
+    config_sizes_launch = False
 
     def _supports(self, spec):
         need = self.vmem_bytes(spec)
@@ -1042,6 +1068,7 @@ class Int8PallasExecutor(Executor):
     accum = "int32"
     tunable = ("tp", "tm", "tc")
     kernels = ("int8_gemm",)
+    config_sizes_launch = False
     #: filters whose codes the executor keeps
     FILTERS_KEPT = 64
 

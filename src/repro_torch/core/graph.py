@@ -8,14 +8,18 @@
   Graph       a DAG of OpSpec nodes in topological order, shape-checked
               at construction.  ``signature()`` is its stable identity
               (the same string as the JAX package's for the same graph).
+  ConvGraph   the chain-era constructor (``ConvGraph.chain``), lowered
+              to a Graph of conv nodes ``conv0..convN`` by ``to_ir()``.
   fuse_graph  folds residual adds and conv->pool chains into the
               producing conv's epilogue (11 -> 8 nodes on resnet_like).
   GraphPlan   per-conv-node ConvPlans resolved ONCE (keyed by node
-              name), one ``explain()`` table, ``warmup()``, ``run()``.
+              name), one ``explain()`` table, ``warmup()`` (which also
+              runs the measured sweep, ``tune=``), ``run()``.
               Each node runs as a plain call: PyTorch is eager, so the
               JAX package's per-node ``jax.jit`` has no counterpart.
-  plan_graph  resolves a GraphPlan, consulting a persisted graph-level
-              cache (``$REPRO_CACHE_DIR/torch/graphplans.json``) keyed by
+  plan_graph  resolves a GraphPlan (of a Graph or a ConvGraph),
+              consulting a persisted graph-level cache
+              (``$REPRO_CACHE_DIR/torch/graphplans.json``) keyed by
               backend + signature — a warm process builds the whole
               program with ZERO per-node plan() resolutions.
   PrecisionPolicy
@@ -474,6 +478,91 @@ class GraphBuilder:
                      self.input_name, output)
 
 
+# ---------------------------------------------------------------------------
+# the chained-ConvSpec constructor, lowering to the IR
+
+LayerSpec = Tuple[int, int, int, int]          # (kh, kw, c_out, stride)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvGraph:
+    """Ordered chain of ConvSpec nodes (the pre-IR graph API).
+
+    ``plan_graph`` lowers it to a ``Graph`` of conv nodes named
+    ``conv0..convN`` via ``to_ir()``.
+    """
+    nodes: Tuple[ConvSpec, ...]
+
+    def __post_init__(self):
+        if not self.nodes:
+            raise ValueError("ConvGraph needs at least one node")
+        for a, b in zip(self.nodes, self.nodes[1:]):
+            if a.out_shape != b.in_shape:
+                raise ValueError(f"graph chain broken: {a.key()} produces "
+                                 f"{a.out_shape} but next node consumes "
+                                 f"{b.in_shape}")
+
+    @classmethod
+    def chain(cls, layers: Sequence[LayerSpec], in_shape, *,
+              padding="same", dtype: str = "float32",
+              epilogue: Union[str, Sequence[str]] = "bias_relu"
+              ) -> "ConvGraph":
+        """Derive the spec chain from a layer list + input geometry.
+
+        ``layers`` uses the SimpleCNN convention ``(kh, kw, c_out,
+        stride)``; each node's output geometry feeds the next node.
+        ``epilogue`` is one epilogue for every layer, or a per-layer
+        sequence.
+        """
+        if isinstance(epilogue, str):
+            epilogues = [epilogue] * len(layers)
+        else:
+            epilogues = list(epilogue)
+            if len(epilogues) != len(layers):
+                raise ValueError(f"epilogue sequence has {len(epilogues)} "
+                                 f"entries for {len(layers)} layers")
+        n, h, w, c = map(int, in_shape)
+        nodes: List[ConvSpec] = []
+        for (kh, kw, co, s), epi in zip(layers, epilogues):
+            spec = ConvSpec((n, h, w, c), (kh, kw, c, co),
+                            normalize_stride(s),
+                            normalize_pad(padding, kh, kw), dtype, epi)
+            nodes.append(spec)
+            _, h, w, c = spec.out_shape
+        return cls(tuple(nodes))
+
+    @property
+    def in_shape(self) -> Tuple[int, int, int, int]:
+        return self.nodes[0].in_shape
+
+    @property
+    def out_shape(self) -> Tuple[int, int, int, int]:
+        return self.nodes[-1].out_shape
+
+    def to_ir(self) -> Graph:
+        """Lower the chain to the operator IR: conv nodes ``conv{i}``,
+        each consuming its predecessor."""
+        prev, ops = "input", []
+        for i, spec in enumerate(self.nodes):
+            name = f"conv{i}"
+            ops.append(ConvOp(name, (prev,), spec))
+            prev = name
+        return Graph(tuple(ops), self.in_shape)
+
+    def signature(self) -> str:
+        """The lowered IR's signature: chain callers and IR callers share
+        one cache namespace."""
+        return self.to_ir().signature()
+
+    def __len__(self) -> int:
+        return len(self.nodes)
+
+
+GraphLike = Union[Graph, ConvGraph]
+
+
+def _as_ir(graph: GraphLike) -> Graph:
+    return graph.to_ir() if isinstance(graph, ConvGraph) else graph
 
 
 # ---------------------------------------------------------------------------
@@ -648,6 +737,19 @@ class GraphPlan:
         return "\n".join(lines)
 
     # -- execution -------------------------------------------------------
+    def _named_params(self, params) -> Mapping[str, Mapping]:
+        """Name-keyed params, or the chain-era list of ``(w, b)`` pairs
+        assigned to the conv nodes in graph order."""
+        if isinstance(params, Mapping):
+            return params
+        convs = self.graph.conv_nodes
+        pairs = list(params)
+        if len(pairs) != len(convs):
+            raise ValueError(f"graph has {len(convs)} conv nodes but got "
+                             f"{len(pairs)} weight pairs")
+        return {node.name: ({"w": w} if b is None else {"w": w, "b": b})
+                for node, (w, b) in zip(convs, pairs)}
+
     def _node_params(self, params: Mapping, node: OpSpec,
                      wants_bias: bool) -> Mapping:
         """One node's param dict, with errors that name the node."""
@@ -664,11 +766,14 @@ class GraphPlan:
 
     def run(self, x, params, observe: Optional[Callable] = None):
         """Execute the DAG on ``x`` with ``{node_name: {"w": ..., "b":
-        ...}}`` params, on the device of ``x``.  No plan() resolution
-        happens here.  ``observe``, when given, is called as
-        ``observe(name, value)`` with every conv node's INPUT activation
-        (the calibration collector rides this hook)."""
+        ...}}`` params (or, for graphs lowered from ``ConvGraph.chain``,
+        the legacy list of one ``(w, bias)`` pair per conv node in graph
+        order), on the device of ``x``.  No plan() resolution happens
+        here.  ``observe``, when given, is called as ``observe(name,
+        value)`` with every conv node's INPUT activation (the
+        calibration collector rides this hook)."""
         from repro_torch.kernels import ops
+        params = self._named_params(params)
         values = {self.graph.input_name: x}
         for node in self.graph.nodes:
             ins = [values[e] for e in node.inputs]
@@ -715,30 +820,45 @@ class GraphPlan:
                     self.conv_plans[name],
                     quant=QuantInfo(nq.x_scale, nq.source))
 
-    # -- warmup ------------------------------------------------------------
-    def warmup(self, *, tune: Optional[str] = None, device=None,
+    # -- warmup / autotune --------------------------------------------------
+    def warmup(self, *, measure: bool = False, tune: Optional[str] = None,
+               repeats: int = 3, device=None,
                calibrate: Optional[object] = None) -> Dict:
         """Run every conv node once on zeros on ``device`` (default: the
         card, which raises where there is none), building its kernel on
-        first use.
+        first use; measure-autotune the nodes first when asked.
+
+        ``tune="algo"`` runs the per-node executor race
+        (``autotune.tune_spec`` with each node's epilogue and groups) on
+        ``device``; ``tune="full"`` also settles each fused node against
+        its unfused form, runs the fusion pass again from the pre-fusion
+        IR (a lost verdict splits the nodes; the nodes that result are
+        tuned too) and races each winner's launch configs.  The plans
+        then come from the graph-level entry where it still names every
+        node's measured winner (with each winner's measured config);
+        otherwise every node is resolved against the winners and the
+        entry persisted again.  After that the plan serves with zero
+        plan() resolutions, and tunes again with zero measurement.
+        ``measure=True`` is the older spelling of ``tune="algo"``.  The
+        plan's backend must be the device's (``tune_spec`` raises before
+        any node is measured otherwise).
 
         ``calibrate`` takes a ``quant.Calibrator`` (sample batch + params
         + observer choice): the plan runs over the batch first, on the
         params' device, recording every conv node's input activation
         range into the persisted ``calibration.json`` — the scales a
-        later ``QuantPolicy``-planned graph quantizes with.  ``tune``
-        (the measured sweep) is not ported yet and raises.  Returns
+        later ``QuantPolicy``-planned graph quantizes with.  Returns
         ``{"nodes": [...], "total_ms": float}``, plus the
         ``"calibration"`` entries when ``calibrate`` ran."""
-        if tune is not None:
-            raise NotImplementedError(
-                f"tune={tune!r}: the measured autotune sweep is not ported "
-                f"to repro_torch yet")
+        if measure and tune is None:
+            tune = "algo"
         device = resolve_device(device)
         t_start = time.perf_counter()
         calib_entries = None
         if calibrate is not None:
             calib_entries = calibrate.collect(self)
+        if tune is not None:
+            self._tune(tune, repeats, device)
         rows = []
         for node in self.graph.conv_nodes:
             p = self.conv_plans[node.name]
@@ -765,15 +885,48 @@ class GraphPlan:
             out["calibration"] = calib_entries
         return out
 
+    def _tune(self, tune: str, repeats: int, device) -> None:
+        from repro_torch.core import autotune
+        for node in self.graph.conv_nodes:
+            autotune.tune_spec(node.spec, tune=tune, backend=self.backend,
+                               repeats=repeats, device=device)
+        changed = False
+        if tune == "full" and self.base_graph is not None:
+            # re-run the pass from the pre-fusion IR: a lost verdict drops
+            # its rewrite (and a won one is admitted again)
+            refused, fmap = fuse_graph(self.base_graph, self.backend)
+            if refused.signature() != self.graph.signature():
+                old = {n.name: n.spec for n in self.graph.conv_nodes}
+                self.graph, self.fused, changed = refused, fmap, True
+                for node in self.graph.conv_nodes:
+                    if old.get(node.name) != node.spec:
+                        autotune.tune_spec(node.spec, tune=tune,
+                                           backend=self.backend,
+                                           repeats=repeats, device=device)
+        # the graph-level entry serves while it names the measured
+        # winners; otherwise every node is resolved against them
+        plans = _plans_from_cache(self.graph, self.backend,
+                                  key_graph=self.base_graph)
+        resolved = plans is None
+        if resolved:
+            plans = {n.name: plan(n.spec, backend=self.backend)
+                     for n in self.graph.conv_nodes}
+        self.conv_plans = plans
+        self._attach_quant()        # re-resolution dropped the scales
+        if resolved or changed:
+            _persist(self.base_graph or self.graph, self.backend,
+                     self.conv_plans, alias=self.graph)
+
 
 # ---------------------------------------------------------------------------
 # resolution + persisted graph-level cache
 
-def plan_graph(graph: Graph, *, backend: Optional[str] = None,
+def plan_graph(graph: GraphLike, *, backend: Optional[str] = None,
                force: Optional[str] = None,
                use_cache: bool = True, fuse: bool = True,
                quant: Optional[object] = None) -> GraphPlan:
-    """Resolve a whole-network plan once.
+    """Resolve a whole-network plan once, of the IR (``Graph``) or of the
+    chain-era ``ConvGraph`` (lowered by ``to_ir``).
 
     A ``quant`` policy (``quant.QuantPolicy``) runs the int8 quantize
     pass over the IR first — eligible conv nodes' specs flip to int8 —
@@ -787,6 +940,7 @@ def plan_graph(graph: Graph, *, backend: Optional[str] = None,
     unversioned, carry a foreign schema, or name unknown or no-longer-
     capable algorithms are dropped and re-resolved.
     """
+    graph = _as_ir(graph)
     backend = backend or default_backend()
     qprov: Dict[str, object] = {}
     if quant is not None:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import hashlib
 import os
 import shutil
@@ -121,7 +122,14 @@ def graph_capture():
     record, but nothing runs: on exit ``LAUNCHES`` is put back, and the
     yielded record's ``"launches"`` holds what was recorded, per kernel.
     Its ``"keep"`` collects what ``keep_for_graph`` was given during the
-    capture, for the graph's owner to hold as long as the graph."""
+    capture, for the graph's owner to hold as long as the graph.
+
+    The garbage collector runs before the capture and is held off during
+    it: a CUDA graph destroyed during a capture (one held by a reference
+    cycle that the collector frees) invalidates the capture."""
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
     before = dict(LAUNCHES)
     rec: Dict = {"launches": {}, "keep": []}
     _CAPTURES.append(rec)
@@ -132,6 +140,8 @@ def graph_capture():
         rec["launches"].update({k: LAUNCHES[k] - n for k, n in before.items()
                                 if LAUNCHES[k] != n})
         LAUNCHES.update(before)
+        if collecting:
+            gc.enable()
 
 
 def keep_for_graph(*tensors) -> None:

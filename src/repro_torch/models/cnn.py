@@ -1,18 +1,22 @@
 """CNN inference graphs over the cuConv core.
 
-A model's whole forward pass — convs, pooling, residual adds, GAP and
-the dense head — is one typed-IR program planned through the graph
-layer (``core/graph.py``): a ``GraphPlan`` per input geometry, resolved
-once (memoized, and persisted across processes), and every ``apply``
-runs that program.  ``GraphModel`` is the generic carrier with
-name-keyed params mirroring the IR's node names (the JAX package's
-layout: ``{node: {"w": HWIO, "b": (M,)}}``); ``params_from_numpy``
-carries such params across from the JAX package so both compute the
-same thing.
+A model's whole forward pass — convs, pooling, residual adds, fire-module
+concats, depthwise stages, GAP and the dense head — is one typed-IR
+program planned through the graph layer (``core/graph.py``): a
+``GraphPlan`` per input geometry, resolved once (memoized, and persisted
+across processes), and every ``apply`` runs that program.
+``GraphModel`` is the generic carrier with name-keyed params mirroring
+the IR's node names (the JAX package's layout: ``{node: {"w": HWIO, "b":
+(M,)}}``); ``SimpleCNN`` keeps the chain-era list-of-layers interface on
+top of it; ``resnet_like``, ``mobilenet_like``, ``fire_like``,
+``squeezenet_like`` and ``tiny_cnn`` are the JAX package's networks,
+node for node.  ``params_from_numpy`` carries params across from the JAX
+package so both compute the same thing.  ``conv_block`` and ``maxpool``
+are the eager one-off layers for standalone experiments.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,14 +33,35 @@ def init_conv(gen: torch.Generator, kh, kw, c_in, c_out) -> Dict:
             "b": torch.zeros((c_out,))}
 
 
-def params_from_numpy(params, device=None) -> Dict[str, Dict]:
-    """Name-keyed params as numpy arrays (the JAX package's layout,
-    ``{node: {"w": HWIO, "b": (M,)}}``) -> the port's fp32 tensors on
-    ``device`` (default: the card)."""
+def conv_block(p, x, stride=1, padding="same", algorithm="auto"):
+    """One eager conv with its bias + ReLU epilogue, planned per call
+    (model inference goes through the pre-resolved GraphPlan)."""
+    from repro_torch.core import cuconv
+    return cuconv.conv2d(x, p["w"], stride, padding, algorithm,
+                         bias=p["b"], activation="relu")
+
+
+def maxpool(x, k=2, s=2):
+    """Eager standalone max pooling (the IR's PoolOp nodes run the same
+    function inside planned programs)."""
+    from repro_torch.kernels import ops
+    return ops.pool2d(x, "max", (k, k), (s, s))
+
+
+def params_from_numpy(params, device=None) -> Dict:
+    """The JAX package's params as numpy arrays -> the port's fp32
+    tensors on ``device`` (default: the card).  Two layouts: name-keyed
+    ``{node: {"w": HWIO, "b": (M,)}}``, and ``SimpleCNN``'s chain-era
+    ``{"convs": [{"w", "b"}, ...], "head": (C, K)}``."""
     dev = resolve_device(device)
-    return {node: {k: torch.tensor(np.asarray(v, np.float32),
-                                      device=dev)
-                   for k, v in p.items()}
+
+    def t(v):
+        return torch.tensor(np.asarray(v, np.float32), device=dev)
+    if "convs" in params:
+        return {"convs": [{k: t(v) for k, v in p.items()}
+                          for p in params["convs"]],
+                "head": t(params["head"])}
+    return {node: {k: t(v) for k, v in p.items()}
             for node, p in params.items()}
 
 
@@ -143,6 +168,82 @@ class GraphModel:
         return gp.run(x, params)
 
 
+# ---------------------------------------------------------------------------
+# the chain-era interface, lowered onto the IR
+
+class SimpleCNN(GraphModel):
+    """Sequential conv stack + GAP head; spec: [(kh, kw, c_out, stride),
+    ...].
+
+    The whole forward pass is one planned program.  Params keep the
+    chain-era layout (``{"convs": [...], "head": matrix}``) and are
+    mapped onto the IR's node names inside ``apply``.
+    """
+
+    def __init__(self, spec: Sequence[Tuple[int, int, int, int]],
+                 num_classes: int = 10, in_channels: int = 3):
+        self.spec, self.num_classes, self.in_channels = (
+            tuple(spec), num_classes, in_channels)
+        super().__init__(self._build, (32, 32, in_channels),
+                         name="simple_cnn")
+
+    def _build(self, in_shape, dtype) -> Graph:
+        """The conv chain (bias_relu epilogue per block, node names as
+        ``ConvGraph.chain(...).to_ir()`` makes them), GAP and a dense
+        head without bias."""
+        b = GraphBuilder(in_shape, dtype)
+        y = "input"
+        for i, (kh, kw, co, s) in enumerate(self.spec):
+            y = b.conv(f"conv{i}", y, (kh, kw), co, stride=s)
+        y = b.gap("gap", y)
+        b.dense("head", y, self.num_classes, bias=False)
+        return b.graph()
+
+    def init(self, generator: Union[torch.Generator, int] = 0,
+             device=None) -> Dict:
+        """Chain-era fp32 params drawn from ``generator`` (a
+        ``torch.Generator`` or a seed), on ``device`` (default: the
+        card)."""
+        dev = resolve_device(device)
+        if not isinstance(generator, torch.Generator):
+            generator = torch.Generator().manual_seed(int(generator))
+        convs, c = [], self.in_channels
+        for kh, kw, co, _ in self.spec:
+            convs.append({k: v.to(dev) for k, v in
+                          init_conv(generator, kh, kw, c, co).items()})
+            c = co
+        head = torch.randn((c, self.num_classes),
+                           generator=generator) / np.sqrt(c)
+        return {"convs": convs, "head": head.to(dev)}
+
+    def apply(self, params, x, algorithm="auto",
+              graph_plan: Optional[GraphPlan] = None, precision=None):
+        """Run the planned program (see ``GraphModel.apply``)."""
+        named = {f"conv{i}": p for i, p in enumerate(params["convs"])}
+        named["head"] = {"w": params["head"]}
+        return super().apply(named, x, algorithm, graph_plan, precision)
+
+
+# ---------------------------------------------------------------------------
+# the networks
+
+def squeezenet_like():
+    """Small SqueezeNet-flavoured stack (1x1-heavy: cuConv's best
+    region)."""
+    return SimpleCNN([
+        (3, 3, 64, 2),
+        (1, 1, 16, 1), (1, 1, 64, 1), (3, 3, 64, 1),
+        (1, 1, 32, 1), (1, 1, 128, 1), (3, 3, 128, 1),
+        (1, 1, 48, 1), (1, 1, 192, 1), (3, 3, 192, 1),
+    ])
+
+
+def tiny_cnn(num_classes: int = 3):
+    """The two-conv stack the JAX package's multi-device smoke
+    deployment serves."""
+    return SimpleCNN([(3, 3, 6, 2), (1, 1, 4, 1)], num_classes=num_classes)
+
+
 def resnet_like(num_classes: int = 10, image_shape=(32, 32, 3),
                 precision=None):
     """Small ResNet-flavoured network: stem, maxpool, an identity
@@ -170,4 +271,44 @@ def resnet_like(num_classes: int = 10, image_shape=(32, 32, 3),
         b.dense("head", y, num_classes)
         return b.graph()
     return GraphModel(build, image_shape, name="resnet_like",
+                      precision=precision)
+
+
+def mobilenet_like(num_classes: int = 10, image_shape=(32, 32, 3),
+                   precision=None):
+    """Small MobileNet-flavoured network: strided stem, two depthwise-
+    separable stages (3x3 depthwise conv with groups=C, which plans onto
+    the library executor as the JAX package's does, then 1x1
+    pointwise), GAP + dense head — all inside one planned program."""
+    def build(in_shape, dtype):
+        b = GraphBuilder(in_shape, dtype)
+        y = b.conv("stem", "input", 3, 16, stride=2)
+        y = b.conv("dw1", y, 3, 16, groups=16)
+        y = b.conv("pw1", y, 1, 32)
+        y = b.conv("dw2", y, 3, 32, stride=2, groups=32)
+        y = b.conv("pw2", y, 1, 64)
+        y = b.gap("gap", y)
+        b.dense("head", y, num_classes)
+        return b.graph()
+    return GraphModel(build, image_shape, name="mobilenet_like",
+                      precision=precision)
+
+
+def fire_like(num_classes: int = 10, image_shape=(32, 32, 3),
+              precision=None):
+    """SqueezeNet fire module: squeeze 1x1 feeding 1x1 and 3x3 expand
+    branches whose outputs concatenate on the channel axis, then an avg
+    pool, GAP and the head — one planned program."""
+    def build(in_shape, dtype):
+        b = GraphBuilder(in_shape, dtype)
+        y = b.conv("stem", "input", 3, 16, stride=2)
+        s = b.conv("squeeze", y, 1, 8)
+        e1 = b.conv("expand1", s, 1, 16)
+        e3 = b.conv("expand3", s, 3, 16)
+        y = b.concat("cat", (e1, e3))
+        y = b.pool("pool", y, kind="avg", window=2)
+        y = b.gap("gap", y)
+        b.dense("head", y, num_classes)
+        return b.graph()
+    return GraphModel(build, image_shape, name="fire_like",
                       precision=precision)

@@ -202,18 +202,34 @@ class BucketPrograms:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def warmup(self, *, tune: Optional[str] = None) -> Dict[int, float]:
+    def warmup(self, *, measure: bool = False,
+               tune: Optional[str] = None) -> Dict[int, float]:
         """Resolve every bucket's plan and run it once on zeros (which
         builds the kernels on first use), then on the card capture its
-        CUDA graph.  ``tune`` is not ported yet and raises.  Returns
-        per-bucket milliseconds of the first run (and capture)."""
-        if tune is not None:
-            raise NotImplementedError(
-                f"tune={tune!r}: the measured autotune sweep is not ported "
-                f"to repro_torch yet")
+        CUDA graph.
+
+        ``tune="algo"`` first measure-autotunes each bucket's GraphPlan
+        on the engine's device (``GraphPlan.warmup``), and ``"full"``
+        also settles fusions and races launch configs; then the bucket's
+        program and CUDA graph are dropped, since a node that changed
+        executor would leave them serving the old launches, and built
+        again (one eager run, then a capture).  A forced ``algorithm``
+        is not tuned.  ``measure=True`` is the older spelling of
+        ``tune="algo"``.  Returns per-bucket milliseconds of the first
+        run (and capture)."""
+        if measure and tune is None:
+            tune = "algo"
         H, W, C = self.image_shape
         out = {}
         for b in self.buckets:
+            if tune is not None and self.algorithm == "auto":
+                self.model.graph_plan(
+                    (b, H, W, C), backend=self.backend,
+                    precision=self.precision, fuse=self.fuse).warmup(
+                        tune=tune, device=self.device)
+                self._fns.pop(b, None)
+                self._plans.pop(b, None)
+                self.graphs.pop(b, None)
             self.fn(b)
             x = np.zeros((b, H, W, C), self.input_dtype())
             t0 = time.perf_counter()
@@ -270,10 +286,11 @@ class CnnServeEngine:
     def serve_dtypes(self) -> Dict[int, str]:
         return self.programs.serve_dtypes()
 
-    def warmup(self, *, tune: Optional[str] = None) -> Dict[int, float]:
-        """Resolve and run every bucket program once (see
-        ``BucketPrograms.warmup``)."""
-        return self.programs.warmup(tune=tune)
+    def warmup(self, *, measure: bool = False,
+               tune: Optional[str] = None) -> Dict[int, float]:
+        """Resolve (and, with ``tune``, measure-autotune) and run every
+        bucket program once (see ``BucketPrograms.warmup``)."""
+        return self.programs.warmup(measure=measure, tune=tune)
 
     # ------------------------------------------------------------------
     def submit(self, req: ImageRequest) -> None:

@@ -38,7 +38,6 @@ a CUDA graph freed during a capture invalidates the capture.
 """
 from __future__ import annotations
 
-import gc
 from typing import Callable, List, Sequence
 
 import torch
@@ -124,23 +123,14 @@ class GraphedProgram:
         if any(t.is_inference() for t in leaves[0]):
             raise ValueError("a graphed program cannot watch an inference "
                              "tensor (it keeps no version to compare)")
-        # free the old graph (its memory goes back to the pool) first
+        # free the old graph (its memory goes back to the pool) first;
+        # graph_capture collects before the capture and not during it
         self.graph = self.outputs = self._bound = None
         self._keep = []
-        # a graph destroyed during a capture (one held by a reference
-        # cycle that the collector frees) invalidates the capture:
-        # collect before it, and not during it
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            graph = torch.cuda.CUDAGraph()
-            with _build.graph_capture() as rec:
-                with torch.cuda.graph(graph, pool=self.pool):
-                    outputs = self.fn(params, buffers, *self.inputs)
-        finally:
-            if collecting:
-                gc.enable()
+        graph = torch.cuda.CUDAGraph()
+        with _build.graph_capture() as rec:
+            with torch.cuda.graph(graph, pool=self.pool):
+                outputs = self.fn(params, buffers, *self.inputs)
         self.graph, self.outputs = graph, outputs
         self.launches, self._keep = rec["launches"], rec["keep"]
         self._bound = (params, buffers)

@@ -196,5 +196,8 @@ def test_plan_counts_resolutions_and_off_card_backend_claims_no_kernel():
 
 
 def test_plan_tune_is_not_ported_and_says_so():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcs.plan(_profiled_specs(tcs, "t3_A"), backend="cuda", tune="algo")
+    # the sweep is ported; what it refuses is a CPU timing recorded
+    # under the card's backend
+    with pytest.raises(ValueError, match="backend"):
+        tcs.plan(_profiled_specs(tcs, "t3_A"), backend="cuda", tune="algo",
+                 device="cpu")

@@ -796,3 +796,75 @@ def test_decode_graph_gives_the_eager_tokens(arch):
     print(f"{arch}: max |graph - eager| logit over {steps} steps: {diff}")
     assert (g.captures, g.replays) == (1, steps - 1)
     assert torch.equal(torch.cat(got, 1), torch.cat(want, 1))
+
+
+@requires_cuda
+def test_device_ms_times_a_kernel_and_drops_its_graph():
+    """The tuning harness: a positive device time per call, the launch
+    counters untouched by the capture, and no memory kept across many
+    timings (each graph's pool goes with it)."""
+    from repro_torch.core import autotune
+    gen = torch.Generator().manual_seed(0)
+    x = _randn(gen, (1, 28, 28, 64), torch.float32)
+    w = _randn(gen, (3, 3, 64, 64), torch.float32)
+
+    def call():
+        return cuconv_fused.cuconv_fused(x, w, padding=(1, 1))
+    autotune.device_ms(call)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    _build.reset_launches()
+    times = [autotune.device_ms(call) for _ in range(20)]
+    assert all(t > 0 for t in times)
+    # the eager warm calls count; the captured and replayed ones do not
+    assert _build.LAUNCHES["cuconv_fused"] == 20 * autotune.WARM_CALLS
+    assert torch.cuda.memory_reserved() <= reserved
+
+
+@requires_cuda
+def test_plan_tune_full_on_card_persists_under_cuda_and_replays():
+    from repro_torch.core import autotune, executors
+    from repro_torch.core import convspec as cs
+    from repro_torch.core.cuconv import conv_lax
+    spec = cs.ConvSpec((1, 14, 14, 32), (3, 3, 32, 64), (1, 1), (1, 1))
+    p = cs.plan(spec, tune="full")
+    stats = autotune.reset_measure_stats()
+    timed = {r["algorithm"] for r in stats["timed"] if r["kind"] == "algo"}
+    kernels = {n for n in executors.supporting(spec)
+               if executors.get(n).kernels}
+    assert kernels <= timed and "lax" in timed
+    assert not [r for r in stats["failed"]
+                if executors.get(r["algorithm"]).kernels], stats["failed"]
+    assert autotune.cached_best(spec, "cuda") == p.algorithm
+    assert autotune.cached_best(spec, "cpu") is None
+    autotune.clear_cache()
+    p2 = cs.plan(spec, tune="full")
+    assert (p2.algorithm, p2.config) == (p.algorithm, p.config)
+    assert not any(autotune.reset_measure_stats().values())
+    gen = torch.Generator().manual_seed(0)
+    x = _randn(gen, spec.in_shape, torch.float32)
+    w = _randn(gen, spec.filter_shape, torch.float32)
+    want = conv_lax(x, w, padding=(1, 1))
+    tol = 2e-3 if p.config.get("m") == 4 else 3e-4
+    assert (p(x, w) - want).abs().max().item() <= \
+        tol * max(1.0, want.abs().max().item())
+
+
+@requires_cuda
+def test_serving_warmup_tune_captures_the_tuned_programs_again():
+    from repro_torch.core import autotune
+    _, engines = _served_engines()
+    eng = engines[1]
+    eng.warmup()
+    old = dict(eng.programs.graphs)
+    eng.warmup(tune="algo")
+    assert autotune.MEASURE_STATS["algo_sweeps"] > 0
+    for b in eng.buckets:
+        g = eng.programs.graphs[b]
+        assert g is not old[b] and g.captures == 1
+        xb = np.random.default_rng(b).normal(
+            size=(b,) + eng.image_shape).astype(np.float32)
+        want = eng.programs.fn(b)(eng.params, eng.programs.put(xb))
+        got = eng.programs.serve_batch(b, xb).clone()
+        torch.cuda.synchronize()
+        assert g.replays == 1 and torch.equal(got, want)
