@@ -23,6 +23,34 @@ calls:
 - ``resnet_like`` calibrated through ``GraphPlan.warmup(calibrate=...)``
   and served in int8 (``precision=QuantPolicy()``) at 32x32, against the
   CPU int8 engine and against the fp32 engine's 0.05 accuracy bound;
+- ``resnet_like`` served by ``AsyncServeFrontend`` on the card (the
+  last phase, under the untuned plan store) at
+  32x32 (buckets 1 and 4), 16x16 (1 and 2) and 224x224 (1 and 4),
+  pipeline depth 2: 300 requests of 1-4 images from seed 0, submitted
+  in bursts of 8, each followed by ``poll()``, then ``run()``.  Every
+  request must be served with no deadline miss, every request's
+  compute and queue time within its total, every stage's p50 <= p95 <=
+  p99, the outputs within 3e-4 of the CPU engine's abs max, the kernels
+  in a ``torch.profiler`` trace (the card alone) equal to what each
+  batch's bucket plan predicts with no conv node on a library executor,
+  and every input copy a pinned one (kineto's ``Pinned -> Device``); the
+  share of its batches dispatched with a predecessor in flight whose
+  input copy intersects a kernel of an earlier batch on the card is
+  printed beside each geometry's device compute and the host's time
+  from a batch's first kernel to the next copy.  The overlap itself is
+  held on ``squeezenet_like`` at 224x224 in batches of 4, whose device
+  compute outlasts the host's path to the next copy: at least half of
+  its batches dispatched with a predecessor in flight must copy their
+  input while a kernel of an earlier batch runs.  The mixed traffic is
+  then served untraced (images/s and
+  every stage's percentiles per geometry printed, and the same stream
+  through ``CnnServeEngine.run()``), the int8 frontend at 32x32 must
+  serve int8 and equal the int8 engine within its bound, the
+  ``ShardedServeDispatcher`` over ``make_serve_mesh()`` (one card,
+  ``DIST_SMOKE``, ``tiny_cnn``) must report one device and equal a plain
+  ``AsyncServeFrontend`` bit for bit, and ``python -m
+  repro_torch.launch.serve --cnn-dist --requests 16`` must exit 0 and
+  print its stats;
 - ``qwen2-1.5b`` and ``mamba2-1.3b`` served by the LM ``ServeEngine`` at
   full width and depth in bf16 (seed-0 params made on the card): 8
   requests on 4 slots, prompts of 512, 16 new tokens, where every prefill
@@ -49,7 +77,10 @@ program bit for bit, each served batch must be one replay, a warm
 engine may resolve no plan, and the LM engines' tokens (first wave and
 first decode step eager, the rest replayed) must equal eager
 ``lm.prefill``/``lm.decode_step`` tokens; the LM trace reports device
-time and idle share of replayed prefill and decode steps, and phase 4d
+time and idle share of replayed prefill and decode steps (busy time is
+the union of the kernel and memcpy records' intervals, never an
+annotation span such as the ``ProfilerStep`` over them; an idle share
+outside [0, 1] fails), and the LM phase
 the peak device memory of the served run and of the eager one.  Each
 served run (CNN and LM) runs under ``torch.profiler``, whose trace
 counts by CUDA symbol the kernels that ran on the card, graph replays
@@ -121,6 +152,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import gc
@@ -152,6 +184,12 @@ INT8_ACCURACY = 0.05             # int8 vs fp32 (quant/accuracy.py)
 
 SMS = 132                        # the H100's streaming multiprocessors
 WINDOWS, WINDOW_REQUESTS = 3, 300   # served-latency windows per engine
+# the async front end's traffic: requests of 1-4 images over three
+# geometries, submitted in bursts, each burst followed by a poll()
+FRONTEND_REQUESTS, FRONTEND_BURST = 300, 8
+# the stream the overlap of copies and compute is held on:
+# squeezenet_like at 224x224 in batches of 4, requests of 4 images
+OVERLAP_BUCKET, OVERLAP_REQUESTS = 4, 48
 
 # resnet50's 3x3 layers of configs/cnn_paper.py NETWORKS, (H=W, K, M, C)
 # at batch 8, with the launch config the JAX package's planner picks for
@@ -186,7 +224,12 @@ LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_STEPS = 4, 2, 64, 4
 LM_CPU_TOL = 1e-3                # x * max|CPU logits|
 LM_KERNELS = ("flash_attention", "conv1d_tap")
 LM_TRACE_STEPS = 4               # decode steps under the profiler
-TRACE_PAD_S = 0.05               # a gated trace held open past its region
+# a gated trace held open this long before and after its region: the
+# card's timestamps, mapped onto the host's clock, can land milliseconds
+# before the host's, and a record that lands outside the active step is
+# dropped (a replayed batch right after the step was lost whole, and
+# once one prefill wave of a served run)
+TRACE_PAD_S = 0.25
 # launches in a gated trace's warm-up step, whose records are dropped: a
 # trace loses its first device records, more of them the more CUDA
 # graphs the process has made (a probe on the card: 1 of 12 kernels
@@ -241,6 +284,42 @@ def traced_launches(prof) -> dict:
     return counts
 
 
+def device_records(prof) -> list:
+    """The card's kernel, memcpy and memset records in a
+    ``torch.profiler`` trace as ``(name, start_us, end_us)``, sorted by
+    start.  Annotation spans (the ``ProfilerStep#`` step, any
+    ``record_function`` range) are not records: they span the records
+    inside them, so summing them with the records counted those twice."""
+    import torch
+    out = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if (getattr(e, "is_user_annotation", False)
+                or e.name.startswith("ProfilerStep")):
+            continue
+        out.append((e.name, float(e.time_range.start),
+                    float(e.time_range.end)))
+    out.sort(key=lambda r: r[1])
+    return out
+
+
+def busy_ms(records) -> float:
+    """The length of the union of the records' intervals, ms (records
+    sorted by start): records of two streams that overlap count once."""
+    total, end = 0.0, None
+    for _, t0, t1 in records:
+        if end is None or t0 >= end:
+            total, end = total + (t1 - t0), t1
+        elif t1 > end:
+            total, end = total + (t1 - end), t1
+    return total / 1e3
+
+
+def is_kernel(name: str) -> bool:
+    return not name.startswith(("Memcpy", "Memset"))
+
+
 def ptxas_entries(log: str) -> list:
     """``-Xptxas -v`` per kernel: entry name, registers, spill bytes."""
     import re
@@ -280,7 +359,8 @@ def main() -> None:
     import torch.nn.functional as F
     from repro_torch.configs.base import SHAPES, get_config
     from repro_torch.configs.cnn_paper import PROFILED
-    from repro_torch.configs.serve import SMOKE_FRONTEND
+    from repro_torch.configs.serve import (DEFAULT_SLO_MS, DIST_SMOKE,
+                                           SMOKE_FRONTEND)
     from repro_torch.core import autotune, convspec, cuconv, executors
     from repro_torch.core import graph as tgraph
     from repro_torch.kernels import (_build, conv1d_tap, conv1x1,
@@ -293,8 +373,12 @@ def main() -> None:
                                         resnet_like, squeezenet_like,
                                         tiny_cnn)
     from repro_torch.quant import Calibrator, QuantPolicy, symmetric
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve import (AsyncServeFrontend, ServeRequest,
+                                   ShardedServeDispatcher)
     from repro_torch.serve.cnn import CnnServeEngine, ImageRequest
     from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.telemetry import STAGES, rollup_percentiles
     if "jax" in sys.modules or "repro" in sys.modules:
         fail("the port pulled in jax or the JAX package")
 
@@ -728,6 +812,8 @@ def main() -> None:
             return dict(geo, P=P, K=K, M=M)
         if c["kernel"] == "stage2_tap_sum":
             return cuconv_stage2.launch_geometry(*args[0].shape)
+        if c["kernel"] == "conv1d_tap":
+            return conv1d_tap.launch_geometry(*args[0].shape)
         return None
 
     report["geometry"] = {}
@@ -807,17 +893,17 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile, schedule
 
     @contextlib.contextmanager
-    def profiled():
-        """``torch.profiler`` (CPU and CUDA) around a region, after a
-        warm-up step of TRACE_WARM_LAUNCHES small launches whose records
-        are dropped, and held open TRACE_PAD_S past its end.  Kernel
-        records are lost at both ends otherwise: a trace closed right
-        after a replayed qwen2 prefill once held 24 of the 28 flash
-        kernels it ran, and after the timing phases' hundreds of CUDA
-        graphs a trace opened right before a served run missed its first
-        batch."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
+    def profiled(host: bool = True):
+        """``torch.profiler`` (CPU and CUDA; the card alone where not
+        ``host``, which leaves the host's side of the region unslowed)
+        around a region, after a warm-up step of TRACE_WARM_LAUNCHES
+        small launches whose records are dropped, and held open
+        TRACE_PAD_S before and after it.  Kernel records are lost at
+        both ends otherwise: a trace closed right after a replayed qwen2
+        prefill once held 24 of the 28 flash kernels it ran, and traces
+        opened right before a served run missed its first batch."""
+        with profile(activities=([ProfilerActivity.CPU] if host else [])
+                     + [ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
             warm = torch.zeros(256, device=dev)
@@ -825,6 +911,7 @@ def main() -> None:
                 warm.add_(1)
             torch.cuda.synchronize()
             prof.step()
+            time.sleep(TRACE_PAD_S)
             yield prof
             torch.cuda.synchronize()
             time.sleep(TRACE_PAD_S)
@@ -974,11 +1061,10 @@ def main() -> None:
                 torch.cuda.synchronize()
             if eng.programs.graphs[b].replays != replays + 1:
                 fail(f"{kind} 32x32 bucket {b}: the batch replayed no graph")
-            seen[kind] = {
-                e.key: e.count for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and getattr(e, "self_device_time_total", 0) > 0
-                and not e.key.startswith(("Memcpy", "Memset"))}
+            seen[kind] = {}
+            for name, _, _ in device_records(prof):
+                if is_kernel(name):
+                    seen[kind][name] = seen[kind].get(name, 0) + 1
             traced = traced_launches(prof)
             print(f"  {kind} 32x32 bucket {b}: "
                   f"{sum(seen[kind].values())} CUDA kernels per replayed "
@@ -1125,9 +1211,10 @@ def main() -> None:
         logits sampled to the host as the engine does, replayed from the
         engine's CUDA graphs (captured first, outside the trace) under
         torch.profiler: device time by kernel group and the device's idle
-        share of the wall time (host clock, synchronized).  The replayed
-        prefill must run ``per_wave``'s counted kernels, the decode steps
-        none."""
+        share of the wall time (host clock, synchronized; busy time is
+        the union of the kernel and memcpy records' intervals).  The
+        replayed prefill must run ``per_wave``'s counted kernels, the
+        decode steps none."""
         eng = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
                           device=dev)
         toks = torch.from_numpy(prompts).to(dev)
@@ -1153,12 +1240,14 @@ def main() -> None:
                 fn()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
+            # kernel and memcpy records only (never the ProfilerStep
+            # span over them), busy time as the union of their intervals
+            records = device_records(prof)
             kernels = {}
-            for e in prof.key_averages():
-                us = getattr(e, "self_device_time_total", 0)
-                if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-                    kernels[e.key] = (us / 1e3, e.count)
-            busy = sum(ms for ms, _ in kernels.values())
+            for name, t0, t1 in records:
+                ms, n = kernels.get(name, (0.0, 0))
+                kernels[name] = (ms + (t1 - t0) / 1e3, n + 1)
+            busy = busy_ms(records)
             groups = {}
             for name, (ms, _) in kernels.items():
                 g = kernel_group(name)
@@ -1184,6 +1273,9 @@ def main() -> None:
                   f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
                   f"{1 - busy / wall:.3f}; by group "
                   f"{ {g: round(ms, 4) for g, ms in groups.items()} }")
+            if not 0.0 <= 1 - busy / wall <= 1.0:
+                fail(f"{cfg.name} {what}: idle share {1 - busy / wall:.3f} "
+                     f"outside [0, 1] (busy {busy:.3f} ms of {wall:.3f})")
             for n, ms, c in out[what]["top"][:4]:
                 print(f"    {ms:10.4f} ms  x{c:<5d} {n}")
         if sum(g.replays for g in eng.graphs.values()) - replays != (
@@ -2090,6 +2182,421 @@ def main() -> None:
                                    eng.programs.plan(b).conv_plans.items()}
                           for b in buckets}}
     use_cache(untuned_cache)
+
+    # -- 9. the async front end on the card --------------------------------------
+    # resnet_like through AsyncServeFrontend at SMOKE_FRONTEND's two
+    # geometries and 224x224 (buckets 1 and 4), pipeline depth 2: every
+    # request served with no miss, telemetry consistent, outputs against
+    # the CPU engine, the trace's kernels equal to the plans, every input
+    # copy from pinned memory, and the copies overlapping an earlier
+    # batch's kernels on the card.  Then the int8 frontend, the one-card
+    # sharded dispatcher against the plain frontend, and the launcher.
+    phase(f"main path: resnet_like served by AsyncServeFrontend "
+          f"({FRONTEND_REQUESTS} requests in bursts of {FRONTEND_BURST}, "
+          f"pipeline depth {SMOKE_FRONTEND.pipeline_depth}), the int8 "
+          f"frontend, the one-card sharded dispatcher and the launcher")
+    report["frontend"] = {"card": card}
+    fe_geoms = dict(SMOKE_FRONTEND.geometry_map())
+    fe_geoms[(224, 224, 3)] = (1, 4)
+    frng = np.random.default_rng(0)
+    fe_shapes = list(fe_geoms)
+    fe_images = []
+    for _ in range(FRONTEND_REQUESTS):
+        shape = fe_shapes[int(frng.integers(len(fe_shapes)))]
+        fe_images.append(frng.standard_normal(
+            (int(frng.integers(1, 5)),) + shape, dtype=np.float32))
+
+    def geom(shape):
+        return "x".join(map(str, shape))
+
+    def make_frontend(m, p, geoms, precision=None, cfg=SMOKE_FRONTEND):
+        f = AsyncServeFrontend(m, p, geoms, max_wait_ms=cfg.max_wait_ms,
+                               default_deadline_ms=DEFAULT_SLO_MS,
+                               pipeline_depth=cfg.pipeline_depth,
+                               precision=precision)
+        f.warmup()
+        return f
+
+    def serve_stream(server, images):
+        """Bursts of FRONTEND_BURST submits, each followed by a poll(),
+        then run(); the requests in submit order."""
+        reqs = []
+        for i, x in enumerate(images):
+            reqs.append(ServeRequest(rid=i, images=x))
+            server.submit(reqs[-1])
+            if (i + 1) % FRONTEND_BURST == 0:
+                server.poll()
+        server.run()
+        return reqs
+
+    def check_served(server, reqs, label):
+        """Every request served, no miss, and each trace's telemetry
+        consistent: compute and queue within the total, p50 <= p95 <=
+        p99 for every stage."""
+        st = server.stats()
+        if (st["served"] != len(reqs) or st["deadline_misses"]
+                or st["late_served"] or not all(
+                    r.status == "served" and r.out is not None
+                    and np.isfinite(r.out).all() for r in reqs)):
+            fail(f"{label}: served {st['served']} of {len(reqs)}, misses "
+                 f"{st['deadline_misses']}, late {st['late_served']}")
+        frontend_ = getattr(server, "frontend", server)
+        for t in frontend_.telemetry.requests:
+            if not (t.compute_ms <= t.total_ms and t.queue_ms <= t.total_ms):
+                fail(f"{label}: request {t.rid} compute {t.compute_ms} / "
+                     f"queue {t.queue_ms} ms over its total {t.total_ms}")
+        for stage, ps in st["latency_ms"].items():
+            if not ps["p50"] <= ps["p95"] <= ps["p99"]:
+                fail(f"{label}: {stage} percentiles {ps} not monotone")
+        return st
+
+    def stage_rollups(f):
+        """p50/p95/p99 of every stage, per geometry (served requests)."""
+        out = {}
+        for g in sorted({t.geometry for t in f.telemetry.requests}):
+            served_ = [t for t in f.telemetry.requests
+                       if t.geometry == g and t.status == "served"]
+            out[g] = {stage: rollup_percentiles(
+                [t.stage_ms(stage) for t in served_]) for stage in STAGES}
+        return out
+
+    def check_copies(records, batches, label):
+        """The trace's copies against the frontend's batches: one input
+        copy from pinned memory and one output copy into pinned memory a
+        batch, in dispatch order (fails otherwise).  Overlap on the card:
+        a batch flagged overlapped whose input copy intersects a kernel
+        of an earlier batch (one that starts before the previous batch's
+        output copy, which follows its kernels on the compute stream).
+        Per geometry, medians of the copy, of the batch's device compute
+        (first kernel to output copy end) and of the host's reach (a
+        batch's first kernel to the next batch's input copy)."""
+        h2d = [r for r in records if r[0].startswith("Memcpy HtoD")]
+        d2h = [r for r in records if r[0].startswith("Memcpy DtoH")]
+        kern = [r for r in records if is_kernel(r[0])]
+        names = sorted({r[0] for r in h2d + d2h})
+        print(f"  {label}: copies in the trace: {len(h2d)} host-to-device, "
+              f"{len(d2h)} device-to-host, kinds {names}")
+        pageable = [r for r in h2d if "Pinned" not in r[0]]
+        if pageable:
+            fail(f"{label}: {len(pageable)} host-to-device copies not from "
+                 f"pinned memory: {sorted({r[0] for r in pageable})}")
+        if len(h2d) != len(batches) or len(d2h) != len(batches) or any(
+                "Pinned" not in r[0] for r in d2h):
+            fail(f"{label}: {len(h2d)} input and {len(d2h)} output copies "
+                 f"in the trace for {len(batches)} batches ({names})")
+        starts = [k[1] for k in kern]
+        out = {"flagged": 0, "hits": 0, "pred_on_card": 0}
+        per = {}
+        for j, b in enumerate(batches):
+            h0, h1 = h2d[j][1], h2d[j][2]
+            row = per.setdefault(b.geometry, {"h2d": [], "compute": [],
+                                              "reach": []})
+            row["h2d"].append((h1 - h0) / 1e3)
+            # batch j's kernels follow its input copy and, on the compute
+            # stream, the output copy of the batch before it
+            first = bisect.bisect_left(
+                starts, max(h1, d2h[j - 1][1]) if j else h1)
+            if first < len(kern) and kern[first][1] < d2h[j][1]:
+                row["compute"].append((d2h[j][2] - kern[first][1]) / 1e3)
+                if j + 1 < len(batches):
+                    row["reach"].append((h2d[j + 1][1] - kern[first][1])
+                                        / 1e3)
+            if j == 0 or not b.overlapped:
+                continue
+            out["flagged"] += 1
+            before = bisect.bisect_left(starts, min(h1, d2h[j - 1][1]))
+            out["hits"] += any(k1 > h0 for _, _, k1 in kern[:before])
+            out["pred_on_card"] += d2h[j - 1][2] > h0
+        out["share"] = out["hits"] / out["flagged"] if out["flagged"] else 0.0
+        out["by_geometry"] = {
+            g: {"batches": len(r["h2d"]),
+                "h2d_ms": float(np.median(r["h2d"])),
+                "compute_ms": float(np.median(r["compute"] or [np.nan])),
+                "reach_ms": float(np.median(r["reach"] or [np.nan]))}
+            for g, r in per.items()}
+        return out
+
+    fe = make_frontend(model, params, fe_geoms)
+    fe_plans = {}                 # (geometry, bucket) -> launches per batch
+    for shape, progs in fe.programs.items():
+        for b in progs.buckets:
+            gp = progs.plan(b)
+            lib = {n: q.algorithm for n, q in gp.conv_plans.items()
+                   if not q.executor.kernels}
+            if lib:
+                fail(f"frontend {shape} bucket {b}: conv nodes on a library "
+                     f"executor: {lib}")
+            per = {}
+            for q in gp.conv_plans.values():
+                for k in q.executor.kernels:
+                    per[k] = per.get(k, 0) + 1
+            fe_plans[(geom(shape), b)] = per
+    print(f"  launches per batch by (geometry, bucket): {fe_plans}")
+    torch.cuda.synchronize()
+    convspec.reset_plan_stats()
+    _build.reset_launches()
+    # the card alone under the profiler, so the host's side of the
+    # pipeline runs at its own speed
+    with profiled(host=False) as prof:
+        t0 = time.perf_counter()
+        fe_reqs = serve_stream(fe, fe_images)
+        torch.cuda.synchronize()
+        fe_secs = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    traced = traced_launches(prof)
+    records = device_records(prof)
+    del prof
+    for k, v in counts.items():
+        launches[k] += v
+    st = check_served(fe, fe_reqs, "frontend")
+    batches = fe.telemetry.batches
+    want = {}
+    for b in batches:
+        for k, v in fe_plans[(b.geometry, b.bucket)].items():
+            want[k] = want.get(k, 0) + v
+    n_images = sum(x.shape[0] for x in fe_images)
+    print(f"  {card}: {FRONTEND_REQUESTS} requests, {n_images} images in "
+          f"{len(batches)} batches {st['batches_by_program']}: "
+          f"{fe_secs * 1e3:.3f} ms (the card profiled), "
+          f"{n_images / fe_secs:.1f} images/s; kernels in the trace "
+          f"{traced}; launch counters {counts}; planned {want}; plan() "
+          f"resolutions {convspec.PLAN_STATS['resolutions']}")
+    if traced != want:
+        fail(f"frontend: the trace ran {traced} != planned {want}")
+    if {k: v for k, v in counts.items() if v} != want:
+        fail(f"frontend: launches {counts} != planned {want}")
+    if convspec.PLAN_STATS["resolutions"]:
+        fail(f"frontend: a warm frontend made "
+             f"{convspec.PLAN_STATS['resolutions']} plan() resolutions")
+    copies = check_copies(records, batches, "frontend")
+    print(f"  overlap on the card: {copies['hits']} of {copies['flagged']} "
+          f"batches flagged overlapped ({copies['share']:.3f}) copied their "
+          f"input while a kernel of an earlier batch ran; "
+          f"{copies['pred_on_card']} found an earlier batch still on the "
+          f"card (not gated here: see the squeezenet_like stream below)")
+    for g, row in sorted(copies["by_geometry"].items()):
+        print(f"    {g}: H2D {row['h2d_ms']:.6f} ms per batch, device "
+              f"compute {row['compute_ms']:.6f} ms, from a batch's first "
+              f"kernel to the next batch's copy {row['reach_ms']:.6f} ms "
+              f"(medians of {row['batches']})")
+    # outputs against the CPU engine, and the same stream through the
+    # card's CnnServeEngine.run() per geometry
+    fe_cmp = {}
+    for shape, buckets in fe_geoms.items():
+        idx = [i for i, x in enumerate(fe_images) if x.shape[1:] == shape]
+        cpu = CnnServeEngine(model, params_cpu, shape, buckets=buckets,
+                             device="cpu", backend="cuda")
+        card_eng = CnnServeEngine(model, params, shape, buckets=buckets)
+        card_eng.warmup()
+        for i in idx:
+            cpu.submit(ImageRequest(i, fe_images[i]))
+            card_eng.submit(ImageRequest(i, fe_images[i]))
+        err = 0.0
+        for i, r in zip(idx, cpu.run()):
+            e = float(np.abs(fe_reqs[i].out - r.out).max())
+            bound = SERVE_TOL * float(np.abs(r.out).max())
+            if not e <= bound:
+                fail(f"frontend {shape} request {i}: card vs CPU {e:.3e} > "
+                     f"{bound:.3e}")
+            err = max(err, e)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng_done = card_eng.run()
+        torch.cuda.synchronize()
+        eng_ms = (time.perf_counter() - t0) * 1e3
+        # the drain packs other batches than the frontend, so the two
+        # may differ in the last bits (another bucket's plan)
+        diff = max(float(np.abs(fe_reqs[i].out - r.out).max())
+                   for i, r in zip(idx, eng_done))
+        fe_cmp[geom(shape)] = {
+            "requests": len(idx), "max_abs_err_vs_cpu": err,
+            "engine_run_ms": eng_ms, "engine_batches": {
+                str(k): v for k, v in card_eng.stats["batches"].items()},
+            "max_abs_diff_vs_engine": diff}
+        print(f"  {geom(shape)}: {len(idx)} requests within {SERVE_TOL} of "
+              f"the CPU engine's abs max (max err {err:.3e}); the same "
+              f"stream through CnnServeEngine.run(): {eng_ms:.3f} ms "
+              f"{card_eng.stats['batches']}, max |frontend - engine| "
+              f"{diff:.3e}")
+        del card_eng
+    # the same traffic again, nothing traced: throughput and latency
+    fe2 = make_frontend(model, params, fe_geoms)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    reqs2 = serve_stream(fe2, fe_images)
+    torch.cuda.synchronize()
+    fe2_secs = time.perf_counter() - t0
+    for k, v in _build.LAUNCHES.items():
+        launches[k] += v
+    st2 = check_served(fe2, reqs2, "frontend (untraced)")
+    rollups = stage_rollups(fe2)
+    print(f"  {card}: untraced, {n_images} images in {fe2_secs * 1e3:.3f} "
+          f"ms = {n_images / fe2_secs:.1f} images/s, "
+          f"{st2['overlapped_batches']} of {st2['batches']} batches "
+          f"overlapped (host flag)")
+    for g, stages in rollups.items():
+        print(f"    {g}: " + "; ".join(
+            f"{stage} " + "/".join(f"{v:.4f}" for v in ps.values())
+            for stage, ps in stages.items()) + " ms (p50/p95/p99)")
+    report["frontend"].update({
+        "requests": FRONTEND_REQUESTS, "images": n_images,
+        "traced": {"secs": fe_secs, "stats": st, "traced_launches": traced,
+                   "copies": copies},
+        "untraced": {"secs": fe2_secs, "images_per_s": n_images / fe2_secs,
+                     "stats": st2, "per_geometry_ms": rollups},
+        "per_geometry": fe_cmp})
+    del fe, fe2
+    # overlap on the card where the card has work to overlap: resnet_like
+    # computes a batch in less time than the host takes to reach the next
+    # copy (the medians printed above, at every bucket: the pack alone
+    # grows with the batch as fast as the compute), so the overlap is
+    # held on squeezenet_like at 224x224, whose batch of 4 keeps the card
+    # busy longer than that; 4-image requests submitted as above
+    ov_model = squeezenet_like()
+    ov_params = ov_model.init(0, device=dev)
+    ov_shape = (224, 224, 3)
+    ov = make_frontend(ov_model, ov_params, {ov_shape: (OVERLAP_BUCKET,)})
+    gp = ov.programs[ov_shape].plan(OVERLAP_BUCKET)
+    lib = {n: q.algorithm for n, q in gp.conv_plans.items()
+           if not q.executor.kernels}
+    if lib:
+        fail(f"squeezenet_like 224x224 bucket {OVERLAP_BUCKET}: conv nodes "
+             f"on a library executor: {lib}")
+    orng = np.random.default_rng(1)
+    ov_images = [orng.standard_normal((4,) + ov_shape, dtype=np.float32)
+                 for _ in range(OVERLAP_REQUESTS)]
+    _build.reset_launches()
+    with profiled(host=False) as prof:
+        t0 = time.perf_counter()
+        ov_reqs = serve_stream(ov, ov_images)
+        torch.cuda.synchronize()
+        ov_secs = time.perf_counter() - t0
+    records = device_records(prof)
+    del prof
+    label = f"squeezenet_like 224x224 bucket-{OVERLAP_BUCKET} frontend"
+    check_served(ov, ov_reqs, label)
+    ov_copies = check_copies(records, ov.telemetry.batches, label)
+    cpu = CnnServeEngine(ov_model, {
+        "convs": [{k: v.cpu() for k, v in c.items()}
+                  for c in ov_params["convs"]],
+        "head": ov_params["head"].cpu()}, ov_shape,
+        buckets=(OVERLAP_BUCKET,), device="cpu", backend="cuda")
+    for i in range(2):
+        cpu.submit(ImageRequest(i, ov_images[i]))
+    for i, r in enumerate(cpu.run()):
+        e = float(np.abs(ov_reqs[i].out - r.out).max())
+        if not e <= SERVE_TOL * float(np.abs(r.out).max()):
+            fail(f"{label} request {i}: card vs CPU {e:.3e}")
+    row = ov_copies["by_geometry"][geom(ov_shape)]
+    n_ov = 4 * OVERLAP_REQUESTS
+    print(f"  {card}: {label}: {OVERLAP_REQUESTS} requests, {n_ov} images "
+          f"in {len(ov.telemetry.batches)} batches, {ov_secs * 1e3:.3f} ms "
+          f"(the card profiled), {n_ov / ov_secs:.1f} images/s; overlap on "
+          f"the card: {ov_copies['hits']} of {ov_copies['flagged']} batches "
+          f"flagged overlapped ({ov_copies['share']:.3f}); H2D "
+          f"{row['h2d_ms']:.6f} ms, device compute {row['compute_ms']:.6f} "
+          f"ms, host reach {row['reach_ms']:.6f} ms per batch (medians)")
+    report["frontend"]["overlap_stream"] = {
+        "model": "squeezenet_like", "bucket": OVERLAP_BUCKET,
+        "requests": OVERLAP_REQUESTS, "secs": ov_secs, "copies": ov_copies}
+    if not (ov_copies["flagged"] and ov_copies["share"] >= 0.5):
+        fail(f"{label}: only {ov_copies['hits']} of {ov_copies['flagged']} "
+             f"batches with a predecessor in flight copied their input while "
+             f"an earlier batch's kernel ran")
+    del ov, ov_params
+    # the int8 frontend at 32x32 (calibrated in phase 4)
+    small_images = [x for x in fe_images if x.shape[1:] == small]
+    fe8 = make_frontend(model, params, {small: fe_geoms[small]},
+                        precision=QuantPolicy())
+    _build.reset_launches()
+    reqs8 = serve_stream(fe8, small_images)
+    torch.cuda.synchronize()
+    for k, v in _build.LAUNCHES.items():
+        launches[k] += v
+    st8 = check_served(fe8, reqs8, "int8 frontend")
+    dtypes8 = st8["serve_dtype_by_program"]
+    if not dtypes8 or not all("int8" in d for d in dtypes8.values()):
+        fail(f"int8 frontend: serves {dtypes8}")
+    eng8 = engines[("int8", small)]
+    for i, x in enumerate(small_images):
+        eng8.submit(ImageRequest(i, x))
+    err8, same8 = 0.0, True
+    for a, r in zip(reqs8, eng8.run()):
+        e = float(np.abs(a.out - r.out).max())
+        if not e <= SERVE_TOL * float(np.abs(r.out).max()):
+            fail(f"int8 frontend request {a.rid}: {e:.3e} from the int8 "
+                 f"engine")
+        err8, same8 = max(err8, e), same8 and np.array_equal(a.out, r.out)
+    print(f"  int8 frontend 32x32: {len(reqs8)} requests serve {dtypes8}; "
+          f"against the int8 CnnServeEngine: max err {err8:.3e}, bit-equal "
+          f"{same8}")
+    report["frontend"]["int8"] = {"serve_dtype_by_program": dtypes8,
+                                  "max_abs_err_vs_engine": err8,
+                                  "equal_to_engine": same8}
+    del fe8
+    # the sharded dispatcher over the one-card serve mesh
+    tmodel = tiny_cnn()
+    tparams = tmodel.init(0, device=dev)
+    dist_images = []
+    drng = np.random.default_rng(0)
+    dist_shapes = [s_ for s_, _ in DIST_SMOKE.geometries]
+    for i in range(24):
+        shape = dist_shapes[i % len(dist_shapes)]
+        dist_images.append(drng.standard_normal(
+            (int(drng.integers(1, 4)),) + shape, dtype=np.float32))
+    mesh = make_serve_mesh()
+    disp = ShardedServeDispatcher(
+        tmodel, tparams, DIST_SMOKE.geometry_map(), mesh=mesh,
+        max_wait_ms=DIST_SMOKE.max_wait_ms,
+        default_deadline_ms=DIST_SMOKE.default_deadline_ms,
+        pipeline_depth=DIST_SMOKE.pipeline_depth)
+    disp.warmup()
+    plain = make_frontend(tmodel, tparams, DIST_SMOKE.geometry_map(),
+                          cfg=DIST_SMOKE)
+    _build.reset_launches()
+    d_reqs = serve_stream(disp, dist_images)
+    p_reqs = serve_stream(plain, dist_images)
+    torch.cuda.synchronize()
+    for k, v in _build.LAUNCHES.items():
+        launches[k] += v
+    dst = check_served(disp, d_reqs, "sharded dispatcher")
+    check_served(plain, p_reqs, "plain tiny_cnn frontend")
+    same_d = all(np.array_equal(a.out, b.out)
+                 for a, b in zip(d_reqs, p_reqs))
+    tiny_algos = {geom(sh): {n: q.algorithm for n, q in
+                             pr.plan(pr.buckets[0]).conv_plans.items()}
+                  for sh, pr in disp.frontend.programs.items()}
+    print(f"  sharded dispatcher over {mesh}: devices {dst['devices']}, "
+          f"global buckets {dst['global_buckets']}, plans {tiny_algos}; "
+          f"{len(d_reqs)} requests bit-equal to the plain frontend: "
+          f"{same_d}")
+    if dst["devices"] != 1 or not same_d:
+        fail(f"sharded dispatcher: devices {dst['devices']}, bit-equal to "
+             f"the plain frontend {same_d}")
+    report["frontend"]["sharded"] = {"devices": dst["devices"],
+                                     "equal_to_frontend": same_d,
+                                     "plans": tiny_algos}
+    del disp, plain
+    # the launcher, as a user runs it
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--cnn-dist",
+         "--requests", "16"], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if out.returncode != 0:
+        fail(f"python -m repro_torch.launch.serve --cnn-dist exited "
+             f"{out.returncode}: {out.stderr[-2000:]}")
+    lst = json.loads(out.stdout[out.stdout.index("{"):])
+    print(f"  python -m repro_torch.launch.serve --cnn-dist --requests 16: "
+          f"exit 0 in {time.perf_counter() - t0:.1f} s; "
+          f"{out.stdout.splitlines()[1]}; stats: served {lst['served']}, "
+          f"devices {lst['devices']}, batches {lst['batches_by_program']}")
+    if lst["served"] != 16 or lst["deadline_misses"]:
+        fail(f"the launcher served {lst['served']} of 16")
+    report["frontend"]["launcher"] = lst
+    for row in line:
+        row["launches"] = launches[row["name"]]
     phase(None)
     report["phase_seconds"] = _PHASE["times"]
 

@@ -22,6 +22,16 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 MAX_TAPS = 8      # the kernel is instantiated for K = 1..8
+THREADS = 128     # channels per block (csrc/conv1d_tap.cu kC1dThreads)
+RUN = 32          # positions of l per thread (kC1dRun)
+
+
+def launch_geometry(B: int, L: int, D: int) -> dict:
+    """The kernel's launch for a (B, L, D) stream: a thread per channel
+    and run of RUN positions, grid (ceil(D/THREADS), ceil(L/RUN), B)."""
+    grid = (-(-D // THREADS), -(-L // RUN), B)
+    return {"grid": grid, "threads": THREADS,
+            "blocks": grid[0] * grid[1] * grid[2]}
 
 
 def conv1d_tap_plain(x, w, b=None):

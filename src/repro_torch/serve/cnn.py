@@ -11,6 +11,14 @@ bucket programs.  Each bucket program is a call of the bucket's
 CUDA graph per bucket (``serve/graphs.py``), the counterpart of the JAX
 package's per-bucket ``jax.jit``, and the CPU runs it eagerly.
 
+Bucket-program building lives in ``BucketPrograms`` so the synchronous
+drain engine here and the continuous-batching ``AsyncServeFrontend``
+(serve/frontend.py) share one component.  The frontend drives it through
+``dispatch``/``harvest``: on the card each geometry owns a ring of
+pinned host slots, so a batch's host-to-device copy runs on a side
+stream while the batch before it computes, and its output comes back by
+an asynchronous copy into pinned memory (see ``BucketPrograms``).
+
 The engine runs on the card unless the caller asks for the CPU
 (``device="cpu"``); its plans are made for the card's backend
 (``"cuda"``) unless ``backend`` says otherwise.
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.convspec import backend_for, resolve_device
+from repro_torch.dist import sharding
 from repro_torch.serve import graphs
 
 
@@ -62,16 +71,30 @@ def contiguous_blocks(chunk: Sequence[Tuple[ImageRequest, int]]
 
 def pack_units(chunk: Sequence[Tuple[ImageRequest, int]], bucket: int,
                image_shape: Tuple[int, int, int],
-               dtype: np.dtype) -> np.ndarray:
+               dtype: np.dtype, out: Optional[np.ndarray] = None
+               ) -> np.ndarray:
     """Stack a chunk of units into a ``(bucket, H, W, C)`` batch:
     contiguous request slices are concatenated and short chunks get
-    zero-padded tail slots, all cast to ``dtype``."""
-    parts = [np.asarray(r.images[i0:i1], dtype)
-             for r, i0, i1 in contiguous_blocks(chunk)]
-    pad = bucket - len(chunk)
-    if pad:
-        parts.append(np.zeros((pad,) + tuple(image_shape), dtype))
-    return np.concatenate(parts, axis=0)
+    zero-padded tail slots, all cast to ``dtype``.  With ``out`` (an
+    array of ``dtype`` with at least ``bucket`` rows, e.g. a view of a
+    pinned host buffer) the batch is written into ``out[:bucket]`` and
+    that view returned, so it is built once, where it is copied from;
+    each slice goes through one (multi-threaded) tensor copy."""
+    if out is None:
+        parts = [np.asarray(r.images[i0:i1], dtype)
+                 for r, i0, i1 in contiguous_blocks(chunk)]
+        pad = bucket - len(chunk)
+        if pad:
+            parts.append(np.zeros((pad,) + tuple(image_shape), dtype))
+        return np.concatenate(parts, axis=0)
+    dst = torch.from_numpy(out)
+    off = 0
+    for r, i0, i1 in contiguous_blocks(chunk):
+        dst[off:off + i1 - i0].copy_(
+            torch.from_numpy(np.ascontiguousarray(r.images[i0:i1])))
+        off += i1 - i0
+    dst[off:bucket].zero_()
+    return out[:bucket]
 
 
 def scatter_outputs(chunk: Sequence[Tuple[ImageRequest, int]],
@@ -89,43 +112,140 @@ def scatter_outputs(chunk: Sequence[Tuple[ImageRequest, int]],
 # ---------------------------------------------------------------------------
 # the reusable bucket-program component
 
+@dataclasses.dataclass
+class _Slot:
+    """One pipelined batch's buffers on the card: a pinned host input
+    and a pinned host output sized for the geometry's largest bucket,
+    and per mesh device a staging tensor and two events (its input copy
+    landed; its output copy to the host done).  ``owner`` is the
+    dispatched batch whose output the slot holds until it is read."""
+    host_in: torch.Tensor
+    host_out: torch.Tensor
+    staging: List[torch.Tensor]
+    copied: List[torch.cuda.Event]
+    done: List[torch.cuda.Event]
+    owner: Optional["Dispatched"] = None
+
+
+@dataclasses.dataclass
+class Dispatched:
+    """A batch ``BucketPrograms.dispatch`` put in flight: its bucket,
+    real units, and the dispatcher's clock at the copy's issue
+    (``transfer_t0``), after the host waited on the copy
+    (``transfer_t1``) and after the program was launched
+    (``dispatch_t``).  ``harvest`` turns it into the batch's output."""
+    bucket: int
+    units: int
+    transfer_t0: float
+    transfer_t1: float
+    dispatch_t: float
+    slot: Optional[_Slot] = None        # on the card, until read
+    y: Optional[np.ndarray] = None      # the output, once on the host
+
+
 class BucketPrograms:
-    """One geometry's bucket programs: build, warm, pick, pack.
+    """One geometry's bucket programs: build, warm, pick, pack, dispatch.
 
     Owns the ``{bucket: program}`` table for one ``(image_shape,
     buckets)`` pair on one device, and on the card each bucket's CUDA
     graph.  ``input_dtype()`` is the single source of truth for the
     dtype requests are packed to AND the dtype ``warmup()`` runs.
+
+    **Asynchronous dispatch** (``dispatch``/``harvest``, what the async
+    frontend drives).  On the card the geometry owns a ring of
+    ``pipeline_depth + 1`` slots (``_Slot``), all allocated by
+    ``warmup()`` so the caching allocator never hands a buffer across
+    streams.  ``dispatch`` packs the batch into a slot's pinned host
+    input, issues a ``non_blocking`` host-to-device copy into the slot's
+    staging tensor on a side copy stream and records an event; the
+    compute stream (the current one) waits on that event, the host waits
+    on it too (so the host blocks on the copy, never on the compute),
+    then the bucket's CUDA graph replays on the staging tensor (its
+    static-input copy is device to device, in stream order) and a
+    ``non_blocking`` copy of the graph's static output into the slot's
+    pinned host output is enqueued right behind it, with a done event.
+    ``harvest`` waits on the done event and reads the pinned output.  A
+    slot is reused only once its done event has completed, so no copy
+    into its staging tensor can run ahead of the replay that reads it,
+    and no replay can overwrite an output before it was copied out; a
+    slot whose batch was never harvested is read into that batch first.
+    On the CPU both run eagerly and synchronously, with no streams.
+
+    **Sharded mode** (``mesh=`` a device tuple from
+    ``launch.mesh.make_serve_mesh``, or e.g. ``("cpu",) * 4``): the
+    configured ``buckets`` become PER-SHARD capacities and the served
+    (global) buckets are ``bucket * len(mesh)``.  A batch is cut into
+    contiguous row slices, device ``i`` runs the per-shard bucket
+    program on slice ``i`` (its own CUDA graphs, staging tensors and
+    events; the params copied to it once, ``dist.sharding``), and the
+    rows are gathered in order.  The per-shard program runs at the
+    per-shard batch shape, so outputs are bit-equal to the single-device
+    program at that bucket whatever the device count.
     """
 
     def __init__(self, model, params, image_shape: Tuple[int, int, int], *,
                  buckets: Tuple[int, ...] = (1, 4, 8), algorithm="auto",
                  backend: Optional[str] = None, precision=None,
-                 fuse: bool = True, input_dtype=None, device=None):
+                 fuse: bool = True, input_dtype=None, device=None,
+                 mesh=None, pipeline_depth: int = 2):
+        self.mesh = None if mesh is None else sharding.replicated(mesh)
+        if self.mesh is not None:
+            if not self.mesh:
+                raise ValueError("mesh must hold at least one device")
+            if len({d.type for d in self.mesh}) != 1:
+                raise ValueError(f"a serve mesh is one kind of device; "
+                                 f"got {self.mesh}")
+            device = self.mesh[0]
         self.device = resolve_device(device)
+        #: the devices the batch rows are cut over (one when unsharded)
+        self.devices = self.mesh or (self.device,)
+        self.n_shards = len(self.devices)
         self.model = model
-        self.params = params
         self.image_shape = tuple(map(int, image_shape))     # (H, W, C)
-        self.buckets = tuple(sorted({int(b) for b in buckets}))
-        if not self.buckets or self.buckets[0] < 1:
+        self.shard_buckets = tuple(sorted({int(b) for b in buckets}))
+        if not self.shard_buckets or self.shard_buckets[0] < 1:
             raise ValueError(f"buckets must be positive ints; got {buckets}")
+        # the buckets traffic is packed to: global batch sizes
+        self.buckets = tuple(b * self.n_shards for b in self.shard_buckets)
         self.algorithm = algorithm
         self.backend = backend or backend_for(self.device)
         self.precision = precision
         self.fuse = fuse
+        self.pipeline_depth = int(pipeline_depth)
         self._input_dtype = np.dtype(input_dtype or np.float32)
-        self._fns: Dict[int, Callable] = {}    # bucket -> program
-        self._plans: Dict[int, object] = {}    # bucket -> GraphPlan
-        #: on the card: bucket -> its CUDA graph, all in one memory pool
-        self.graphs: Dict[int, graphs.GraphedProgram] = {}
-        self._pool = (torch.cuda.graph_pool_handle()
-                      if graphs.used_on(self.device) else None)
+        self._fns: Dict[int, Callable] = {}    # global bucket -> program
+        self._plans: Dict[int, object] = {}    # global bucket -> GraphPlan
+        # params: as given, or one copy per mesh device (made once; a
+        # tree already replicated on this mesh passes through)
+        self.params = (params if self.mesh is None
+                       else sharding.replicate_params(params, self.mesh))
+        self._shard_params = ([params] if self.mesh is None
+                              else list(self.params))
+        #: on the card: per mesh device, global bucket -> its CUDA
+        #: graph; one memory pool per device
+        self._graphs: List[Dict[int, graphs.GraphedProgram]] = [
+            {} for _ in self.devices]
+        on_card = graphs.used_on(self.device)
+        self._pools = [torch.cuda.graph_pool_handle() if on_card else None
+                       for _ in self.devices]
+        self._copy_streams = [torch.cuda.Stream(device=d) if on_card
+                              else None for d in self.devices]
+        self._slots: List[_Slot] = []
+        self._next_slot = 0
 
     # ------------------------------------------------------------------
+    @property
+    def graphs(self) -> Dict[int, graphs.GraphedProgram]:
+        """The first (unsharded: the only) device's bucket graphs."""
+        return self._graphs[0]
+
     def input_dtype(self) -> np.dtype:
         """The one packing/warmup dtype (fp32 by default whatever the
         precision policy: conv nodes cast to their spec dtype)."""
         return self._input_dtype
+
+    def _torch_input_dtype(self) -> torch.dtype:
+        return torch.from_numpy(np.empty(0, self._input_dtype)).dtype
 
     @property
     def compiled_buckets(self) -> Tuple[int, ...]:
@@ -133,7 +253,7 @@ class BucketPrograms:
         return tuple(sorted(self._fns))
 
     def plan(self, b: int):
-        """Bucket ``b``'s GraphPlan (built on first use)."""
+        """Global bucket ``b``'s per-shard GraphPlan (built on first use)."""
         if b not in self._plans:
             self.fn(b)
         return self._plans[b]
@@ -154,69 +274,194 @@ class BucketPrograms:
         return max(fits) if fits else self.buckets[0]
 
     def put(self, xb: np.ndarray) -> torch.Tensor:
-        """Place one packed batch on the engine's device."""
+        """Place one packed batch on the engine's (first) device."""
         return torch.from_numpy(np.ascontiguousarray(xb)).to(self.device)
 
+    def shard_units(self, real: int, b: int) -> Optional[List[int]]:
+        """Real (non-padded) images per mesh device for a batch of
+        ``real`` units packed to global bucket ``b`` — shards take
+        contiguous row slices, so padding concentrates in the trailing
+        devices.  None when unsharded."""
+        if self.mesh is None:
+            return None
+        per = b // self.n_shards
+        return [max(0, min(per, real - i * per))
+                for i in range(self.n_shards)]
+
     def fn(self, b: int) -> Callable:
-        """The program for bucket ``b`` (its plan resolved on first use)."""
+        """The program for global bucket ``b`` (its per-shard plan
+        resolved on first use): ``fn(b)(self.params, xb)``.  Sharded, it
+        runs the per-shard plan on each device's row slice and gathers
+        the rows on the first device."""
         f = self._fns.get(b)
         if f is None:
+            per = b // self.n_shards
             gp = self.model.graph_plan(
-                (b,) + self.image_shape, backend=self.backend,
+                (per,) + self.image_shape, backend=self.backend,
                 force=None if self.algorithm == "auto" else self.algorithm,
                 precision=self.precision, fuse=self.fuse)
             self._plans[b] = gp
-
-            def f(params, xb, gp=gp):
-                return self.model.apply(params, xb, graph_plan=gp)
+            if self.mesh is None:
+                def f(params, xb, gp=gp):
+                    return self.model.apply(params, xb, graph_plan=gp)
+            else:
+                def f(params, xb, gp=gp, per=per):
+                    return torch.cat([
+                        self.model.apply(
+                            p, xb[i * per:(i + 1) * per].to(d),
+                            graph_plan=gp).to(self.device)
+                        for i, (p, d) in enumerate(zip(params,
+                                                       self.devices))])
             self._fns[b] = f
         return f
 
+    def _graph(self, i: int, b: int) -> graphs.GraphedProgram:
+        """Mesh device ``i``'s CUDA graph of global bucket ``b``'s
+        per-shard program, over a static input of the shard's rows."""
+        g = self._graphs[i].get(b)
+        if g is None:
+            gp = self.plan(b)
+            static = torch.empty((b // self.n_shards,) + self.image_shape,
+                                 device=self.devices[i],
+                                 dtype=self._torch_input_dtype())
+            g = self._graphs[i][b] = graphs.GraphedProgram(
+                lambda params, _, x, gp=gp: self.model.apply(
+                    params, x, graph_plan=gp), [static],
+                pool=self._pools[i])
+        return g
+
     def serve_batch(self, b: int, xb: np.ndarray) -> torch.Tensor:
-        """Bucket ``b``'s program on one packed ``(b, H, W, C)`` batch.
-        On the card: the batch is copied into the bucket's static input
-        and its CUDA graph replayed (captured after the bucket's first
-        eager batch, and again after any parameter tensor changed); the
-        result is the graph's static output, overwritten by the bucket's
-        next batch.  On the CPU: the eager program ``fn(b)``."""
+        """Bucket ``b``'s program on one packed ``(b, H, W, C)`` batch,
+        synchronously (``CnnServeEngine.run``).  On the card: each
+        device's rows are copied into its bucket graph's static input and
+        the graph replayed (captured after the bucket's first eager
+        batch, and again after any parameter tensor changed); unsharded,
+        the result is the graph's static output, overwritten by the
+        bucket's next batch.  On the CPU: the eager program ``fn(b)``."""
         f = self.fn(b)
         if not graphs.used_on(self.device):
             return f(self.params, self.put(xb))
-        g = self.graphs.get(b)
-        if g is None:
-            static = torch.empty(
-                (b,) + self.image_shape, device=self.device,
-                dtype=torch.from_numpy(np.empty(0, self._input_dtype)).dtype)
-            g = self.graphs[b] = graphs.GraphedProgram(
-                lambda params, _, x: f(params, x), [static],
-                pool=self._pool)
-        return g(self.params, None,
-                 torch.from_numpy(np.ascontiguousarray(xb)))
+        per = b // self.n_shards
+        ys = []
+        for i, p in enumerate(self._shard_params):
+            with torch.cuda.device(self.devices[i]):
+                ys.append(self._graph(i, b)(p, None, torch.from_numpy(
+                    np.ascontiguousarray(xb[i * per:(i + 1) * per]))))
+        if self.mesh is None:
+            return ys[0]
+        return torch.cat([y.to(self.device) for y in ys])
 
     def pack(self, chunk: Sequence[Tuple[ImageRequest, int]],
-             bucket: int) -> np.ndarray:
+             bucket: int, out: Optional[np.ndarray] = None) -> np.ndarray:
         return pack_units(chunk, bucket, self.image_shape,
-                          self.input_dtype())
+                          self.input_dtype(), out=out)
+
+    # -- asynchronous dispatch (the async frontend's path) ---------------
+    def _alloc_slots(self) -> None:
+        """The ring of ``pipeline_depth + 1`` pinned host slots, sized
+        for the largest bucket (on the card; after the bucket graphs
+        exist, whose outputs size the host output buffers)."""
+        self.sync()
+        bmax = self.buckets[-1]
+        out = self._graph(0, bmax).outputs
+        dt = self._torch_input_dtype()
+        self._slots = [
+            _Slot(host_in=torch.empty((bmax,) + self.image_shape, dtype=dt,
+                                      pin_memory=True),
+                  host_out=torch.empty((bmax,) + tuple(out.shape[1:]),
+                                       dtype=out.dtype, pin_memory=True),
+                  staging=[torch.empty(
+                      (bmax // self.n_shards,) + self.image_shape, dtype=dt,
+                      device=d) for d in self.devices],
+                  copied=[torch.cuda.Event() for _ in self.devices],
+                  done=[torch.cuda.Event() for _ in self.devices])
+            for _ in range(self.pipeline_depth + 1)]
+        self._next_slot = 0
+
+    def _take_slot(self) -> _Slot:
+        """The next slot of the ring, free: a batch still in it is read
+        to the host first (which waits on its done events)."""
+        slot = self._slots[self._next_slot]
+        self._next_slot = (self._next_slot + 1) % len(self._slots)
+        if slot.owner is not None:
+            self._read(slot.owner)
+        return slot
+
+    def _read(self, h: Dispatched) -> None:
+        slot, h.slot = h.slot, None
+        for e in slot.done:
+            e.synchronize()
+        h.y = slot.host_out[:h.bucket].float().numpy().copy()
+        slot.owner = None
+
+    def dispatch(self, b: int, chunk: Sequence[Tuple[ImageRequest, int]],
+                 clock: Callable[[], float] = time.perf_counter
+                 ) -> Dispatched:
+        """Put one batch of ``chunk``'s units, packed to global bucket
+        ``b``, in flight without waiting for its compute (see the class
+        docstring); ``clock`` is read before the copy is issued, after the
+        host waited on it, and after the launch."""
+        if not graphs.used_on(self.device):
+            xb = self.pack(chunk, b)
+            t0 = clock()
+            xd = self.put(xb)
+            t1 = clock()
+            y = self.fn(b)(self.params, xd).float().numpy()
+            return Dispatched(b, len(chunk), t0, t1, clock(), y=y)
+        if not self._slots:
+            self.warmup()
+        slot = self._take_slot()
+        self.pack(chunk, b, out=slot.host_in.numpy())
+        per = b // self.n_shards
+        t0 = clock()
+        for i, (d, stream) in enumerate(zip(self.devices,
+                                            self._copy_streams)):
+            with torch.cuda.stream(stream):
+                slot.staging[i][:per].copy_(
+                    slot.host_in[i * per:(i + 1) * per], non_blocking=True)
+                slot.copied[i].record(stream)
+            torch.cuda.current_stream(d).wait_event(slot.copied[i])
+        for e in slot.copied:
+            e.synchronize()
+        t1 = clock()
+        for i, (d, p) in enumerate(zip(self.devices, self._shard_params)):
+            with torch.cuda.device(d):
+                y = self._graph(i, b)(p, None, slot.staging[i][:per])
+                slot.host_out[i * per:(i + 1) * per].copy_(
+                    y, non_blocking=True)
+                slot.done[i].record()
+        h = Dispatched(b, len(chunk), t0, t1, clock(), slot=slot)
+        slot.owner = h
+        return h
+
+    def harvest(self, h: Dispatched) -> np.ndarray:
+        """A dispatched batch's ``(b, classes)`` output as fp32 numpy,
+        once its compute and output copy are done (waits for them)."""
+        if h.y is None:
+            self._read(h)
+        return h.y
 
     def sync(self) -> None:
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            for d in self.devices:
+                torch.cuda.synchronize(d)
 
     def warmup(self, *, measure: bool = False,
                tune: Optional[str] = None) -> Dict[int, float]:
         """Resolve every bucket's plan and run it once on zeros (which
         builds the kernels on first use), then on the card capture its
-        CUDA graph.
+        CUDA graph (one per mesh device) and allocate the dispatch
+        slots.
 
-        ``tune="algo"`` first measure-autotunes each bucket's GraphPlan
-        on the engine's device (``GraphPlan.warmup``), and ``"full"``
-        also settles fusions and races launch configs; then the bucket's
-        program and CUDA graph are dropped, since a node that changed
-        executor would leave them serving the old launches, and built
-        again (one eager run, then a capture).  A forced ``algorithm``
-        is not tuned.  ``measure=True`` is the older spelling of
-        ``tune="algo"``.  Returns per-bucket milliseconds of the first
-        run (and capture)."""
+        ``tune="algo"`` first measure-autotunes each bucket's per-shard
+        GraphPlan on the engine's device (``GraphPlan.warmup``), and
+        ``"full"`` also settles fusions and races launch configs; then
+        the bucket's program and CUDA graphs are dropped, since a node
+        that changed executor would leave them serving the old launches,
+        and built again (one eager run, then a capture).  A forced
+        ``algorithm`` is not tuned.  ``measure=True`` is the older
+        spelling of ``tune="algo"``.  Returns per-bucket milliseconds of
+        the first run (and capture), keyed by global bucket."""
         if measure and tune is None:
             tune = "algo"
         H, W, C = self.image_shape
@@ -224,18 +469,21 @@ class BucketPrograms:
         for b in self.buckets:
             if tune is not None and self.algorithm == "auto":
                 self.model.graph_plan(
-                    (b, H, W, C), backend=self.backend,
+                    (b // self.n_shards, H, W, C), backend=self.backend,
                     precision=self.precision, fuse=self.fuse).warmup(
                         tune=tune, device=self.device)
                 self._fns.pop(b, None)
                 self._plans.pop(b, None)
-                self.graphs.pop(b, None)
+                for g in self._graphs:
+                    g.pop(b, None)
             self.fn(b)
             x = np.zeros((b, H, W, C), self.input_dtype())
             t0 = time.perf_counter()
             self.serve_batch(b, x)
             self.sync()
             out[b] = (time.perf_counter() - t0) * 1e3
+        if graphs.used_on(self.device):
+            self._alloc_slots()
         return out
 
 

@@ -868,3 +868,94 @@ def test_serving_warmup_tune_captures_the_tuned_programs_again():
         got = eng.programs.serve_batch(b, xb).clone()
         torch.cuda.synchronize()
         assert g.replays == 1 and torch.equal(got, want)
+
+
+def _dispatch_programs(depth=2):
+    from repro_torch.models.cnn import resnet_like
+    from repro_torch.serve.cnn import BucketPrograms
+    model = resnet_like(num_classes=10)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    progs = BucketPrograms(model, params, (32, 32, 3), buckets=(4,),
+                           pipeline_depth=depth)
+    progs.warmup()
+    return progs
+
+
+def _chunk(rid, x):
+    from repro_torch.serve.cnn import ImageRequest
+    r = ImageRequest(rid, x)
+    return [(r, j) for j in range(x.shape[0])]
+
+
+@requires_cuda
+@pytest.mark.parametrize("in_flight", [2, 5])
+def test_dispatch_slots_keep_in_flight_batches_apart(in_flight):
+    """Depth 2, one bucket: ``in_flight`` batches dispatched before any
+    harvest (2: the pipeline's depth; 5: past the ring of 3 slots, whose
+    unread outputs are read out before a slot is reused) each harvest
+    their own output, bit-equal to the eager program; the slots were
+    allocated by warmup, pinned."""
+    progs = _dispatch_programs()
+    assert len(progs._slots) == 3
+    assert all(s.host_in.is_pinned() and s.host_out.is_pinned()
+               for s in progs._slots)
+    rng = np.random.default_rng(in_flight)
+    xs = [rng.normal(size=(4, 32, 32, 3)).astype(np.float32)
+          for _ in range(in_flight)]
+    handles = [progs.dispatch(4, _chunk(i, x)) for i, x in enumerate(xs)]
+    assert all(h.transfer_t0 <= h.transfer_t1 <= h.dispatch_t
+               for h in handles)
+    replays = progs.graphs[4].replays
+    outs = [progs.harvest(h) for h in handles]
+    assert progs.graphs[4].replays == replays       # harvest replays none
+    for x, y in zip(xs, outs):
+        want = progs.fn(4)(progs.params, progs.put(x)).cpu().numpy()
+        np.testing.assert_array_equal(y, want)
+    assert not np.array_equal(outs[0], outs[1])
+
+
+@requires_cuda
+def test_async_frontend_on_card_matches_cpu_and_sharded_one_card():
+    """resnet_like through AsyncServeFrontend on the card against the CPU
+    engine (3e-4 of the abs max), and the one-card sharded dispatcher
+    bit-equal to the plain frontend."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models.cnn import resnet_like
+    from repro_torch.serve import (AsyncServeFrontend, CnnServeEngine,
+                                   ImageRequest, ServeRequest,
+                                   ShardedServeDispatcher)
+    model = resnet_like(num_classes=10)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    cpu_params = {k: {n: t.cpu() for n, t in v.items()}
+                  for k, v in params.items()}
+    geoms = {(32, 32, 3): (1, 4), (16, 16, 3): (1, 2)}
+    rng = np.random.default_rng(0)
+    reqs = [rng.normal(size=(n, hw, hw, 3)).astype(np.float32)
+            for n, hw in [(1, 32), (3, 16), (4, 32), (2, 16), (3, 32)]]
+    fe = AsyncServeFrontend(model, params, geoms, pipeline_depth=2)
+    disp = ShardedServeDispatcher(model, params, geoms,
+                                  mesh=make_serve_mesh(1))
+    outs = []
+    for server in (fe, disp):
+        server.warmup()
+        for i, x in enumerate(reqs):
+            server.submit(ServeRequest(rid=i, images=x))
+        done = sorted(server.run(), key=lambda r: r.rid)
+        assert all(r.status == "served" for r in done)
+        outs.append([r.out for r in done])
+    assert disp.stats()["devices"] == 1
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    for shape, buckets in geoms.items():
+        eng = CnnServeEngine(model, cpu_params, shape, buckets=buckets,
+                             device="cpu", backend="cuda")
+        idx = [i for i, x in enumerate(reqs) if x.shape[1:] == shape]
+        for i in idx:
+            eng.submit(ImageRequest(i, reqs[i]))
+        for i, r in zip(idx, eng.run()):
+            bound = 3e-4 * np.abs(r.out).max()
+            assert np.abs(outs[0][i] - r.out).max() <= bound
+    st = fe.stats()
+    assert st["overlapped_batches"] >= 1 and st["max_inflight"] == 2
+    for t in fe.telemetry.requests:
+        assert t.compute_ms <= t.total_ms and t.queue_ms <= t.total_ms

@@ -69,6 +69,35 @@ def test_default_device_entry_points_raise_without_cuda():
         CnnServeEngine(m, {}, (32, 32, 3), device="cuda")
 
 
+def test_serving_entry_points_raise_without_cuda():
+    """The async frontend, the sharded dispatcher (and its serve mesh)
+    and the launcher run on the card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is available")
+    from repro_torch.launch import serve as launcher
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models.cnn import tiny_cnn
+    from repro_torch.serve import AsyncServeFrontend, ShardedServeDispatcher
+    m = tiny_cnn()
+    params = m.init(0, device="cpu")
+    geoms = {(8, 8, 3): (2,)}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AsyncServeFrontend(m, params, geoms)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ShardedServeDispatcher(m, params, geoms)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_serve_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launcher.main(["--cnn-dist", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launcher.main(["--arch", "qwen2-1.5b", "--smoke", "--requests", "1"])
+    # asked for the CPU, each runs there
+    assert AsyncServeFrontend(m, params, geoms, device="cpu") \
+        .programs[(8, 8, 3)].device.type == "cpu"
+    assert ShardedServeDispatcher(m, params, geoms, device="cpu").mesh == (
+        torch.device("cpu"),)
+
+
 def test_default_plan_is_for_the_card_and_its_warmup_raises_without_cuda():
     import repro_torch as rt
     from repro_torch.core import convspec

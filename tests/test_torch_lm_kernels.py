@@ -126,3 +126,18 @@ def test_ctypes_signatures_match_the_c_launchers(library):
         want = [kinds["*"] if "*" in p else kinds[p.split()[-2]]
                 for p in params]
         assert list(argtypes) == want, fn
+
+
+@pytest.mark.parametrize("B,L,D", [(4, 512, 4096), (4, 512, 256), (1, 7, 5)])
+def test_conv1d_tap_launch_geometry_is_the_sources(B, L, D):
+    """The wrapper's launch_geometry mirrors csrc/conv1d_tap.cu: a block
+    of kC1dThreads channels, kC1dRun positions a thread."""
+    import re
+    from repro_torch.kernels import conv1d_tap
+    src = (_build.CSRC / "conv1d_tap.cu").read_text()
+    threads = int(re.search(r"kC1dThreads = (\d+);", src).group(1))
+    run = int(re.search(r"kC1dRun = (\d+);", src).group(1))
+    geo = conv1d_tap.launch_geometry(B, L, D)
+    assert (geo["threads"], conv1d_tap.RUN) == (threads, run)
+    assert geo["grid"] == (-(-D // threads), -(-L // run), B)
+    assert geo["blocks"] == geo["grid"][0] * geo["grid"][1] * B
