@@ -51,12 +51,19 @@ calls:
   ``AsyncServeFrontend`` bit for bit, and ``python -m
   repro_torch.launch.serve --cnn-dist --requests 16`` must exit 0 and
   print its stats;
-- ``qwen2-1.5b`` and ``mamba2-1.3b`` served by the LM ``ServeEngine`` at
-  full width and depth in bf16 (seed-0 params made on the card): 8
-  requests on 4 slots, prompts of 512, 16 new tokens, where every prefill
-  attention runs ``flash_attention`` and every Mamba2 prefill conv
-  ``conv1d_tap``; then both models cut to 4 layers in fp32, card against
-  the CPU.
+- ``qwen2-1.5b``, ``mamba2-1.3b``, ``deepseek-v2-lite-16b`` and
+  ``deepseek-moe-16b`` served by the LM ``ServeEngine`` at full width
+  and depth in bf16 (seed-0 params made on the card), one model on the
+  card at a time: 8 requests on 4 slots, prompts of 512, 16 new tokens,
+  where every GQA prefill attention runs ``flash_attention`` (MLA
+  attends through the plain versions, as the reference does) and every
+  Mamba2 prefill conv ``conv1d_tap``; the MoE models' routing
+  statistics of a prefill wave are printed, and two eager calls of an
+  MoE layer must give the same bits.  Then each model cut to 4 layers in
+  fp32 (the deepseek pair: one dense layer and three MoE layers), card
+  against the CPU, where each MoE layer's top-K expert sets and kept
+  tokens are compared first: a token may route differently only where
+  its K-th and (K+1)-th router probabilities on the CPU are within 1e-5.
 
 It prints the launch geometry of the seven tensor-core kernels
 (``conv1x1_gemm``, ``cuconv_fused``, ``winograd_fused``,
@@ -217,11 +224,15 @@ STAGE2_EARLIER_MS = 0.003832
 NO_SPILL = ("direct_conv", "cuconv_stage1", "int8_gemm")
 
 # the LM serving path (configs/archs.py), served at full width and depth
-LM_ARCHS = ("qwen2-1.5b", "mamba2-1.3b")
+LM_ARCHS = ("qwen2-1.5b", "mamba2-1.3b", "deepseek-v2-lite-16b",
+            "deepseek-moe-16b")
 LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 4, 512, 16, 1024
 # card vs CPU in fp32: depth cut for the CPU's sake, fp32 cache
 LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_STEPS = 4, 2, 64, 4
 LM_CPU_TOL = 1e-3                # x * max|CPU logits|
+# card vs CPU: a token's top-K experts may differ only where its K-th and
+# (K+1)-th router probabilities on the CPU are this close
+ROUTE_FLIP_GAP = 1e-5
 LM_KERNELS = ("flash_attention", "conv1d_tap")
 LM_TRACE_STEPS = 4               # decode steps under the profiler
 # a gated trace held open this long before and after its region: the
@@ -369,6 +380,7 @@ def main() -> None:
                                      flash_attention, int8_gemm,
                                      winograd_fused)
     from repro_torch.models import lm
+    from repro_torch.nn import moe as tmoe
     from repro_torch.models.cnn import (fire_like, mobilenet_like,
                                         resnet_like, squeezenet_like,
                                         tiny_cnn)
@@ -671,7 +683,7 @@ def main() -> None:
         tol = BF16_TOL if bf16 else FP32_TOL
         for arch, cfg in lm_cfgs.items():
             mixers = {mx for mx, _ in cfg.layer_kinds()}
-            if "attn" in mixers:
+            if "attn" in mixers and not cfg.mla:    # MLA runs no kernel
                 H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
                 for b, s in ((LM_SLOTS, LM_PROMPT),
                              (1, SHAPES["train_4k"].seq_len)):
@@ -1198,10 +1210,20 @@ def main() -> None:
         return out
 
     def kernel_group(name):
+        """The device-time group of a kernel, by its name: the two LM
+        kernels, library GEMMs, sorts (the MoE's top-k), gathers and
+        scatters (the MoE's dispatch and combine, the caches' writes) and
+        reductions (the MoE's K-way sum among them); "other" is the
+        elementwise rest."""
         for key, group in (("flash_attention", "flash_attention"),
                            ("conv1d_tap", "conv1d_tap"), ("gemm", "gemm"),
                            ("nvjet", "gemm"), ("xmma", "gemm"),
-                           ("cutlass", "gemm")):
+                           ("cutlass", "gemm"), ("Sort", "topk_sort"),
+                           ("sort", "topk_sort"),
+                           ("scatter_gather", "gather_scatter"),
+                           ("indexSelect", "gather_scatter"),
+                           ("index_elementwise", "gather_scatter"),
+                           ("reduce_kernel", "reduce")):
             if key in name:
                 return group
         return "other"
@@ -1260,8 +1282,15 @@ def main() -> None:
             if traced != want:
                 fail(f"{cfg.name} replayed {what}: the trace ran {traced} "
                      f"!= planned {want}")
+            n_launch = sum(1 for r in records if is_kernel(r[0]))
+            per = LM_TRACE_STEPS if what == "decode" else 1
+            print(f"  {cfg.name} replayed {what}: {n_launch} kernel "
+                  f"launches ({n_launch / per:.0f} per "
+                  f"{'step' if what == 'decode' else 'wave'})")
             out[what] = {"wall_ms": wall, "device_ms": busy,
                          "traced_launches": traced,
+                         "kernel_launches": n_launch,
+                         "kernel_launches_per_call": n_launch / per,
                          "idle_share": 1 - busy / wall if busy else None,
                          "groups_ms": groups,
                          "top": [(n[:80], ms, c) for n, (ms, c) in top]}
@@ -1283,13 +1312,67 @@ def main() -> None:
             fail(f"{cfg.name}: the traced calls did not all replay graphs")
         return out
 
+    def tree_tensors(node):
+        if isinstance(node, dict):
+            return [t for v in node.values() for t in tree_tensors(v)]
+        if isinstance(node, list):
+            return [t for v in node for t in tree_tensors(v)]
+        return [node]
+
+    def moe_layers(params):
+        return [layer["moe"] for seg in params["segments"] for rep in seg
+                for layer in rep.values() if "moe" in layer]
+
+    def moe_checks(arch, cfg, params, prompts):
+        """An MoE model's routing statistics on one prefill wave (eager
+        ``lm_forward(mode="prefill")``, which returns them), and two
+        eager calls of its first MoE layer, on the wave's shape (the
+        capacity path) and on a decode step's (dropless): the same bits
+        each time.  Returns the expert-read floor of a decode step (every
+        expert bank of every MoE layer read once, dropless) beside."""
+        cache = lm.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+        toks = torch.from_numpy(prompts[:LM_SLOTS]).to(dev)
+        _, _, aux = lm.lm_forward(params, cfg, {"tokens": toks}, cache, 0,
+                                  "prefill")
+        del cache
+        aux = {k: float(v) for k, v in aux.items()}
+        print(f"  {arch}: a prefill wave's routing, summed over "
+              f"{len(moe_layers(params))} MoE layers: {aux}")
+        moe = moe_layers(params)[0]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        same = {}
+        for label, (b, sq, dropless) in {
+                "prefill": (LM_SLOTS, LM_PROMPT, False),
+                "decode": (LM_SLOTS, 1, True)}.items():
+            x = torch.randn((b, sq, cfg.d_model), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            a, _ = tmoe.moe_fwd(moe, cfg, x, dropless=dropless)
+            c, _ = tmoe.moe_fwd(moe, cfg, x, dropless=dropless)
+            same[label] = torch.equal(a, c)
+        print(f"  {arch}: two eager MoE calls bit-equal: {same}")
+        if not all(same.values()):
+            fail(f"{arch}: two eager MoE calls differ: {same}")
+        expert_bytes = sum(t.numel() * t.element_size()
+                           for m in moe_layers(params)
+                           for t in tree_tensors(m["experts"]))
+        return {"prefill_wave_aux": aux, "moe_bit_equal": same,
+                "expert_bytes": expert_bytes,
+                "decode_expert_floor_ms": expert_bytes / HBM_BYTES_PER_S
+                * 1e3}
+
     for arch, cfg in lm_cfgs.items():
+        memory_mark()        # the last model's params, engines and pools
         t0 = time.perf_counter()
         params = lm.init_lm(cfg, seed=0, device=dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        param_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_tensors(params))
+        print(f"  {arch}: init {init_s:.2f} s, {param_bytes / 2 ** 30:.3f} "
+              f"GiB of params on the card")
         n_attn = sum(mx == "attn" for mx, _ in cfg.layer_kinds())
-        planned = {"flash_attention": n_attn * waves,
+        # MLA attends through the plain versions: no flash_attention
+        planned = {"flash_attention": 0 if cfg.mla else n_attn * waves,
                    "conv1d_tap": 3 * (cfg.num_layers - n_attn) * waves}
         prompts = rng.integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT)) \
             .astype(np.int32)
@@ -1352,7 +1435,8 @@ def main() -> None:
             return [t for t, r in times[name] if r == replayed]
         prefill_ms, decode_ms = (call_ms("_prefill", True),
                                  call_ms("_decode", True))
-        row = {"params": cfg.num_params(), "launches": counts,
+        row = {"params": cfg.num_params(), "param_bytes": param_bytes,
+               "init_s": init_s, "launches": counts,
                "prefill_ms_per_wave": float(np.median(prefill_ms)),
                "decode_ms_per_step": float(np.median(decode_ms)),
                "prefill_ms": prefill_ms, "decode_ms": decode_ms,
@@ -1374,6 +1458,13 @@ def main() -> None:
               f"{row['eager_then_capture_ms']}); {tokens} tokens in "
               f"{wall:.2f} ms = {row['tokens_per_s']:.1f} tokens/s; request "
               f"0 {done[0].out_tokens[:6]}...")
+        if cfg.num_experts:
+            row.update(moe_checks(arch, cfg, params, prompts))
+            print(f"  {arch} decode: {row['decode_ms_per_step']:.4f} ms per "
+                  f"step against the expert-read floor "
+                  f"{row['decode_expert_floor_ms']:.4f} ms "
+                  f"({row['expert_bytes'] / 1e9:.3f} GB of experts at "
+                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
         row["trace"] = trace_lm(cfg, params, prompts[:LM_SLOTS],
                                 {k: v // waves for k, v in planned.items()
                                  if v})
@@ -1389,6 +1480,7 @@ def main() -> None:
                   f" ms per step untraced: idle share "
                   f"{row['decode_idle_share_untraced']:.3f}")
         del params
+        gc.collect()                # the engines and their graph pools
         torch.cuda.empty_cache()
     for k, v in launches.items():
         if v < 1:
@@ -1405,15 +1497,61 @@ def main() -> None:
             return [to_cpu(v) for v in node]
         return node.cpu()
 
+    def routing_record(log):
+        """A stand-in for ``moe.moe_fwd`` that appends each call's routing
+        to ``log``: the router's probs, the top-K expert set of every
+        token and the tokens each expert keeps (``moe.dispatch``, the
+        routing ``moe_fwd`` itself runs)."""
+        def fwd(p, cfg, x, dropless=False, n_groups=1):
+            xg = x.reshape(1, -1, x.shape[-1])
+            probs, eidx, _, vals, tok = tmoe.dispatch(p, cfg, xg, dropless)
+            kept = torch.zeros_like(probs, dtype=torch.bool).transpose(1, 2)
+            kept.scatter_(-1, tok, vals > 0)
+            log.append({"probs": probs[0].cpu(),
+                        "experts": eidx[0].sort(-1).values.cpu(),
+                        "kept": kept[0].cpu()})
+            return moe_fwd(p, cfg, x, dropless, n_groups)
+        return fwd
+
+    def compare_routing(arch, card, cpu):
+        """Each MoE call's top-K expert sets and kept tokens, card against
+        CPU.  A token whose expert set differs must have its K-th and
+        (K+1)-th CPU probabilities within ROUTE_FLIP_GAP."""
+        flips, kept_diff, gaps = 0, 0, []
+        for a, b in zip(card, cpu):
+            diff = (a["experts"] != b["experts"]).any(-1)
+            flips += int(diff.sum())
+            top = b["probs"].sort(-1, descending=True).values
+            K = a["experts"].shape[-1]
+            gap = top[:, K - 1] - top[:, K]
+            gaps += gap[diff].tolist()
+            kept_diff += int((a["kept"] != b["kept"]).any(0).sum())
+        print(f"  {arch}: routing over {len(cpu)} MoE calls: {flips} "
+              f"token(s) with another top-K expert set on the card "
+              f"(CPU gaps between the K-th and (K+1)-th probabilities "
+              f"{gaps}); {kept_diff} token(s) kept by another expert set")
+        if len(card) != len(cpu):
+            fail(f"{arch}: {len(card)} MoE calls on the card, {len(cpu)} "
+                 f"on the CPU")
+        if any(g > ROUTE_FLIP_GAP for g in gaps):
+            fail(f"{arch}: a token routed differently on the card with a "
+                 f"probability gap above {ROUTE_FLIP_GAP}: {gaps}")
+        return {"moe_calls": len(cpu), "topk_flips": flips,
+                "flip_gaps": gaps, "kept_differs": kept_diff}
+
+    moe_fwd = tmoe.moe_fwd
     for arch, cfg in lm_cfgs.items():
         cut = dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS)
+        # drawn on the card and copied: the host draws none of them
         params = lm.init_lm(cut, seed=0, device=dev, dtype=torch.float32)
         toks = rng.integers(0, cfg.vocab_size, (LM_CPU_STEPS + 1,
                                                 LM_CPU_BATCH, LM_CPU_PROMPT))
         toks = torch.from_numpy(toks.astype(np.int32))
-        outs = []
+        outs, routes = [], []
         for device, p in ((dev, params), (torch.device("cpu"),
                                           to_cpu(params))):
+            routes.append([])
+            tmoe.moe_fwd = routing_record(routes[-1])
             t0 = time.perf_counter()
             cache = lm.init_cache(cut, LM_CPU_BATCH,
                                   LM_CPU_PROMPT + LM_CPU_STEPS,
@@ -1427,6 +1565,9 @@ def main() -> None:
                     LM_CPU_PROMPT + t)
                 seq.append(logits.cpu())
             outs.append((seq, time.perf_counter() - t0))
+        tmoe.moe_fwd = moe_fwd
+        routing = (compare_routing(arch, *routes) if cut.num_experts
+                   else None)
         errs = []
         for step, (a, b) in enumerate(zip(outs[0][0], outs[1][0])):
             err = (a - b).abs().max().item()
@@ -1436,12 +1577,14 @@ def main() -> None:
                 fail(f"{arch} ({LM_CPU_LAYERS} layers, fp32): card vs CPU "
                      f"{'prefill' if step == 0 else f'decode {step}'} "
                      f"{err:.3e} > {bound:.3e}")
-        report["lm_card_vs_cpu"][arch] = errs
+        report["lm_card_vs_cpu"][arch] = {"logits": errs,
+                                          "routing": routing}
         print(f"  {arch}: prefill + {LM_CPU_STEPS} decode steps, max|card - "
               f"cpu| {max(e['max_abs_err'] for e in errs):.3e} (bounds "
               f"{min(e['bound'] for e in errs):.3e}..); card "
               f"{outs[0][1]:.2f} s, cpu {outs[1][1]:.2f} s")
         del params
+        gc.collect()
         torch.cuda.empty_cache()
 
     # -- 5. timing -------------------------------------------------------------

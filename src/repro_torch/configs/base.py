@@ -2,13 +2,15 @@
 
 Every assigned architecture is a ``ModelConfig`` registered under its id.
 Reduced "smoke" variants (same family, tiny dims) are derived via
-:func:`smoke_variant` and used by the CPU tests; ``qwen2-1.5b`` and
-``mamba2-1.3b`` are served at full size on the card.  The fields and
+:func:`smoke_variant` and used by the CPU tests; ``qwen2-1.5b``,
+``mamba2-1.3b``, ``deepseek-v2-lite-16b`` and ``deepseek-moe-16b``
+are served at full size on the card.  The fields and
 properties are the reference's, so ``num_params`` and ``layer_kinds``
 agree with it for every arch; the execution knobs that only shape the
-XLA program (``remat``, ``scan_layers``, ``attn_impl``, ``ce_impl``,
+XLA program (``remat``, ``scan_layers``, ``ce_impl``,
 ``attn_score_dtype``, ``shard_heads``) are kept as data and not read by
-the port.
+the port.  ``attn_impl`` is read where the reference reads it: "exact"
+keeps the plain attention (train mode, MLA) off ``chunked_attention``.
 """
 from __future__ import annotations
 

@@ -301,6 +301,21 @@ class ConvSpec:
 PLAN_STATS = {"resolutions": 0}
 
 
+def supports(algorithm: str, spec: ConvSpec) -> Tuple[bool, str]:
+    """Can ``algorithm`` execute ``spec`` exactly (ignoring speed)?  A
+    delegation to ``executors.get(algorithm).supports(spec)``."""
+    from repro_torch.core import executors
+    return executors.get(algorithm).supports(spec)
+
+
+def heuristic_algorithm(spec: ConvSpec, backend: str) -> Tuple[str, str]:
+    """The negotiated choice absent force or measurement, and why: a
+    delegation to ``executors.negotiate``."""
+    from repro_torch.core import executors
+    name, _source, reason = executors.negotiate(spec, backend)
+    return name, reason
+
+
 def reset_plan_stats() -> int:
     """Zero the resolution counter; returns the count discarded."""
     old = PLAN_STATS["resolutions"]

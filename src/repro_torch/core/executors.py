@@ -367,6 +367,40 @@ def names() -> Tuple[str, ...]:
     return tuple(_REGISTRY)
 
 
+def registered() -> Dict[str, Executor]:
+    """Snapshot of the registry (mutating it does not unregister)."""
+    return dict(_REGISTRY)
+
+
+class _AlgorithmsView(_MappingABC):
+    """Read-only ``{name: bare conv callable}`` view of the registry,
+    the reference's ``ALGORITHMS`` surface.  Executors that expose no
+    bare callable (``fn is None``) are absent from the view."""
+
+    def __getitem__(self, name: str) -> Callable:
+        fn = get(name).fn
+        if fn is None:
+            raise KeyError(f"executor {name!r} exposes no bare callable")
+        return fn
+
+    def __iter__(self):
+        return (n for n, e in _REGISTRY.items() if e.fn is not None)
+
+    def __len__(self):
+        return sum(1 for e in _REGISTRY.values() if e.fn is not None)
+
+    def __repr__(self):
+        return f"ALGORITHMS({', '.join(self)})"
+
+
+#: the reference's mapping (``from repro_torch.core import ALGORITHMS``)
+ALGORITHMS = _AlgorithmsView()
+
+
+def algorithms() -> _AlgorithmsView:
+    return ALGORITHMS
+
+
 # ---------------------------------------------------------------------------
 # negotiation
 

@@ -265,6 +265,19 @@ def on_card(kernel: str, t) -> bool:
                      f"(cuda runs the kernel, cpu its plain version)")
 
 
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise where a kernel would be launched on an input that requires
+    grad with grad mode on: the kernels have no backward, so their
+    output would carry no gradient while the plain version's does."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, and the kernel has no "
+            f"backward; differentiate through its plain version (train "
+            f"mode does) or call it under torch.no_grad()")
+
+
 def check_operands(kernel: str, device, dtype, **tensors) -> None:
     """Every operand on one device, in one dtype, contiguous."""
     import torch

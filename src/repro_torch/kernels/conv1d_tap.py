@@ -63,6 +63,7 @@ def conv1d_tap(x, w, b=None):
     _build.check_operands(name, x.device, x.dtype, x=x, w=w, b=b)
     if not _build.on_card(name, x):
         return conv1d_tap_plain(x, w, b)
+    _build.refuse_grad(name, x, w, b)
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y

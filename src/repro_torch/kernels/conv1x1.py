@@ -95,6 +95,7 @@ def conv1x1_gemm(x2d, w, tp: int = 256, tm: int = 128, tc: int = 512):
     _build.check_smem(name, geo["smem"], f"block tile {geo['bm']}x{BN}")
     if not _build.on_card(name, x2d):
         return conv1x1_gemm_plain(x2d, w)
+    _build.refuse_grad(name, x2d, w)
     out = torch.empty((P, M), dtype=x2d.dtype, device=x2d.device)
     ws = counters = None
     if geo["splits"] > 1:

@@ -223,6 +223,7 @@ def cuconv_fused(x, w, bias=None, stride=(1, 1), padding=(0, 0),
     if not _build.on_card(name, x):
         return cuconv_fused_plain(x, w, bias, stride, padding, activation,
                                   addend, pool)
+    _build.refuse_grad(name, x, w, bias, addend)
     if pool is None:
         out = torch.empty((N, OH, OW, M), dtype=x.dtype, device=x.device)
         pool_kind, psh, psw, th, tw = 0, 1, 1, 0, 0

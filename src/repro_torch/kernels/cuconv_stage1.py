@@ -129,6 +129,7 @@ def _launch(name, x, w, T, P, C, M, rule, tiles):
                       f"block tile {geo['bm']}x{geo['bn']}")
     if not _build.on_card("stage1_tap_gemm", x):
         return None
+    _build.refuse_grad(name, x, w)
     out = torch.empty((T, P, M), dtype=torch.float32, device=x.device)
     v = 16 // x.element_size()
     vec_a = C % v == 0 and x.data_ptr() % 16 == 0

@@ -83,6 +83,7 @@ def stage2_tap_sum(temps, out_dtype=torch.float32, *, unroll=True):
     geo = launch_geometry(T, P, M)
     if not _build.on_card(name, temps):
         return stage2_tap_sum_plain(temps, out_dtype)
+    _build.refuse_grad(name, temps)
     PM = P * M
     out = torch.empty((P, M), dtype=out_dtype, device=temps.device)
     vec_in = PM % 4 == 0 and temps.data_ptr() % 16 == 0

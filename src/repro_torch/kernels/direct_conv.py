@@ -183,6 +183,7 @@ def direct_conv(x, w, padding=(0, 0), stride=(1, 1), tm: int = 128,
                       f"tile {geo['th']}x{geo['tw']}x{geo['bn']}")
     if not _build.on_card(name, x):
         return direct_conv_plain(x, w, padding, stride)
+    _build.refuse_grad(name, x, w)
     out = torch.empty((N, OH, OW, M), dtype=x.dtype, device=x.device)
     ws = counters = None
     if geo["splits"] > 1:

@@ -110,6 +110,7 @@ def flash_attention(q, k, v, causal=True):
     _build.check_smem(name, geo["smem"], f"head_dim {D}")
     if not _build.on_card(name, q):
         return flash_attention_plain(q, k, v, causal)
+    _build.refuse_grad(name, q, k, v)
     out = torch.empty_like(q)
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):

@@ -182,6 +182,7 @@ def int8_gemm(x2d, w, tp: int = 256, tm: int = 128, tc: int = 512):
                       f"{geo['bn']}, kc={geo['kc']}")
     if not _build.on_card(name, x2d):
         return int8_gemm_plain(x2d, w)
+    _build.refuse_grad(name, x2d, w)
     out = torch.empty((P, M), dtype=torch.int32, device=x2d.device)
     # the (P, K) rows as a (P, 1, 1, K) input under a 1x1 filter
     return _launch(x2d, w, out, (P, 1, 1, K, 1, 1, M, 1, 1, 0, 0, 1, 1),
@@ -250,6 +251,7 @@ def int8_conv(x, w, stride=(1, 1), padding=(0, 0), scale=None,
     if not _build.on_card("int8_gemm", x):
         return int8_conv_plain(x, w, stride, padding, scale, w_scales, bias,
                                addend, relu)
+    _build.refuse_grad(name, x, w, scale, w_scales, bias, addend)
     out = torch.empty((N, OH, OW, M), device=dev,
                       dtype=torch.int32 if codes_in else torch.float32)
     return _launch(x, w, out, (N, H, W, C, KH, KW, M) + stride + padding

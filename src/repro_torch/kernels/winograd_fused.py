@@ -118,6 +118,7 @@ def winograd_fused(x, w, padding=(1, 1), bias=None,
     if not _build.on_card(name, x):
         return winograd_fused_plain(x, w, padding, bias, activation, addend,
                                     m)
+    _build.refuse_grad(name, x, w, bias, addend)
     v = 16 // x.element_size()
     vec = (C % v == 0 and M % v == 0 and x.data_ptr() % 16 == 0
            and w.data_ptr() % 16 == 0)

@@ -3,6 +3,7 @@ plus the process-index-disciplined multi-device CNN entry
 (``--cnn-dist``).
 
     python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke
+    python -m repro_torch.launch.serve --arch deepseek-moe-16b
     python -m repro_torch.launch.serve --cnn-dist --requests 16
 
 Both run on the card unless ``--device cpu`` is given.

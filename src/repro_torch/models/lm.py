@@ -1,5 +1,5 @@
-"""Causal LM assembly: the JAX package's ``models/lm.py`` for the dense,
-audio, VLM and SSM families.
+"""Causal LM assembly: the JAX package's ``models/lm.py`` for every
+assigned family (dense, MoE, MLA, SSM, hybrid, audio, VLM).
 
 The layer stack follows the reference's *stack plan*: a list of
 segments, each ``(repeats, kinds)`` where ``kinds`` is the repeating
@@ -11,9 +11,8 @@ the forward is a loop.  Remat has no place in inference and is left out.
 Params are plain dicts of tensors on one device (``init_lm`` draws them
 from a ``torch.Generator`` there; ``params_from_numpy`` carries the JAX
 package's ``init_lm`` tree across).  The cache is updated in place by
-prefill and decode.  ``"moe"`` layers (jamba, the deepseek pair) and
-MLA raise ``NotImplementedError``: they wait for the MoE/MLA item of
-ROADMAP queue 1.
+prefill and decode.  The MoE router stays fp32 whatever the params'
+dtype, as in the reference.
 """
 from __future__ import annotations
 
@@ -27,16 +26,12 @@ from repro_torch.core.convspec import resolve_device
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import mamba as S
+from repro_torch.nn import moe as M
 
-#: leaves the reference keeps in fp32 whatever the params' dtype
-FP32_LEAVES = ("scale", "A_log", "D", "dt_bias")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    if cfg.mla or any(mlp == MOE for _, mlp in cfg.layer_kinds()):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers and MLA are not ported yet "
-            f"(the MoE/MLA item of ROADMAP queue 1)")
+#: the leaves the reference keeps in fp32 whatever the params' dtype, by
+#: the tail of their path (the MoE router's weight is named "w", like
+#: every dense weight)
+FP32_LEAVES = (("scale",), ("A_log",), ("D",), ("dt_bias",), ("router", "w"))
 
 
 # ---------------------------------------------------------------------------
@@ -73,27 +68,41 @@ def _layers(cfg):
 def _layer_init(gen, cfg, mixer, mlp, dtype):
     p: Dict[str, Any] = {"ln1": L.rmsnorm_init(cfg.d_model, gen.device)}
     if mixer == ATTN:
-        p["attn"] = A.gqa_init(gen, cfg, dtype)
+        p["attn"] = (A.mla_init(gen, cfg, dtype) if cfg.mla
+                     else A.gqa_init(gen, cfg, dtype))
     else:
         p["ssm"] = S.mamba_init(gen, cfg, dtype)
     if mlp != "none":
         p["ln2"] = L.rmsnorm_init(cfg.d_model, gen.device)
-        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+        if mlp == MOE:
+            p["moe"] = M.moe_init(gen, cfg, dtype)
+        else:
+            p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
     return p
 
 
-def _layer_fwd(p, cfg, mixer, mlp, x, positions, cache, offset, mode):
+def _layer_fwd(p, cfg, mixer, mlp, x, positions, cache, offset, mode,
+               moe_groups=1):
+    """Returns (x, cache, aux); aux is the MoE layer's statistics, empty
+    for any other layer."""
     h = L.rmsnorm_fwd(p["ln1"], x, cfg.rms_norm_eps, cfg.norm_impl)
+    aux = {}
     if mixer == ATTN:
-        out, cache = A.gqa_fwd(p["attn"], cfg, h, positions, cache, offset,
-                               mode)
+        fwd = A.mla_fwd if cfg.mla else A.gqa_fwd
+        out, cache = fwd(p["attn"], cfg, h, positions, cache, offset, mode)
     else:
         out, cache = S.mamba_fwd(p["ssm"], cfg, h, cache, mode)
     x = x + out
     if mlp != "none":
         h2 = L.rmsnorm_fwd(p["ln2"], x, cfg.rms_norm_eps, cfg.norm_impl)
-        x = x + L.mlp_fwd(p["mlp"], h2)
-    return x, cache
+        if mlp == MOE:
+            mo, aux = M.moe_fwd(p["moe"], cfg, h2,
+                                dropless=(mode == "decode"),
+                                n_groups=moe_groups)
+        else:
+            mo = L.mlp_fwd(p["mlp"], h2)
+        x = x + mo
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -102,9 +111,8 @@ def _layer_fwd(p, cfg, mixer, mlp, x, positions, cache, offset, mode):
 def init_lm(cfg: ModelConfig, seed: int = 0, device=None,
             dtype=L.DEFAULT_DTYPE) -> Dict[str, Any]:
     """Random params from ``seed`` on ``device`` (default: the card);
-    dense weights in ``dtype``, norm scales and the SSM's A_log, D and
-    dt_bias in fp32, as the reference."""
-    check_supported(cfg)
+    dense weights in ``dtype``; norm scales, the SSM's A_log, D and
+    dt_bias and the MoE router in fp32, as the reference."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params: Dict[str, Any] = {}
@@ -127,19 +135,19 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
     params on ``device`` (default: the card).
 
     Each ``segments[si]["pos{i}"]`` leaf is unstacked along its leading
-    repeats axis.  Leaves named in ``FP32_LEAVES`` stay fp32; the others
-    take ``dtype`` (default bf16, the reference's: numpy has no bf16, so
-    bf16 leaves arrive as float32, and the bf16 -> fp32 -> bf16 round
-    trip is exact).
+    repeats axis.  Leaves that ``FP32_LEAVES`` names stay fp32; the
+    others take ``dtype`` (default bf16, the reference's: numpy has no
+    bf16, so bf16 leaves arrive as float32, and the bf16 -> fp32 -> bf16
+    round trip is exact).
     """
-    check_supported(cfg)
     dev = resolve_device(device)
     dtype = L.DEFAULT_DTYPE if dtype is None else dtype
 
-    def conv(node, name=""):
+    def conv(node, path=()):
         if isinstance(node, dict):
-            return {k: conv(v, k) for k, v in node.items()}
-        dt = torch.float32 if name in FP32_LEAVES else dtype
+            return {k: conv(v, path + (k,)) for k, v in node.items()}
+        fp32 = any(path[-len(tail):] == tail for tail in FP32_LEAVES)
+        dt = torch.float32 if fp32 else dtype
         return torch.tensor(np.asarray(node, np.float32), device=dev).to(dt)
 
     def unstack(node, r):
@@ -147,7 +155,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
             return {k: unstack(v, r) for k, v in node.items()}
         return np.asarray(node)[r]
 
-    out = {k: conv(v, k) for k, v in tree.items() if k != "segments"}
+    out = {k: conv(v, (k,)) for k, v in tree.items() if k != "segments"}
     out["segments"] = [
         [conv(unstack(seg, r)) for r in range(repeats)]
         for seg, (repeats, _) in zip(tree["segments"], stack_plan(cfg))]
@@ -159,6 +167,9 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
 
 def _layer_cache_shapes(cfg, mixer, batch, max_len, kv_dtype):
     if mixer == ATTN:
+        if cfg.mla:         # one latent: compressed kv and the roped key
+            return ((batch, max_len, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                    kv_dtype)
         kv = ((batch, max_len, cfg.num_kv_heads, cfg.head_dim), kv_dtype)
         return (kv, kv)
     gn = cfg.ssm_groups * cfg.ssm_state
@@ -186,7 +197,6 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
                  kv_dtype=torch.bfloat16):
     """Per segment, ``{"pos{i}": nested (shape, dtype) leaves}`` with the
     leading repeats axis of the reference's stacked cache."""
-    check_supported(cfg)
     return [{f"pos{i}": _map(lambda s: ((repeats,) + s[0], s[1]),
                              _layer_cache_shapes(cfg, mx, batch, max_len,
                                                  kv_dtype))
@@ -211,15 +221,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # Forward
 
 def lm_forward(params, cfg: ModelConfig, batch: Dict[str, Any],
-               cache=None, offset=0, mode="train"):
+               cache=None, offset=0, mode="train", moe_groups=1):
     """Returns (logits, cache, aux).
 
     batch: {'tokens': (B,S) int} or {'embeds': (B,S,D)}; optional
     'positions' ((B,S) or (3,B,S) for M-RoPE), tensors on the params'
-    device.  mode: "train" | "prefill" | "decode".  aux holds the
-    reference's MoE statistics, zero for the ported families.
+    device.  mode: "train" | "prefill" | "decode"; "train" runs no kernel,
+    so autograd differentiates it.  aux holds the reference's MoE
+    statistics, ``load_balance_loss`` and ``dropped_frac``, each summed
+    over the MoE layers (zero without any).
     """
-    check_supported(cfg)
     if cfg.input_mode == "tokens":
         x = L.embed_fwd(params["embed"], batch["tokens"])
         B, Sq = batch["tokens"].shape
@@ -233,15 +244,18 @@ def lm_forward(params, cfg: ModelConfig, batch: Dict[str, Any],
     if positions is None:
         positions = L.make_positions(B, Sq, offset, x.device)
 
+    aux = {"load_balance_loss": torch.zeros((), device=x.device),
+           "dropped_frac": torch.zeros((), device=x.device)}
     for si, r, pos, mixer, mlp in _layers(cfg):
         c = cache[si][r][pos] if cache is not None else None
-        x, _ = _layer_fwd(params["segments"][si][r][pos], cfg, mixer, mlp,
-                          x, positions, c, offset, mode)
+        x, _, layer_aux = _layer_fwd(params["segments"][si][r][pos], cfg,
+                                     mixer, mlp, x, positions, c, offset,
+                                     mode, moe_groups)
+        for k, v in layer_aux.items():
+            aux[k] = aux[k] + v
 
     x = L.rmsnorm_fwd(params["final_norm"], x, cfg.rms_norm_eps,
                       cfg.norm_impl)
-    zero = torch.zeros((), device=x.device)
-    aux = {"load_balance_loss": zero, "dropped_frac": zero}
     if cfg.tie_embeddings:
         logits = torch.matmul(*L.promote(x, params["embed"]["embedding"].T))
     else:
@@ -249,10 +263,10 @@ def lm_forward(params, cfg: ModelConfig, batch: Dict[str, Any],
     return logits, cache, aux
 
 
-def prefill(params, cfg: ModelConfig, batch, cache):
+def prefill(params, cfg: ModelConfig, batch, cache, moe_groups=1):
     """Run the full prompt, writing into a preallocated decode cache."""
     logits, cache, _ = lm_forward(params, cfg, batch, cache=cache, offset=0,
-                                  mode="prefill")
+                                  mode="prefill", moe_groups=moe_groups)
     return logits, cache
 
 

@@ -1,1 +1,3 @@
-"""LM layers: dense, norms, rotary embeddings, GQA attention, Mamba2."""
+"""LM layers: dense, norms, rotary embeddings, GQA and MLA attention,
+mixture of experts, Mamba2."""
+from repro_torch.nn import layers, attention, moe, mamba  # noqa: F401

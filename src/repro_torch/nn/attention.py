@@ -1,21 +1,26 @@
-"""GQA attention (qwen / mistral / musicgen / qwen2-vl).
+"""Attention mixers: GQA (qwen / mistral / musicgen / qwen2-vl) and MLA
+(deepseek-v2).
 
 Three functions compute attention, all numerically equivalent:
   * ``ops.flash_attention``: the hand-written kernel, which ``gqa_fwd``
-    runs in "train" and "prefill" mode at every sequence length.  The
-    JAX package switches there between ``exact_attention`` and its XLA
+    runs in "prefill" mode at every sequence length.  The JAX package
+    switches there between ``exact_attention`` and its XLA
     online-softmax twin ``chunked_attention`` at ``CHUNKED_THRESHOLD``;
     the kernel is the counterpart of both, and reads the kv heads by
     stride instead of repeating them;
   * ``exact_attention`` and ``chunked_attention``: the JAX package's
-    plain versions, kept as references;
+    plain versions.  "train" mode takes them with the reference's own
+    switch at ``CHUNKED_THRESHOLD``: autograd differentiates them, and
+    the kernel has no backward;
   * decode: one query token against the cache, the plain masked einsum
     (the JAX package computes it outside any kernel too), reading the
     (B, Lmax, KVH, D) cache in place by kv head, as ``flash_attention``
     reads it by stride: no key or value is copied or repeated per query
     head.
 
-MLA (deepseek-v2) waits for the MoE/MLA item of ROADMAP queue 1.
+MLA (``mla_fwd``) attends through the plain versions in every mode, as
+the reference does: its q/k head dim (qk_nope + qk_rope) differs from its
+v head dim, which the kernel's single head dim cannot take.
 """
 from __future__ import annotations
 
@@ -57,6 +62,14 @@ def _qkv(p, cfg, x, positions):
     k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections,
                      cfg.rope_impl)
     return q, k, v
+
+
+def _repeat_kv(k, num_heads):
+    """(B, S, KVH, D) -> (B, S, H, D) by head-group broadcast."""
+    B, S, KVH, D = k.shape
+    rep = num_heads // KVH
+    return k[:, :, :, None, :].expand(B, S, KVH, rep, D).reshape(
+        B, S, num_heads, D)
 
 
 def _softmax_attend(q, k, v, valid):
@@ -140,11 +153,21 @@ def chunked_attention(q, k, v, causal=True, chunk=KV_CHUNK):
     return out.transpose(1, 2).to(q.dtype)                  # (B, Sq, H, D)
 
 
+def _plain_attention(cfg, q, k, v):
+    """The reference's switch: ``chunked_attention`` above
+    ``CHUNKED_THRESHOLD`` (unless the config asks for exact attention),
+    ``exact_attention`` up to it.  k, v carry q's head count."""
+    if q.shape[1] > CHUNKED_THRESHOLD and cfg.attn_impl != "exact":
+        return chunked_attention(q, k, v)
+    return exact_attention(q, k, v)
+
+
 def gqa_fwd(p, cfg, x, positions, cache=None, offset=0, mode="train"):
     """Returns (out, cache).
 
-    mode: "train" (no cache), "prefill" (attend within the batch, write
-    the cache at ``offset``), "decode" (attend against the cache).
+    mode: "train" (no cache, the plain differentiable attention),
+    "prefill" (attend within the batch through the kernel, write the
+    cache at ``offset``), "decode" (attend against the cache).
     cache: (k_buf, v_buf) of shape (B, Lmax, KVH, D), updated in place
     (the JAX package donates it to its jitted step instead).  In decode
     ``offset`` may be a 0-d int64 tensor on the cache's device: the
@@ -153,12 +176,14 @@ def gqa_fwd(p, cfg, x, positions, cache=None, offset=0, mode="train"):
     """
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
-    if mode in ("train", "prefill"):
+    if mode == "train":
+        out = _plain_attention(cfg, q, _repeat_kv(k, cfg.num_heads),
+                               _repeat_kv(v, cfg.num_heads))
+    elif mode == "prefill":
         out = ops.flash_attention(q, k, v, causal=True)
-        if mode == "prefill":
-            ck, cv = cache
-            ck[:, offset:offset + S] = k.to(ck.dtype)
-            cv[:, offset:offset + S] = v.to(cv.dtype)
+        ck, cv = cache
+        ck[:, offset:offset + S] = k.to(ck.dtype)
+        cv[:, offset:offset + S] = v.to(cv.dtype)
     else:
         ck, cv = cache                             # (B, Lmax, KVH, D) x2
         qi = offset + torch.arange(S, device=x.device)      # int64 (S,)
@@ -167,4 +192,97 @@ def gqa_fwd(p, cfg, x, positions, cache=None, offset=0, mode="train"):
         ki = torch.arange(ck.shape[1], device=x.device)[None, :]
         out = grouped_attend(q, ck, cv, ki <= qi[:, None])
     out = out.reshape(B, S, cfg.q_dim)
+    return L.dense_fwd(p["wo"], out), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): latent-compressed KV.
+
+def mla_init(gen, cfg, dtype=L.DEFAULT_DTYPE):
+    qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "wq": L.dense_init(gen, cfg.d_model, cfg.num_heads * qk_dim, dtype),
+        "w_dkv": L.dense_init(gen, cfg.d_model,
+                              cfg.kv_lora_rank + cfg.qk_rope_dim, dtype),
+        "kv_norm": L.rmsnorm_init(cfg.kv_lora_rank, gen.device),
+        "w_ukv": L.dense_init(
+            gen, cfg.kv_lora_rank,
+            cfg.num_heads * (cfg.qk_nope_dim + cfg.v_head_dim), dtype),
+        "wo": L.dense_init(gen, cfg.num_heads * cfg.v_head_dim, cfg.d_model,
+                           dtype),
+    }
+
+
+def _mla_qkv(p, cfg, x, positions, latent):
+    """Per-head queries (nope + roped) and the step's new latent
+    (B, S, lora + rope): the normed compressed kv and the roped shared
+    key.  ``latent`` (the cache) is unused, as in the reference."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+    q = L.dense_fwd(p["wq"], x).reshape(B, S, H, qk_dim)
+    q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta,
+                          impl=cfg.rope_impl)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+
+    ckv = L.dense_fwd(p["w_dkv"], x)                       # (B,S,lora+rope)
+    c_kv, k_rope = ckv.split([cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
+    c_kv = L.rmsnorm_fwd(p["kv_norm"], c_kv, cfg.rms_norm_eps,
+                         cfg.norm_impl)
+    k_rope = L.apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta,
+                          impl=cfg.rope_impl)
+    new_latent = torch.cat(L.promote(c_kv, k_rope[:, :, 0, :]), dim=-1)
+    return q, new_latent
+
+
+def _mla_expand(p, cfg, latent):
+    """Expand a latent (B, S, lora + rope) -> per-head K (nope + rope)
+    and V."""
+    B, S, _ = latent.shape
+    H = cfg.num_heads
+    c_kv, k_rope = latent.split([cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
+    kv = L.dense_fwd(p["w_ukv"], c_kv).reshape(
+        B, S, H, cfg.qk_nope_dim + cfg.v_head_dim)
+    k_nope, v = kv.split([cfg.qk_nope_dim, cfg.v_head_dim], dim=-1)
+    k_rope = k_rope[:, :, None, :].expand(B, S, H, cfg.qk_rope_dim)
+    k = torch.cat(L.promote(k_nope, k_rope), dim=-1)
+    return k, v
+
+
+def mla_fwd(p, cfg, x, positions, cache=None, offset=0, mode="train"):
+    """Returns (out, cache).
+
+    The port of the reference's XLA path, not a fallback from a kernel:
+    the reference's MLA never reaches its Pallas kernel either.  "train"
+    and "prefill" expand the step's latent and attend with
+    ``exact_attention`` (``chunked_attention`` above
+    ``CHUNKED_THRESHOLD``); ``flash_attention`` takes one head dim for
+    q, k and v, and MLA's q/k head dim (qk_nope + qk_rope) is not its v
+    head dim.  cache: the (B, Lmax, kv_lora_rank + qk_rope_dim) latent,
+    written in place at ``offset``.  "decode" writes it with
+    ``index_copy_`` at ``offset`` (a 0-d int64 tensor on the cache's
+    device serves every step from one CUDA graph), expands the whole
+    buffer and masks keys past the query.
+    """
+    B, S, _ = x.shape
+    q, latent = _mla_qkv(p, cfg, x, positions, None)
+    if mode in ("train", "prefill"):
+        k, v = _mla_expand(p, cfg, latent)
+        out = _plain_attention(cfg, q, k, v)
+        if mode == "prefill":
+            cache[:, offset:offset + S] = latent.to(cache.dtype)
+    else:
+        qi = offset + torch.arange(S, device=x.device)      # int64 (S,)
+        cache.index_copy_(1, qi, latent.to(cache.dtype))
+        k, v = _mla_expand(p, cfg, cache)
+        scale = 1.0 / torch.tensor(cfg.qk_nope_dim + cfg.qk_rope_dim,
+                                   dtype=torch.float32).sqrt()
+        scores = torch.einsum("bqhd,bkhd->bhqk",
+                              *L.promote(q, k)).float() * scale
+        ki = torch.arange(cache.shape[1], device=x.device)[None, :]
+        scores = scores.masked_fill(~(ki <= qi[:, None]), float("-inf"))
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", *L.promote(w, v))
+    out = out.reshape(B, S, cfg.num_heads * cfg.v_head_dim)
     return L.dense_fwd(p["wo"], out), cache

@@ -10,8 +10,9 @@ The input projections are separate z/x/B/C/dt matrices and the depthwise
 conv has per-stream weights, as in the reference, so params carry across
 by name.  In prefill the three streams' causal conv1d runs the
 hand-written kernel (``ops.conv1d_causal``, the cuConv tap decomposition
-in 1D); decode keeps the reference's K-wide window sum over the cached
-tails.
+in 1D); train mode runs the plain ``causal_conv1d``, which autograd
+differentiates (the kernel has no backward); decode keeps the
+reference's K-wide window sum over the cached tails.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.conv1d_tap import conv1d_tap_plain
 from repro_torch.nn import layers as L
 
 CHUNK = 256
@@ -47,6 +49,16 @@ def mamba_init(gen, cfg, dtype=L.DEFAULT_DTYPE):
         norm=L.rmsnorm_init(d_in, dev),
         out_proj=L.dense_init(gen, d_in, D, dtype))
     return p
+
+
+def causal_conv1d(x, w, b):
+    """Tap-decomposed depthwise causal conv1d, plain PyTorch: the
+    ``conv1d_tap`` kernel's plain version, which autograd differentiates.
+
+    x: (B, L, C); w: (K, C).  y[l] = sum_k w[k] * x[l - K + 1 + k] + b,
+    accumulated in fp32 over the K shifted views, then cast to x.dtype.
+    """
+    return conv1d_tap_plain(x, w, b)
 
 
 def _conv_decode(window, w, b):
@@ -150,8 +162,10 @@ def mamba_fwd(p, cfg, u, cache=None, mode="train"):
     A = -torch.exp(p["A_log"])
 
     if mode in ("train", "prefill"):
-        # y[l] = sum_k w[k] x[l-K+1+k] + b in fp32, through the kernel
-        x, Bc, Cc = (F.silu(ops.conv1d_causal(raw, p[n]["w"], p[n]["b"]))
+        # y[l] = sum_k w[k] x[l-K+1+k] + b in fp32: prefill through the
+        # kernel, train through the differentiable plain version
+        conv = ops.conv1d_causal if mode == "prefill" else causal_conv1d
+        x, Bc, Cc = (F.silu(conv(raw, p[n]["w"], p[n]["b"]))
                      for raw, n in ((x_raw, "conv_x"), (B_raw, "conv_B"),
                                     (C_raw, "conv_C")))
         dt = F.softplus(dt_raw.float() + p["dt_bias"])

@@ -41,6 +41,9 @@ _STORE = JsonCache("calibration.json")
 # keyed on it re-resolve after a recalibration
 _GENERATION = [0]
 
+#: collection effort: passes over a sample batch and nodes observed
+CALIB_STATS = {"collections": 0, "observed_nodes": 0}
+
 _BATCH_RE = re.compile(r"(?:(?<=:)|^)n\d+h")     # conv key batch dim
 _INSHAPE_RE = re.compile(r"in\(\d+,")            # graph input batch dim
 _DTYPE_RE = re.compile(r"-(float\d+|bfloat16|int8)-")
@@ -54,6 +57,14 @@ def generation() -> int:
 def clear_cache() -> None:
     """Drop the in-memory mirror (tests); the JSON file is untouched."""
     _STORE.clear()
+
+
+def reset_calib_stats() -> dict:
+    """Zero ``CALIB_STATS``; returns the counts before."""
+    old = dict(CALIB_STATS)
+    for k in CALIB_STATS:
+        CALIB_STATS[k] = 0
+    return old
 
 
 def normalized_spec(spec) -> str:
@@ -151,11 +162,13 @@ class Calibrator:
             if name in specs:
                 observed[name] = np.abs(value.detach().float().cpu().numpy())
 
+        CALIB_STATS["collections"] += 1
         graph_plan.run(input_tensor(self.x, self.params), self.params,
                        observe=observe)
         pct_key = f"{self.percentile:g}"
         entries = {}
         for name, mag in observed.items():
+            CALIB_STATS["observed_nodes"] += 1
             entries[name] = record_calibration(
                 key_graph, name, specs[name],
                 amax=float(mag.max()) if mag.size else 0.0,

@@ -13,9 +13,11 @@ cache to them.  Here, on the card, each is captured as a CUDA graph
 after that length's first eager wave, and one decode graph, captured
 after the first eager step, over static tokens and a 0-d int64 offset
 tensor; both update the engine's cache buffers in place inside the
-graph.  On the CPU both run eagerly.  Prefill attention and the Mamba2
-prefill conv run the hand-written kernels (``flash_attention``,
-``conv1d_tap``).  Sampling stays outside the graphs and reads their
+graph.  On the CPU both run eagerly.  GQA prefill attention and the
+Mamba2 prefill conv run the hand-written kernels (``flash_attention``,
+``conv1d_tap``); MLA attends through the plain versions, as the
+reference does, and the MoE layers route with static shapes, so both
+graphs capture them.  Sampling stays outside the graphs and reads their
 static last-position logits.
 """
 from __future__ import annotations

@@ -959,3 +959,137 @@ def test_async_frontend_on_card_matches_cpu_and_sharded_one_card():
     assert st["overlapped_batches"] >= 1 and st["max_inflight"] == 2
     for t in fe.telemetry.requests:
         assert t.compute_ms <= t.total_ms and t.queue_ms <= t.total_ms
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA on the card; train mode's gradients
+
+@requires_cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "deepseek-moe-16b",
+                                  "jamba-v0.1-52b"])
+def test_served_moe_smoke_on_card_matches_cpu(arch):
+    """test_served_lm_smoke_on_card_matches_cpu for the MoE archs, at
+    capacity factor 8 (the empty slots of the last wave are equal rows
+    whose gates differ in their last bits: which of them a binding
+    capacity drops is decided by rounding)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)),
+                              capacity_factor=8.0)
+    params = lm.init_lm(cfg, seed=0, dtype=torch.float32)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (5, 24))
+    logs = []
+    for eng in (ServeEngine(cfg, params, slots=2, max_len=40),
+                ServeEngine(cfg, _cpu(params), slots=2, max_len=40,
+                            device="cpu")):
+        log = []
+        for name in ("_prefill", "_decode"):
+            def wrapped(*a, fn=getattr(eng, name)):
+                logits, cache = fn(*a)
+                log.append(logits.float().cpu())
+                return logits, cache
+            setattr(eng, name, wrapped)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(i, p.astype(np.int32), max_new_tokens=6))
+        assert len(eng.run(prompt_len=24)) == 5
+        logs.append(log)
+    n_gqa = 0 if cfg.mla else sum(mx == "attn" for mx, _ in cfg.layer_kinds())
+    assert _build.LAUNCHES["flash_attention"] == n_gqa * 3
+    assert len(logs[0]) == len(logs[1]) == 3 * 6
+    for card, cpu in zip(*logs):
+        assert (card - cpu).abs().max() <= 1e-2 * cpu.abs().max()
+
+
+@requires_cuda
+def test_moe_fwd_on_card_repeats_its_bits_and_replays_them():
+    """deepseek-moe-16b's MoE layer at full width in bf16 on a prefill
+    wave (4 x 512 tokens, the capacity path) and a dropless decode step:
+    two eager calls give the same bits, and a CUDA graph's replay gives
+    them too.  The decode step is within the bf16 bound of the CPU's on
+    the same params and inputs (in the wave, a gate a rounding apart at
+    an expert's capacity cut would drop another token)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.nn import moe as M
+    cfg = get_config("deepseek-moe-16b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = M.moe_init(gen, cfg)
+    for B, S, dropless in ((4, 512, False), (4, 1, True)):
+        x = torch.randn((B, S, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        a, aux = M.moe_fwd(p, cfg, x, dropless=dropless)
+        b, _ = M.moe_fwd(p, cfg, x, dropless=dropless)
+        assert torch.equal(a, b)
+        static = x.clone()
+        g = torch.cuda.CUDAGraph()
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            M.moe_fwd(p, cfg, static, dropless=dropless)     # warm
+        torch.cuda.current_stream().wait_stream(s)
+        with torch.cuda.graph(g):
+            out, _ = M.moe_fwd(p, cfg, static, dropless=dropless)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, a)
+        if dropless:
+            cpu, caux = M.moe_fwd(_cpu(p), cfg, x.cpu().float(),
+                                  dropless=True)
+            assert (a.float().cpu() - cpu).abs().max() <= \
+                3e-2 * max(1.0, cpu.abs().max().item())
+            assert float(aux["dropped_frac"]) == float(
+                caux["dropped_frac"]) == 0.0
+        else:
+            assert 0.0 <= float(aux["dropped_frac"]) < 0.5
+
+
+@requires_cuda
+def test_flash_wrapper_refuses_grad_on_the_card():
+    q = torch.zeros((1, 16, 2, 64), device="cuda", requires_grad=True)
+    kv = torch.zeros((1, 16, 1, 64), device="cuda")
+    with pytest.raises(RuntimeError, match="flash_attention: an input "
+                                           "requires grad"):
+        flash_attention.flash_attention(q, kv, kv)
+    with torch.no_grad():
+        flash_attention.flash_attention(q, kv, kv)
+    assert _build.LAUNCHES["flash_attention"] == 1
+
+
+@requires_cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b",
+                                  "deepseek-moe-16b"])
+def test_train_mode_on_card_has_the_cpus_gradients(arch):
+    """lm_forward(mode="train") on the card launches no kernel and its
+    fp32 gradients match the CPU's (TF32 off)."""
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.models import lm
+    cfg = smoke_variant(get_config(arch))
+    params = lm.init_lm(cfg, seed=0, dtype=torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    grads = []
+    for p in (params, _cpu(params)):
+        leaves = []
+        _leaves(p, leaves)
+        for t in leaves:
+            t.requires_grad_(True)
+        logits, _, aux = lm.lm_forward(p, cfg, {"tokens":
+                                                toks.to(leaves[0].device)})
+        loss = logits.float().square().mean() + aux["load_balance_loss"]
+        grads.append(torch.autograd.grad(loss, leaves))
+    assert sum(_build.LAUNCHES.values()) == 0
+    for card, cpu in zip(*grads):
+        assert (card.cpu() - cpu).abs().max() <= \
+            2e-4 * max(1.0, cpu.abs().max().item())
+
+
+def _leaves(node, out):
+    if isinstance(node, dict):
+        for v in node.values():
+            _leaves(v, out)
+    elif isinstance(node, list):
+        for v in node:
+            _leaves(v, out)
+    else:
+        out.append(node)

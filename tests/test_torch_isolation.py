@@ -142,3 +142,89 @@ def test_build_dir_is_inside_the_checkout_and_ignored():
     assert "build/" in ignored
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == sorted(
         f"{n}.cu" for n in _build.LIBRARIES)
+
+
+# ---------------------------------------------------------------------------
+# the reference's public names, module by module
+
+REF = PKG.parent / "repro"
+#: reference module -> the port's module of another name
+RENAMED = {"kernels/winograd_pallas.py": "kernels/winograd_fused.py"}
+#: names the port lacks on purpose, with the reason
+ABSENT = {
+    "core/executors.py": {
+        "FUSED_VMEM_BUDGET": "the TPU's 12 MB VMEM budget; Hopper's "
+                             "limits are _build.SMEM_LIMIT and registers"},
+    "kernels/_compat.py": {
+        "CompilerParams": "Pallas TPU compiler params; nvcc flags live in "
+                          "_build._command"},
+    "kernels/cuconv_fused.py": {
+        "vmem_bytes": "the Pallas kernel's VMEM footprint; the CUDA "
+                      "kernel's is smem_bytes / launch_geometry"},
+    "kernels/direct_conv.py": {
+        "vmem_bytes": "as cuconv_fused: smem_bytes / launch_geometry"},
+    "kernels/winograd_pallas.py": {
+        "vmem_bytes": "as cuconv_fused: launch_geometry's smem"},
+    "kernels/ops.py": {
+        "int8_gemm": "removed as unused when the int8 executor became one "
+                     "int8_conv launch per node"},
+}
+#: modules ported in part: the names still to come (ROADMAP queue 1,
+#: training and analysis)
+PARTIAL = {
+    "dist/sharding.py": {"batch_specs", "cache_specs", "logical_axes",
+                         "make_rules", "named", "opt_specs", "param_specs"},
+    "launch/mesh.py": {"make_debug_mesh", "make_production_mesh"},
+    "models/lm.py": {"cross_entropy", "cross_entropy_chunked", "train_loss"},
+    "nn/layers.py": {"maybe_constrain"},
+}
+#: reference modules not ported yet (ROADMAP queue 1, training and
+#: analysis)
+NOT_PORTED = {"data/__init__.py", "data/pipeline.py", "dist/compress.py",
+              "launch/dryrun.py", "launch/steps.py", "launch/train.py",
+              "optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
+              "roofline/__init__.py", "roofline/analysis.py",
+              "train/__init__.py", "train/checkpoint.py",
+              "train/trainer.py"}
+REF_MODULES = sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py"))
+
+
+def _public_names(path):
+    """Top-level public names a module defines (and, in an __init__,
+    re-exports)."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            out.update(n.id for t in targets for n in ast.walk(t)
+                       if isinstance(n, ast.Name))
+        elif isinstance(node, ast.ImportFrom) and path.name == "__init__.py":
+            out.update(a.asname or a.name for a in node.names)
+    return {n for n in out if not n.startswith("_")}
+
+
+def test_the_module_lists_cover_the_reference():
+    assert len(REF_MODULES) > 50
+    port = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    for rel in REF_MODULES:
+        assert (rel in NOT_PORTED) != (RENAMED.get(rel, rel) in port), rel
+    assert set(ABSENT) | set(PARTIAL) <= set(REF_MODULES)
+
+
+@pytest.mark.parametrize("rel", [m for m in REF_MODULES
+                                 if m not in NOT_PORTED])
+def test_the_port_has_every_public_name_of_the_reference(rel):
+    """Every public top-level name of a ported reference module exists in
+    the port's module, less the deliberate absences (each with its
+    reason) and, for a module ported in part, the names still to come;
+    neither list names a name the port has."""
+    want = _public_names(REF / rel)
+    have = _public_names(PKG / RENAMED.get(rel, rel))
+    absent, partial = set(ABSENT.get(rel, {})), PARTIAL.get(rel, set())
+    assert absent | partial <= want, rel
+    assert not (absent | partial) & have, rel
+    assert want - have == absent | partial, rel

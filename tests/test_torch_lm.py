@@ -3,10 +3,11 @@ prefill/decode) with the JAX package, on the CPU at smoke size.
 
 Params come from the JAX package's ``init_lm`` and cross as numpy
 (``params_from_numpy``); model comparisons run fp32 params, as
-tests/test_models.py does, at its 2e-4 bound.  The port's attention
-runs the flash kernel's plain version at every length where the
-reference takes ``exact_attention`` (or ``chunked_attention`` above
-``CHUNKED_THRESHOLD``).
+tests/test_models.py does, at its 2e-4 bound.  In prefill the port's
+GQA attention runs the flash kernel's plain version at every length
+where the reference takes ``exact_attention`` (or ``chunked_attention``
+above ``CHUNKED_THRESHOLD``); in train mode it takes the reference's
+own switch, and autograd's gradients match ``jax.grad``'s.
 """
 import dataclasses
 
@@ -26,9 +27,12 @@ from repro_torch.models import lm
 from repro_torch.nn import attention as tattn
 
 ALL_ARCHS = jbase.list_archs()
-#: every arch with neither MoE nor MLA
+#: every arch: dense, MoE, MLA, SSM, hybrid, audio, VLM
 PORTED = ["qwen2-72b", "mistral-large-123b", "qwen2-1.5b", "qwen3-14b",
-          "musicgen-large", "qwen2-vl-2b", "mamba2-1.3b"]
+          "musicgen-large", "qwen2-vl-2b", "mamba2-1.3b",
+          "deepseek-v2-lite-16b", "deepseek-moe-16b", "jamba-v0.1-52b"]
+#: the archs with MoE layers (and MLA: deepseek-v2-lite)
+MOE_ARCHS = ["deepseek-v2-lite-16b", "deepseek-moe-16b", "jamba-v0.1-52b"]
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
@@ -44,9 +48,10 @@ def fp32_params(cfg, seed):
         jlm.init_lm(cfg, jax.random.PRNGKey(seed)))
 
 
-def both_configs(arch):
-    return (jbase.smoke_variant(jbase.get_config(arch)),
-            tbase.smoke_variant(tbase.get_config(arch)))
+def both_configs(arch, **kw):
+    return tuple(dataclasses.replace(
+        base.smoke_variant(base.get_config(arch)), **kw)
+        for base in (jbase, tbase))
 
 
 def make_batch(cfg, B, S, rng):
@@ -101,7 +106,7 @@ def test_config_parity(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b",
-                                  "qwen2-vl-2b"])
+                                  "qwen2-vl-2b"] + MOE_ARCHS)
 def test_params_from_numpy_round_trip(arch):
     """Unstacked per layer, bf16 leaves exact, fp32 leaves fp32."""
     jcfg, tcfg = both_configs(arch)
@@ -131,9 +136,14 @@ def test_params_from_numpy_round_trip(arch):
                                           np.asarray(leaf, np.float32))
         seen.add(keys[-1])
     assert "scale" in seen
+    if tcfg.num_experts:        # the router's "w" arrived fp32
+        moe = [layer["moe"] for seg in tp["segments"] for rep in seg
+               for layer in rep.values() if "moe" in layer]
+        assert moe and all(m["router"]["w"].dtype == torch.float32
+                           for m in moe)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"] + MOE_ARCHS)
 def test_cache_shapes_match_reference(arch):
     jcfg, tcfg = both_configs(arch)
     jshapes = jlm.cache_shapes(jcfg, 3, 20)
@@ -145,7 +155,7 @@ def test_cache_shapes_match_reference(arch):
     assert [(tuple(s.shape), str(s.dtype)) for s in jleaves] == [
         (shape, str(dt)[6:]) for shape, dt in tleaves]
     cache = lm.init_cache(tcfg, 3, 20, device="cpu")
-    assert len(cache[0]) == tcfg.num_layers
+    assert sum(len(seg) * len(seg[0]) for seg in cache) == tcfg.num_layers
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -155,20 +165,25 @@ def test_lm_forward_matches_reference(arch, rng):
     tp = lm.params_from_numpy(tree_numpy(jp), tcfg, device="cpu",
                               dtype=torch.float32)
     batch = make_batch(jcfg, 2, 16, rng)
-    want, _, _ = jlm.lm_forward(jp, jcfg, to_j(batch))
+    want, _, jaux = jlm.lm_forward(jp, jcfg, to_j(batch))
     got, _, aux = lm.lm_forward(tp, tcfg, to_t(batch))
     assert got.shape == (2, 16, tcfg.padded_vocab)
     np.testing.assert_allclose(np32(got), np32(want), **TOL)
-    assert float(aux["load_balance_loss"]) == 0.0
+    for k in ("load_balance_loss", "dropped_frac"):
+        np.testing.assert_allclose(float(aux[k]), float(jaux[k]), rtol=1e-6,
+                                   atol=1e-6)
+    if not tcfg.num_experts:
+        assert float(aux["load_balance_loss"]) == 0.0
     assert sum(_build.LAUNCHES.values()) == 0
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"] + MOE_ARCHS)
 def test_prefill_and_decode_match_reference(arch, rng):
     """tests/test_models.py's construction through both packages: the
     prefill logits and 4 decode steps (fp32 cache) against the
-    reference's own, and against the teacher-forced forward."""
-    jcfg, tcfg = both_configs(arch)
+    reference's own, and against the teacher-forced forward (at its
+    capacity factor 8, so the forward drops no token either)."""
+    jcfg, tcfg = both_configs(arch, capacity_factor=8.0)
     jp = fp32_params(jcfg, 1)
     tp = lm.params_from_numpy(tree_numpy(jp), tcfg, device="cpu",
                               dtype=torch.float32)
@@ -190,20 +205,23 @@ def test_prefill_and_decode_match_reference(arch, rng):
         np.testing.assert_allclose(np32(tl), np32(jl), **TOL)
         np.testing.assert_allclose(np32(tl[:, 0]),
                                    np32(full_logits[:, S + t]), **TOL)
-    # the in-place cache holds what the reference's returned cache holds
-    jleaves = jax.tree.leaves(jcache)
-    tleaves = [t for seg in tcache for rep in seg for pos in rep.values()
-               for t in jax.tree.leaves(pos)]
-    assert len(jleaves) == len(tleaves) // tcfg.num_layers
-    for i, j in enumerate(jleaves):
-        stacked = np.stack([np32(tleaves[i + len(jleaves) * r])
-                            for r in range(tcfg.num_layers)])
-        np.testing.assert_allclose(stacked, np32(j), **TOL)
+    # the in-place cache holds what the reference's returned cache holds,
+    # segment by segment and position by position (stacked over repeats)
+    n = 0
+    for jseg, tseg in zip(jcache, tcache):
+        for pos, jpos in jseg.items():
+            jleaves = jax.tree.leaves(jpos)
+            per_rep = [jax.tree.leaves(rep[pos]) for rep in tseg]
+            for i, j in enumerate(jleaves):
+                stacked = np.stack([np32(leaves[i]) for leaves in per_rep])
+                np.testing.assert_allclose(stacked, np32(j), **TOL)
+                n += 1
+    assert n == len(jax.tree.leaves(jcache))
 
 
 def test_gqa_fwd_above_the_chunked_threshold_matches_reference(rng):
-    """S = 2056 > CHUNKED_THRESHOLD: the reference takes
-    chunked_attention (3 KV chunks), the port the flash kernel."""
+    """S = 2056 > CHUNKED_THRESHOLD in train mode: both packages take
+    chunked_attention (3 KV chunks)."""
     jcfg, tcfg = both_configs("qwen2-1.5b")
     S = tattn.CHUNKED_THRESHOLD + 8
     assert S > jattn.CHUNKED_THRESHOLD
@@ -233,16 +251,6 @@ def test_chunked_attention_matches_reference(rng, chunk):
         *(jnp.asarray(a) for a in (q, k, v)))), rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v2-lite-16b",
-                                  "deepseek-moe-16b"])
-def test_moe_and_mla_wait_for_their_slice(arch):
-    cfg = tbase.smoke_variant(tbase.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_lm(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init_cache(cfg, 1, 8, device="cpu")
-
-
 @pytest.mark.parametrize("head_dim,theta", [(16, 1e6), (64, 1e4),
                                             (128, 1e6)])
 def test_rope_freqs_match_reference(head_dim, theta):
@@ -253,3 +261,214 @@ def test_rope_freqs_match_reference(head_dim, theta):
     want = np.asarray(jlayers.rope_freqs(head_dim, theta), np.float32)
     np.testing.assert_array_equal(
         tlayers.rope_freqs(head_dim, theta).numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# MLA, the MoE archs' statistics, and train mode's gradients
+
+def _mla_params(jcfg, seed):
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32),
+                      jattn.mla_init(jax.random.PRNGKey(seed), jcfg))
+    return jp, jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jp)
+
+
+@pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
+def test_mla_fwd_matches_reference(mode, rng):
+    """The same fp32 params and inputs through both ``mla_fwd``s: the
+    output and, in prefill and decode, the latent cache (fp32), within
+    2e-5.  Decode writes one token at offset S after a prefill of S."""
+    jcfg, tcfg = both_configs("deepseek-v2-lite-16b")
+    jp, tp = _mla_params(jcfg, 5)
+    B, S, MAX = 2, 10, 16
+    x = rng.normal(size=(B, S + 1, jcfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S + 1, dtype=np.int32), (B, S + 1))
+    width = jcfg.kv_lora_rank + jcfg.qk_rope_dim
+    jcache = tcache = None                   # train mode takes no cache
+    if mode != "train":
+        jcache = jnp.zeros((B, MAX, width), jnp.float32)
+        tcache = torch.zeros((B, MAX, width))
+    n = S + 1 if mode == "train" else S
+    want, jcache = jattn.mla_fwd(jp, jcfg, jnp.asarray(x[:, :n]),
+                                 jnp.asarray(pos[:, :n]), jcache, 0,
+                                 "train" if mode == "train" else "prefill")
+    got, tcache = tattn.mla_fwd(tp, tcfg, torch.from_numpy(x[:, :n]),
+                                torch.from_numpy(pos[:, :n].copy()), tcache,
+                                0, "train" if mode == "train" else "prefill")
+    if mode == "decode":
+        want, jcache = jattn.mla_fwd(jp, jcfg, jnp.asarray(x[:, S:]),
+                                     jnp.asarray(pos[:, S:]), jcache, S,
+                                     "decode")
+        got, tcache = tattn.mla_fwd(
+            tp, tcfg, torch.from_numpy(x[:, S:]),
+            torch.from_numpy(pos[:, S:].copy()), tcache,
+            torch.tensor(S), "decode")
+    np.testing.assert_allclose(np32(got), np32(want), rtol=2e-5, atol=2e-5)
+    if mode != "train":
+        np.testing.assert_allclose(np32(tcache), np32(jcache), rtol=2e-5,
+                                   atol=2e-5)
+    else:
+        assert tcache is None and jcache is None
+
+
+def test_mla_fwd_above_the_chunked_threshold_matches_reference(rng):
+    """S = 2056 > CHUNKED_THRESHOLD: both packages expand the latent and
+    take chunked_attention, q/k head dim 24 against v head dim 16."""
+    jcfg, tcfg = both_configs("deepseek-v2-lite-16b")
+    jp, tp = _mla_params(jcfg, 6)
+    S = tattn.CHUNKED_THRESHOLD + 8
+    x = rng.normal(size=(1, S, jcfg.d_model)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)[None]
+    want, _ = jattn.mla_fwd(jp, jcfg, jnp.asarray(x), jnp.asarray(pos))
+    got, _ = tattn.mla_fwd(tp, tcfg, torch.from_numpy(x),
+                           torch.from_numpy(pos))
+    np.testing.assert_allclose(np32(got), np32(want), rtol=2e-5, atol=2e-5)
+
+
+def test_gqa_prefill_above_the_chunked_threshold_matches_reference(rng):
+    """S = 2056 in prefill: the reference takes chunked_attention, the
+    port the flash kernel (its plain version here); the caches agree."""
+    jcfg, tcfg = both_configs("qwen2-1.5b")
+    S = tattn.CHUNKED_THRESHOLD + 8
+    jp = jax.tree.map(lambda a: a.astype(jnp.float32),
+                      jattn.gqa_init(jax.random.PRNGKey(3), jcfg))
+    tp = jax.tree.map(lambda a: torch.from_numpy(np.array(a)), jp)
+    x = rng.normal(size=(1, S, jcfg.d_model)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)[None]
+    shape = (1, S, jcfg.num_kv_heads, jcfg.head_dim)
+    jc = (jnp.zeros(shape), jnp.zeros(shape))
+    tc = (torch.zeros(shape), torch.zeros(shape))
+    want, jc = jattn.gqa_fwd(jp, jcfg, jnp.asarray(x), jnp.asarray(pos), jc,
+                             0, "prefill")
+    got, tc = tattn.gqa_fwd(tp, tcfg, torch.from_numpy(x),
+                            torch.from_numpy(pos), tc, 0, "prefill")
+    np.testing.assert_allclose(np32(got), np32(want), rtol=2e-5, atol=2e-5)
+    for a, b in zip(tc, jc):
+        np.testing.assert_allclose(np32(a), np32(b), rtol=2e-5, atol=2e-5)
+    assert _build.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("mode", ["train", "prefill"])
+def test_lm_aux_matches_reference(arch, mode, rng):
+    """The MoE statistics of lm_forward, summed over the MoE layers as
+    the reference sums them, at the capacity path's default factor."""
+    jcfg, tcfg = both_configs(arch)
+    jp = fp32_params(jcfg, 2)
+    tp = lm.params_from_numpy(tree_numpy(jp), tcfg, device="cpu",
+                              dtype=torch.float32)
+    batch = make_batch(jcfg, 2, 16, rng)
+    jcache = tcache = None
+    if mode == "prefill":
+        jcache = jlm.init_cache(jcfg, 2, 16, kv_dtype=jnp.float32)
+        tcache = lm.init_cache(tcfg, 2, 16, kv_dtype=torch.float32,
+                               device="cpu")
+    _, _, jaux = jlm.lm_forward(jp, jcfg, to_j(batch), jcache, 0, mode,
+                                moe_groups=2)
+    _, _, aux = lm.lm_forward(tp, tcfg, to_t(batch), tcache, 0, mode,
+                              moe_groups=2)
+    for k in ("load_balance_loss", "dropped_frac"):
+        np.testing.assert_allclose(float(aux[k]), float(jaux[k]), rtol=1e-6,
+                                   atol=1e-6)
+    n_moe = sum(mlp == "moe" for _, mlp in tcfg.layer_kinds())
+    assert float(aux["load_balance_loss"]) > 0.9 * n_moe
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b",
+                                  "deepseek-moe-16b", "deepseek-v2-lite-16b"])
+def test_train_mode_gradients_match_jax_grad(arch, rng):
+    """A loss through lm_forward(mode="train") (a fixed random projection
+    of the logits, plus the load-balance loss where there are experts):
+    every param's gradient from autograd equals jax.grad's, and no
+    kernel launches (train mode takes the plain versions, which
+    autograd differentiates)."""
+    jcfg, tcfg = both_configs(arch)
+    jp = fp32_params(jcfg, 3)
+    tp = lm.params_from_numpy(tree_numpy(jp), tcfg, device="cpu",
+                              dtype=torch.float32)
+    batch = make_batch(jcfg, 2, 12, rng)
+    r = rng.normal(size=(2, 12, jcfg.padded_vocab)).astype(np.float32)
+
+    def jloss(p):
+        logits, _, aux = jlm.lm_forward(p, jcfg, to_j(batch))
+        return jnp.sum(logits * r) + aux["load_balance_loss"]
+    jgrads = jax.grad(jloss)(jp)
+
+    leaves = []
+
+    def track(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                track(v)
+        elif isinstance(node, list):
+            for v in node:
+                track(v)
+        else:
+            leaves.append(node.requires_grad_(True))
+    track(tp)
+    logits, _, aux = lm.lm_forward(tp, tcfg, to_t(batch))
+    loss = torch.sum(logits * torch.from_numpy(r)) + aux["load_balance_loss"]
+    loss.backward()
+    assert sum(_build.LAUNCHES.values()) == 0
+
+    checked = 0
+    for path, want in jax.tree_util.tree_leaves_with_path(jgrads):
+        keys = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
+        if keys[0] == "segments":
+            si, pos, rest = keys[1], keys[2], keys[3:]
+            nodes = [tp["segments"][si][rep][pos]
+                     for rep in range(want.shape[0])]
+        else:
+            rest, nodes = keys, [tp]
+            want = want[None]
+        for rep, node in enumerate(nodes):
+            for k in rest:
+                node = node[k]
+            assert node.grad is not None, keys
+            scale = max(1.0, float(np.abs(np32(want[rep])).max()))
+            np.testing.assert_allclose(np32(node.grad), np32(want[rep]),
+                                       rtol=2e-4, atol=2e-5 * scale,
+                                       err_msg=str(keys))
+            checked += 1
+    assert checked == len(leaves)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b",
+                                  "deepseek-moe-16b", "deepseek-v2-lite-16b",
+                                  "jamba-v0.1-52b"])
+def test_num_params_counts_what_init_lm_draws(arch):
+    """tests/test_models.py's check on the port: the analytic count is
+    what init_lm draws, in both packages.  ``num_params`` (the
+    reference's, unchanged) leaves out MLA's kv_norm scale, one
+    kv_lora_rank vector per layer: both packages draw it."""
+    jcfg, tcfg = both_configs(arch)
+    drawn = lm.init_lm(tcfg, device="cpu")
+    actual = 0
+
+    def count(node):
+        nonlocal actual
+        if isinstance(node, dict):
+            for v in node.values():
+                count(v)
+        elif isinstance(node, list):
+            for v in node:
+                count(v)
+        else:
+            actual += node.numel()
+    count(drawn)
+    jactual = sum(x.size for x in jax.tree.leaves(
+        jlm.init_lm(jcfg, jax.random.PRNGKey(0))))
+    kv_norm = tcfg.num_layers * tcfg.kv_lora_rank if tcfg.mla else 0
+    assert actual == jactual == tcfg.num_params() + kv_norm
+
+
+@pytest.mark.parametrize("L,K", [(16, 4), (3, 4), (9, 2)])
+def test_causal_conv1d_matches_reference(L, K, rng):
+    """Mamba2's plain conv (train mode's) against the reference's."""
+    from repro.nn import mamba as jmamba
+    from repro_torch.nn import mamba as tmamba
+    x, w, b = (rng.normal(size=s).astype(np.float32)
+               for s in ((2, L, 6), (K, 6), (6,)))
+    want = jmamba.causal_conv1d(jnp.asarray(x), jnp.asarray(w),
+                                jnp.asarray(b))
+    got = tmamba.causal_conv1d(*(torch.from_numpy(a) for a in (x, w, b)))
+    np.testing.assert_allclose(np32(got), np32(want), rtol=2e-5, atol=2e-5)

@@ -7,6 +7,8 @@ Each engine's prefill and decode logits are recorded and compared at
 2e-4; sampled tokens must agree wherever the top-2 margin of the
 reference's logits exceeds that bound.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,9 +28,10 @@ from repro_torch.serve.engine import Request, ServeEngine
 BOUND = 2e-4
 
 
-def _models(arch, seed=0):
-    jcfg = jbase.smoke_variant(jbase.get_config(arch))
-    tcfg = tbase.smoke_variant(tbase.get_config(arch))
+def _models(arch, seed=0, **kw):
+    jcfg, tcfg = (dataclasses.replace(
+        base.smoke_variant(base.get_config(arch)), **kw)
+        for base in (jbase, tbase))
     jp = jax.tree.map(
         lambda a: a.astype(jnp.float32) if a.dtype == jnp.bfloat16 else a,
         jlm.init_lm(jcfg, jax.random.PRNGKey(seed)))
@@ -58,9 +61,16 @@ def _serve(eng, prompts, new_tokens, prompt_len, request_cls):
     return {r.rid: r.out_tokens for r in done}, log
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b",
+                                  "deepseek-v2-lite-16b", "deepseek-moe-16b"])
 def test_engine_matches_reference(arch, rng):
-    jcfg, jp, tcfg, tp = _models(arch)
+    """The MoE archs run at tests/test_models.py's capacity factor 8, so
+    no expert drops a token: a wave's empty slots are rows of token 0
+    whose gates differ between positions only in their last bits, and
+    which of them a binding capacity drops is decided by those bits,
+    differently in each package."""
+    jcfg, jp, tcfg, tp = _models(
+        arch, **({"capacity_factor": 8.0} if "deepseek" in arch else {}))
     prompts = [rng.integers(0, jcfg.vocab_size, 8).astype(np.int32)
                for _ in range(7)]
     want, jlog = _serve(JServeEngine(jcfg, jp, slots=3, max_len=32),
@@ -146,4 +156,16 @@ def test_cpu_serving_launches_no_kernel(arch, rng):
     done = eng.run(prompt_len=8)
     assert len(done) == 7 and all(len(r.out_tokens) == 4 for r in done)
     assert all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens)
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "deepseek-moe-16b"])
+def test_launcher_serves_the_deepseek_pair_on_the_cpu(arch, capsys):
+    """``python -m repro_torch.launch.serve --arch <deepseek> --smoke
+    --device cpu``: every request gets its tokens, no kernel launches."""
+    from repro_torch.launch import serve as launcher
+    launcher.main(["--arch", arch, "--smoke", "--device", "cpu",
+                   "--requests", "4"])
+    out = capsys.readouterr().out
+    assert "[serve] 4 requests, 64 tokens" in out
     assert sum(_build.LAUNCHES.values()) == 0

@@ -34,9 +34,10 @@ from repro_torch.configs.cnn_paper import PROFILED
 from repro_torch.core import convspec as tcs
 from repro_torch.core import executors
 from repro_torch.core.winograd import matrices, transform_filters
-from repro_torch.kernels import (_build, conv1x1, cuconv_fused,
+from repro_torch.kernels import (_build, conv1d_tap, conv1x1, cuconv_fused,
                                  cuconv_stage1, cuconv_stage2, direct_conv,
-                                 flash_attention, ops, winograd_fused)
+                                 flash_attention, int8_gemm, ops,
+                                 winograd_fused)
 
 FP32_TOL = 2e-5
 SMS = 132
@@ -733,3 +734,73 @@ def test_int8_wrapper_launches_one_tile_per_block(label, served_int8,
     assert args[22:29] == (geo["bm"], geo["bn"], geo["kc"], int(relu), 1, 1,
                            geo["smem"])
     assert _build.LAUNCHES["int8_gemm"] == 1
+
+
+# ---------------------------------------------------------------------------
+# no kernel launches on an input that requires grad: the kernels have no
+# backward, so their output would carry no gradient
+
+def _z(*shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+#: kernel name -> (wrapper, its arguments); the first argument is the
+#: one made to require grad
+GRAD_CALLS = {
+    "conv1x1_gemm": (conv1x1.conv1x1_gemm, lambda: (_z(8, 4), _z(4, 8)), {}),
+    "cuconv_fused": (cuconv_fused.cuconv_fused,
+                     lambda: (_z(1, 8, 8, 4), _z(3, 3, 4, 8)),
+                     {"padding": (1, 1)}),
+    "stage1_tap_gemm": (cuconv_stage1.stage1_tap_gemm,
+                        lambda: (_z(9, 16, 4), _z(9, 4, 8)), {}),
+    "stage1_tap_conv": (cuconv_stage1.stage1_tap_conv,
+                        lambda: (_z(1, 6, 6, 4), _z(3, 3, 4, 8)), {}),
+    "stage2_tap_sum": (cuconv_stage2.stage2_tap_sum,
+                       lambda: (_z(9, 16, 8),), {}),
+    "winograd_fused": (winograd_fused.winograd_fused,
+                       lambda: (_z(1, 8, 8, 4), _z(3, 3, 4, 8)), {}),
+    "direct_conv": (direct_conv.direct_conv,
+                    lambda: (_z(1, 8, 8, 4), _z(3, 3, 4, 8)),
+                    {"padding": (1, 1)}),
+    "int8_conv": (int8_gemm.int8_conv,
+                  lambda: (_z(1, 8, 8, 4), _z(8, 3, 3, 4, dtype=torch.int8)),
+                  {"padding": (1, 1), "scale": torch.ones(1),
+                   "w_scales": torch.ones(8)}),
+    "flash_attention": (flash_attention.flash_attention,
+                        lambda: (_z(1, 16, 2, 8), _z(1, 16, 1, 8),
+                                 _z(1, 16, 1, 8)), {}),
+    "conv1d_tap": (conv1d_tap.conv1d_tap,
+                   lambda: (_z(1, 16, 8), _z(4, 8), _z(8)), {}),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(GRAD_CALLS))
+def test_wrapper_refuses_an_input_that_requires_grad(kernel, fake_card):
+    """On the card, a wrapper raises naming its kernel before any launch
+    where grad mode is on and an input requires grad; under no_grad, or
+    with no input requiring grad, it launches; on the CPU its plain
+    version runs and autograd differentiates it."""
+    fn, make, kw = GRAD_CALLS[kernel]
+    args = make()
+    args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match=f"{kernel}: an input requires "
+                                           f"grad"):
+        fn(*args, **kw)
+    assert not fake_card and sum(_build.LAUNCHES.values()) == 0
+    with torch.no_grad():
+        fn(*args, **kw)
+    assert len(fake_card) == 1
+    fn(*(a.detach() for a in args), **kw)
+    assert len(fake_card) == 2
+
+
+# int8_conv's plain version quantizes its input: no gradient flows there
+@pytest.mark.parametrize("kernel", sorted(set(GRAD_CALLS) - {"int8_conv"}))
+def test_wrapper_differentiates_its_plain_version_on_the_cpu(kernel):
+    fn, make, kw = GRAD_CALLS[kernel]
+    args = [a.normal_() if a.is_floating_point() else a for a in make()]
+    args[0].requires_grad_(True)
+    out = fn(*args, **kw)
+    (g,) = torch.autograd.grad(out.float().sum(), args[0])
+    assert g.shape == args[0].shape
+    assert sum(_build.LAUNCHES.values()) == 0
