@@ -63,7 +63,24 @@ calls:
   fp32 (the deepseek pair: one dense layer and three MoE layers), card
   against the CPU, where each MoE layer's top-K expert sets and kept
   tokens are compared first: a token may route differently only where
-  its K-th and (K+1)-th router probabilities on the CPU are within 1e-5.
+  its K-th and (K+1)-th router probabilities on the CPU are within 1e-5;
+- training (``training_phase``): ``qwen2-1.5b`` at full width and depth
+  in bf16 through ``launch.steps.make_train_step`` and
+  ``SyntheticLMData`` (5 steps of 8x512 tokens, its config's grad_accum
+  4, full remat; step ms, tokens/s, 6*N*tokens over the step at 989
+  TFLOP/s, peak memory, losses; the same batch at grad_accum 1 timed
+  beside), where no hand-written kernel may launch (counters, and
+  ``KERNEL_SYMBOLS`` in a ``torch.profiler`` trace of a step); the model
+  cut to 2 layers at full width in fp32, 3 steps on the card and on the
+  CPU from the same params and batches (loss and grad_norm within 1e-4
+  relative, each leaf's update within 1e-2 relative in L2); the cut in
+  bf16 through ``Trainer`` with async checkpoints, resumed by a second
+  trainer (the restored state bit-equal to the saved one, the resumed
+  step-3 loss within 1e-3 of an uninterrupted step 3), the step-3
+  checkpoint served by ``ServeEngine`` through ``params_from_numpy``
+  (``flash_attention`` launched once a layer a wave, tokens equal to an
+  engine's on the trainer's in-memory params); and ``python -m
+  repro_torch.launch.train --smoke`` exiting 0 on the card.
 
 It prints the launch geometry of the seven tensor-core kernels
 (``conv1x1_gemm``, ``cuconv_fused``, ``winograd_fused``,
@@ -258,6 +275,20 @@ KERNEL_SYMBOLS = {"cuconv_fused": "cuconv_fused_kernel",
                   "flash_attention": "flash_attention_kernel",
                   "conv1d_tap": "conv1d_tap_kernel"}
 
+# the training path (launch/steps.py, train/): qwen2-1.5b at full width
+# and depth in bf16, its config's grad_accum, full remat
+TRAIN_ARCH = "qwen2-1.5b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 8, 512
+TRAIN_TIMED_FROM = 1                 # medians over steps 2-5
+# card vs CPU: 2 layers at full width in fp32, TF32 off
+TRAIN_CUT_LAYERS, TRAIN_CPU_STEPS, TRAIN_CPU_ACCUM = 2, 3, 2
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_LR = 2, 128, 3e-3
+TRAIN_CPU_TOL = 1e-4                 # loss and grad_norm, relative
+TRAIN_UPDATE_TOL = 1e-2              # each leaf's p_3 - p_0, relative L2
+# the trainer, checkpoints, resume and serving: the 2-layer cut in bf16
+TRAIN_RESUME_TOL = 1e-3              # resumed step-3 loss, relative
+TRAIN_SERVE_REQUESTS, TRAIN_SERVE_PROMPT, TRAIN_SERVE_NEW = 4, 128, 8
+
 _PHASE = {"name": None, "t0": 0.0, "times": {}}
 
 
@@ -350,6 +381,301 @@ def ptxas_entries(log: str) -> list:
         if m and out:
             out[-1]["registers"] = int(m.group(1))
     return out
+
+
+def training_phase(dev, report, launches, profiled, get_config) -> None:
+    """The training path on the card: qwen2-1.5b at full size through
+    ``make_train_step`` (no hand-written kernel may run); the 2-layer cut
+    in fp32 against the CPU; the ``Trainer`` with async checkpoints,
+    resumed by a second trainer; the step-3 checkpoint served by
+    ``ServeEngine`` (``flash_attention`` launched, the tokens those of the
+    trainer's in-memory params); and ``python -m
+    repro_torch.launch.train`` exiting 0."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.tree import leaves, map_tree
+
+    out = report["train"] = {}
+    cpu = torch.device("cpu")
+    base = get_config(TRAIN_ARCH)
+
+    def clear():
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+
+    def batch_on(data, step, device):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in data.batch_at(step).items()}
+
+    # -- full width and depth, bf16, through make_train_step -------------
+    cfg = dataclasses.replace(base, remat="full")
+    clear()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_lm(cfg, seed=0, device=dev)
+    state = {"params": params, "opt": adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    del params
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    step_fn = make_train_step(cfg, donate=True)
+    _build.reset_launches()
+    ms, losses, norms = [], [], []
+    for s_ in range(TRAIN_STEPS):
+        batch = batch_on(data, s_, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    batch = batch_on(data, TRAIN_STEPS, dev)
+    with profiled(host=False) as prof:
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+    traced = traced_launches(prof)
+    records = device_records(prof)
+    del prof
+    groups = {}
+    for name, t0_, t1_ in records:
+        g = ("gemm" if any(x in name.lower() for x in (
+                 "gemm", "nvjet", "cutlass", "xmma", "sm90")) else
+             "foreach" if "multi_tensor_apply" in name else
+             "reduce" if "reduce" in name.lower() else
+             "copy" if not is_kernel(name) else "elementwise")
+        groups[g] = groups.get(g, 0.0) + (t1_ - t0_) / 1e3
+    step_ms = float(np.median(ms[TRAIN_TIMED_FROM:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = cfg.num_params()
+    mfu = 6 * n * tokens / (step_ms / 1e3) / BF16_FLOP_PER_S
+    busy = busy_ms(records)
+    span = ((records[-1][2] - records[0][1]) / 1e3) if records else 0.0
+    out["full"] = {"arch": TRAIN_ARCH, "params": n,
+                   "state_bytes": state_bytes, "batch": TRAIN_BATCH,
+                   "seq": TRAIN_SEQ, "grad_accum": cfg.grad_accum,
+                   "remat": cfg.remat, "step_ms": ms,
+                   "step_ms_median": step_ms,
+                   "tokens_per_s": tokens / step_ms * 1e3,
+                   "model_flop_share_6N": mfu,
+                   "peak_gib": peak / 2 ** 30, "losses": losses,
+                   "grad_norms": norms, "launches": counts,
+                   "traced_kernels": traced,
+                   "traced_step_device_ms": busy,
+                   "traced_step_device_span_ms": span,
+                   "idle_share_untraced": 1 - busy / step_ms,
+                   "traced_step_kernels": sum(1 for r in records
+                                              if is_kernel(r[0])),
+                   "traced_step_device_ms_by_group": groups}
+    print(f"  {TRAIN_ARCH} (full size, bf16, batch {TRAIN_BATCH}x{TRAIN_SEQ},"
+          f" grad_accum {cfg.grad_accum}, remat {cfg.remat}): "
+          f"{n / 1e9:.3f} B params, state {state_bytes / 2 ** 30:.2f} GiB; "
+          f"step ms {[round(t, 1) for t in ms]}, median of steps "
+          f"{TRAIN_TIMED_FROM + 1}-{TRAIN_STEPS} {step_ms:.2f} ms, "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s, 6*N*tokens over the step "
+          f"at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s: {mfu:.3f}; peak "
+          f"{peak / 2 ** 30:.2f} GiB allocated")
+    print(f"  {TRAIN_ARCH} losses {[round(x, 4) for x in losses]}, grad "
+          f"norms {[round(x, 3) for x in norms]}; launch counters {counts}; "
+          f"kernels of ours in a traced step {traced}; the traced step: "
+          f"{out['full']['traced_step_kernels']} kernels, device busy "
+          f"{busy:.2f} ms of a {span:.2f} ms span; idle share against the "
+          f"untraced median step {1 - busy / step_ms:.3f}; device ms by "
+          f"group {({k: round(v, 2) for k, v in groups.items()})}")
+    # where the step's time goes: the same 4,096 tokens in one micro-batch
+    # (a quarter of the launches), timed, not gated
+    one = make_train_step(dataclasses.replace(cfg, grad_accum=1),
+                          donate=True)
+    one_ms = []
+    for s_ in range(3):
+        batch = batch_on(data, s_, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = one(state, batch)
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    out["full"]["grad_accum_1_step_ms"] = one_ms
+    out["full"]["grad_accum_1_peak_gib"] = \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  the same batch in one micro-batch (grad_accum 1): step ms "
+          f"{[round(t, 1) for t in one_ms]} (the first warms), peak "
+          f"{out['full']['grad_accum_1_peak_gib']:.2f} GiB")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        fail(f"{TRAIN_ARCH} training: non-finite loss or grad norm")
+    if counts or traced:
+        fail(f"{TRAIN_ARCH} training launched hand-written kernels: "
+             f"counters {counts}, trace {traced}")
+    del state, m, batch
+    clear()
+
+    # -- card vs CPU: 2 layers at full width, fp32 ------------------------
+    cut = dataclasses.replace(base, num_layers=TRAIN_CUT_LAYERS,
+                              grad_accum=TRAIN_CPU_ACCUM)
+    p0 = lm.init_lm(cut, seed=0, device=dev, dtype=torch.float32)
+    p0 = map_tree(lambda t: t.cpu(), p0)            # the same numbers
+    data = SyntheticLMData(cut.vocab_size, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ)
+    step_fn = make_train_step(cut, peak_lr=TRAIN_CPU_LR, donate=True)
+    runs = {}
+    for name, device in (("card", dev), ("cpu", cpu)):
+        p = map_tree(lambda t: t.to(device, copy=True), p0)
+        st = {"params": p, "opt": adamw_init(p),
+              "step": torch.zeros((), dtype=torch.int32, device=device)}
+        t0 = time.perf_counter()
+        rows = []
+        for s_ in range(TRAIN_CPU_STEPS):
+            st, m = step_fn(st, batch_on(data, s_, device))
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[name] = (rows, [t.cpu() for t in leaves(st["params"])],
+                      time.perf_counter() - t0)
+        del st, p
+        clear()
+    base_leaves = leaves(p0)
+    worst_metric = max(abs(a - b) / abs(b) for ra, rb in zip(
+        runs["card"][0], runs["cpu"][0]) for a, b in zip(ra, rb))
+    upd = []
+    for a, b, z in zip(runs["card"][1], runs["cpu"][1], base_leaves):
+        da, db = a - z, b - z
+        upd.append(float((da - db).norm() / max(float(db.norm()), 1e-30)))
+    out["card_vs_cpu"] = {"layers": TRAIN_CUT_LAYERS,
+                          "grad_accum": TRAIN_CPU_ACCUM,
+                          "card": runs["card"][0], "cpu": runs["cpu"][0],
+                          "max_rel_loss_or_norm": worst_metric,
+                          "max_rel_update_l2": max(upd),
+                          "card_s": runs["card"][2],
+                          "cpu_s": runs["cpu"][2]}
+    print(f"  card vs CPU ({TRAIN_CUT_LAYERS} layers, fp32, batch "
+          f"{TRAIN_CPU_BATCH}x{TRAIN_CPU_SEQ}, grad_accum {TRAIN_CPU_ACCUM},"
+          f" {TRAIN_CPU_STEPS} steps): (loss, grad_norm) card "
+          f"{runs['card'][0]}, cpu {runs['cpu'][0]}; max relative "
+          f"difference {worst_metric:.2e} (bound {TRAIN_CPU_TOL}); max "
+          f"relative L2 of a leaf's update difference {max(upd):.2e} over "
+          f"{len(upd)} leaves (bound {TRAIN_UPDATE_TOL}); card "
+          f"{runs['card'][2]:.1f} s, cpu {runs['cpu'][2]:.1f} s")
+    if not worst_metric <= TRAIN_CPU_TOL:
+        fail(f"training card vs CPU: loss/grad_norm differ by "
+             f"{worst_metric:.2e} relative")
+    if not max(upd) <= TRAIN_UPDATE_TOL:
+        fail(f"training card vs CPU: a leaf's update differs by "
+             f"{max(upd):.2e} relative in L2")
+    del runs, p0, base_leaves
+    clear()
+
+    # -- the trainer: async checkpoints, resume, serving the checkpoint ---
+    cut = dataclasses.replace(base, num_layers=TRAIN_CUT_LAYERS)
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    run_dir = root / "run"
+    data = SyntheticLMData(cut.vocab_size, TRAIN_BATCH, TRAIN_SERVE_PROMPT)
+    first = Trainer(cut, TrainConfig(steps=2, ckpt_every=2,
+                                     ckpt_dir=str(run_dir), ckpt_async=True,
+                                     log_every=1), data, device=dev)
+    t0 = time.perf_counter()
+    first.run()
+    first_s = time.perf_counter() - t0
+    second = Trainer(cut, TrainConfig(steps=3, ckpt_every=2,
+                                      ckpt_dir=str(run_dir), ckpt_async=True,
+                                      log_every=1), data, device=dev)
+    t0 = time.perf_counter()
+    start = second.resume_or_init()
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(leaves(first.state),
+                                                   leaves(second.state)))
+    print(f"  trainer ({TRAIN_CUT_LAYERS} layers, bf16): steps 1-2 and an "
+          f"async checkpoint in {first_s:.1f} s; a second trainer resumed "
+          f"from step {start} in {restore_s:.1f} s; restored state equal "
+          f"to the saved one bit for bit: {same}")
+    if start != 2 or not same:
+        fail(f"resume: step {start}, bit-equal {same}")
+    # the uninterrupted step 3, on the first trainer's own state
+    first.state, m = first.step_fn(first.state, batch_on(data, 2, dev))
+    whole = float(m["loss"])
+    second.state = None
+    second.run()
+    resumed = second.metrics_log[-1]["loss"]
+    rel = abs(resumed - whole) / abs(whole)
+    print(f"  step-3 loss resumed {resumed:.6f}, uninterrupted {whole:.6f} "
+          f"(relative {rel:.2e}, bound {TRAIN_RESUME_TOL}); checkpoints "
+          f"{ckpt.latest_steps(run_dir)}")
+    if not rel <= TRAIN_RESUME_TOL or ckpt.latest_steps(run_dir) != [2, 3]:
+        fail(f"resumed step 3: loss {resumed} vs {whole}, checkpoints "
+             f"{ckpt.latest_steps(run_dir)}")
+    del first
+    clear()
+    tree = ckpt.load_numpy(run_dir, 3, prefix="params")
+    served = lm.params_from_numpy(tree["params"], cut, device=dev)
+    del tree
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cut.vocab_size, (
+        TRAIN_SERVE_REQUESTS, TRAIN_SERVE_PROMPT)).astype(np.int32)
+    waves = -(-TRAIN_SERVE_REQUESTS // LM_SLOTS)
+
+    def serve(params):
+        eng = ServeEngine(cut, params, slots=LM_SLOTS,
+                          max_len=TRAIN_SERVE_PROMPT
+                          + TRAIN_SERVE_NEW, device=dev)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(i, pr, max_new_tokens=TRAIN_SERVE_NEW))
+        done = eng.run(prompt_len=TRAIN_SERVE_PROMPT)
+        torch.cuda.synchronize()
+        return {r.rid: r.out_tokens for r in done}
+
+    _build.reset_launches()
+    toks = serve(served)
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    for k, v in counts.items():
+        launches[k] += v
+    want = serve(second.state["params"])
+    planned = {"flash_attention": TRAIN_CUT_LAYERS * waves}
+    print(f"  the step-3 checkpoint served by ServeEngine "
+          f"({TRAIN_SERVE_REQUESTS} requests, prompt {TRAIN_SERVE_PROMPT}, "
+          f"{TRAIN_SERVE_NEW} new tokens): launches {counts} (planned "
+          f"{planned}); tokens equal those of the trainer's in-memory "
+          f"params: {toks == want}; request 0 {toks[0]}")
+    if counts != planned:
+        fail(f"serving the checkpoint: launches {counts} != {planned}")
+    if toks != want or len(toks) != TRAIN_SERVE_REQUESTS or any(
+            len(t) != TRAIN_SERVE_NEW for t in toks.values()):
+        fail("serving the checkpoint: tokens differ from the in-memory "
+             "params' or are missing")
+    out["trainer"] = {"first_two_steps_s": first_s, "restore_s": restore_s,
+                      "restored_bit_equal": same, "resumed_loss": resumed,
+                      "uninterrupted_loss": whole, "relative": rel,
+                      "served_launches": counts, "served_tokens_equal": True}
+    del second, served
+    clear()
+
+    # -- the launcher on the card (no --device) ----------------------------
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--smoke", "--steps", "6", "--ckpt-every", "3",
+           "--ckpt-dir", str(root / "cli")]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    cli_s = time.perf_counter() - t0
+    steps_written = ckpt.latest_steps(root / "cli")
+    print(f"  python -m repro_torch.launch.train --arch {TRAIN_ARCH} --smoke "
+          f"--steps 6 --ckpt-every 3: exit {res.returncode} in {cli_s:.1f} s,"
+          f" checkpoints {steps_written}; "
+          f"{(res.stdout.strip().splitlines() or [''])[-1][:160]}")
+    if res.returncode != 0 or steps_written != [3, 6]:
+        fail(f"the training launcher exited {res.returncode}: "
+             f"{res.stderr[-2000:]}")
+    out["launcher"] = {"exit": res.returncode, "s": cli_s,
+                       "checkpoints": steps_written}
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> None:
@@ -676,7 +1002,8 @@ def main() -> None:
 
     def lm_cases(dtype):
         """The LM kernels' calls at the served models' shapes: prefill
-        attention of 4 slots x 512 (and one train_4k sequence), the three
+        attention of 4 slots x 512 (and one train_4k sequence, and the
+        4 x 128 prompts that serve the trained checkpoint), the three
         Mamba2 streams' conv.  The served bf16 calls make the line."""
         out = []
         bf16 = dtype == torch.bfloat16
@@ -686,7 +1013,8 @@ def main() -> None:
             if "attn" in mixers and not cfg.mla:    # MLA runs no kernel
                 H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
                 for b, s in ((LM_SLOTS, LM_PROMPT),
-                             (1, SHAPES["train_4k"].seq_len)):
+                             (1, SHAPES["train_4k"].seq_len),
+                             (LM_SLOTS, TRAIN_SERVE_PROMPT)):
                     args = (randn((b, s, H, D), dtype),
                             randn((b, s, KVH, D), dtype),
                             randn((b, s, KVH, D), dtype))
@@ -1586,6 +1914,11 @@ def main() -> None:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+
+    # -- 4f. training: full size, card vs CPU, trainer, checkpoint served ---
+    phase(f"training: {TRAIN_ARCH} at full size in bf16, card vs CPU, the "
+          f"trainer, checkpoints, the checkpoint served, the launcher")
+    training_phase(dev, report, launches, profiled, get_config)
 
     # -- 5. timing -------------------------------------------------------------
     phase("timing (CUDA graph replays between CUDA events)")

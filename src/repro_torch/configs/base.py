@@ -7,9 +7,11 @@ Reduced "smoke" variants (same family, tiny dims) are derived via
 are served at full size on the card.  The fields and
 properties are the reference's, so ``num_params`` and ``layer_kinds``
 agree with it for every arch; the execution knobs that only shape the
-XLA program (``remat``, ``scan_layers``, ``ce_impl``,
-``attn_score_dtype``, ``shard_heads``) are kept as data and not read by
-the port.  ``attn_impl`` is read where the reference reads it: "exact"
+XLA program (``scan_layers``, ``attn_score_dtype``, ``shard_heads``) are
+kept as data and not read by the port.  ``remat`` (activation
+checkpointing of a layer in train mode) and ``ce_impl`` (the loss's
+cross entropy, whole or chunked) are read by training, as in the
+reference.  ``attn_impl`` is read where the reference reads it: "exact"
 keeps the plain attention (train mode, MLA) off ``chunked_attention``.
 """
 from __future__ import annotations

@@ -6,20 +6,30 @@ segments, each ``(repeats, kinds)`` where ``kinds`` is the repeating
 period of (mixer, mlp) pairs.  The reference stacks each segment's
 params along a leading repeats axis and ``lax.scan``s over it; here a
 segment is a list of ``repeats`` period dicts ``{"pos{i}": layer}`` and
-the forward is a loop.  Remat has no place in inference and is left out.
+the forward is a loop.  In train mode with grad on, ``cfg.remat`` picks
+what a layer keeps for its backward, as the reference's
+``jax.checkpoint`` does: "full" recomputes the layer
+(``torch.utils.checkpoint``), "dots" keeps the outputs of its matmuls
+with no batch dims and recomputes the rest, "none" keeps everything.
 
 Params are plain dicts of tensors on one device (``init_lm`` draws them
 from a ``torch.Generator`` there; ``params_from_numpy`` carries the JAX
-package's ``init_lm`` tree across).  The cache is updated in place by
-prefill and decode.  The MoE router stays fp32 whatever the params'
-dtype, as in the reference.
+package's ``init_lm`` tree across and ``params_to_numpy`` carries the
+port's back).  The cache is updated in place by prefill and decode.  The
+MoE router stays fp32 whatever the params' dtype, as in the reference.
+The losses (``cross_entropy``, ``cross_entropy_chunked``, ``train_loss``)
+are the reference's: padded vocab slots masked with -1e30, mean over
+tokens in fp32, plus 0.01 of the MoE load-balance loss.
 """
 from __future__ import annotations
 
+import functools
+import types
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint as tcheckpoint
 
 from repro_torch.configs.base import ATTN, MOE, ModelConfig
 from repro_torch.core.convspec import resolve_device
@@ -27,6 +37,7 @@ from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import mamba as S
 from repro_torch.nn import moe as M
+from repro_torch.tree import map_tree
 
 #: the leaves the reference keeps in fp32 whatever the params' dtype, by
 #: the tail of their path (the MoE router's weight is named "w", like
@@ -110,11 +121,13 @@ def _layer_fwd(p, cfg, mixer, mlp, x, positions, cache, offset, mode,
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device=None,
             dtype=L.DEFAULT_DTYPE) -> Dict[str, Any]:
-    """Random params from ``seed`` on ``device`` (default: the card);
-    dense weights in ``dtype``; norm scales, the SSM's A_log, D and
-    dt_bias and the MoE router in fp32, as the reference."""
+    """Random params from ``seed`` on ``device`` (default: the card;
+    ``"meta"`` gives the shapes and dtypes alone); dense weights in
+    ``dtype``; norm scales, the SSM's A_log, D and dt_bias and the MoE
+    router in fp32, as the reference."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (types.SimpleNamespace(device=dev) if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     params: Dict[str, Any] = {}
     if cfg.input_mode == "tokens":
         params["embed"] = L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
@@ -159,6 +172,24 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None, dtype=None):
     out["segments"] = [
         [conv(unstack(seg, r)) for r in range(repeats)]
         for seg, (repeats, _) in zip(tree["segments"], stack_plan(cfg))]
+    return out
+
+
+def params_to_numpy(params, cfg: ModelConfig):
+    """The port's params -> the JAX package's ``init_lm`` tree as numpy,
+    the inverse of ``params_from_numpy``: each segment's repeats stacked
+    along a leading axis, every leaf float32 (bf16 converts exactly)."""
+    def host(t):
+        return t.detach().float().cpu().numpy()
+    plan = stack_plan(cfg)
+    if [len(seg) for seg in params["segments"]] != [r for r, _ in plan]:
+        raise ValueError("the params' segments do not follow the stack "
+                         "plan of this config")
+    out = {k: map_tree(host, v) for k, v in params.items()
+           if k != "segments"}
+    out["segments"] = [
+        map_tree(lambda *rows: np.stack([host(t) for t in rows]), *seg)
+        for seg in params["segments"]]
     return out
 
 
@@ -220,14 +251,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 # Forward
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """remat="dots": keep the outputs of matmuls with no batch dims
+    (``dots_with_no_batch_dims_saveable``), recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return tcheckpoint.CheckpointPolicy.MUST_SAVE
+    return tcheckpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under the activation checkpointing ``cfg.remat`` asks for."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(tcheckpoint.checkpoint, fn,
+                                 use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            tcheckpoint.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                tcheckpoint.create_selective_checkpoint_contexts,
+                _save_dots))
+    raise ValueError(f"unknown remat {cfg.remat!r}: none | full | dots")
+
+
 def lm_forward(params, cfg: ModelConfig, batch: Dict[str, Any],
-               cache=None, offset=0, mode="train", moe_groups=1):
-    """Returns (logits, cache, aux).
+               cache=None, offset=0, mode="train", act_spec=None,
+               moe_groups=1, skip_head=False):
+    """Returns (logits, cache, aux); with ``skip_head`` the final-normed
+    hidden states (B, S, D) in place of the logits.
 
     batch: {'tokens': (B,S) int} or {'embeds': (B,S,D)}; optional
     'positions' ((B,S) or (3,B,S) for M-RoPE), tensors on the params'
     device.  mode: "train" | "prefill" | "decode"; "train" runs no kernel,
-    so autograd differentiates it.  aux holds the reference's MoE
+    so autograd differentiates it, each layer under ``cfg.remat`` where
+    grad is on.  act_spec: an activation sharding spec, None on one
+    device (``layers.maybe_constrain``).  aux holds the reference's MoE
     statistics, ``load_balance_loss`` and ``dropped_frac``, each summed
     over the MoE layers (zero without any).
     """
@@ -240,22 +299,31 @@ def lm_forward(params, cfg: ModelConfig, batch: Dict[str, Any],
                else L.DEFAULT_DTYPE)
         x = batch["embeds"].to(pdt)
         B, Sq = x.shape[0], x.shape[1]
+    x = L.maybe_constrain(x, act_spec)
     positions = batch.get("positions")
     if positions is None:
         positions = L.make_positions(B, Sq, offset, x.device)
+    remat = mode == "train" and torch.is_grad_enabled()
 
     aux = {"load_balance_loss": torch.zeros((), device=x.device),
            "dropped_frac": torch.zeros((), device=x.device)}
     for si, r, pos, mixer, mlp in _layers(cfg):
         c = cache[si][r][pos] if cache is not None else None
-        x, _, layer_aux = _layer_fwd(params["segments"][si][r][pos], cfg,
-                                     mixer, mlp, x, positions, c, offset,
-                                     mode, moe_groups)
+
+        def layer(x_, p_=params["segments"][si][r][pos], mixer=mixer,
+                  mlp=mlp, c_=c):
+            out = _layer_fwd(p_, cfg, mixer, mlp,
+                             L.maybe_constrain(x_, act_spec), positions, c_,
+                             offset, mode, moe_groups)
+            return (L.maybe_constrain(out[0], act_spec),) + out[1:]
+        x, _, layer_aux = (_remat(cfg, layer) if remat else layer)(x)
         for k, v in layer_aux.items():
             aux[k] = aux[k] + v
 
     x = L.rmsnorm_fwd(params["final_norm"], x, cfg.rms_norm_eps,
                       cfg.norm_impl)
+    if skip_head:
+        return x, cache, aux
     if cfg.tie_embeddings:
         logits = torch.matmul(*L.promote(x, params["embed"]["embedding"].T))
     else:
@@ -263,14 +331,96 @@ def lm_forward(params, cfg: ModelConfig, batch: Dict[str, Any],
     return logits, cache, aux
 
 
-def prefill(params, cfg: ModelConfig, batch, cache, moe_groups=1):
+# ---------------------------------------------------------------------------
+# Losses
+
+def _mask_padded(logits, vocab_size):
+    """fp32 logits with the padded vocab slots at -1e30 (out of the
+    partition function; they take no gradient)."""
+    lf = logits.float()
+    Vpad = lf.shape[-1]
+    if Vpad > vocab_size:
+        col = torch.arange(Vpad, device=lf.device) < vocab_size
+        lf = lf.masked_fill(~col, -1e30)
+    return lf
+
+
+def cross_entropy(logits, labels, vocab_size):
+    """Mean CE over tokens; logits (B,S,Vpad), labels (B,S) in [0, vocab)."""
+    lf = _mask_padded(logits, vocab_size)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()
+
+
+def _chunk_ce(xc, head_w, yc, vc, vocab_size):
+    logits = _mask_padded(torch.matmul(*L.promote(xc, head_w)), vocab_size)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+    return torch.sum((logz - gold) * vc[None, :])
+
+
+def cross_entropy_chunked(hidden, head_w, labels, vocab_size,
+                          chunk=512, unroll=False):
+    """Fused head+CE over sequence chunks: the (B,S,Vpad) fp32 logits are
+    never held whole.  Each chunk's logits are made, reduced to
+    (logz - gold) and dropped, and made again in backward
+    (``torch.utils.checkpoint``); numerics those of ``cross_entropy``.
+    ``unroll`` is the reference's scan-or-loop switch; both loop here.
+
+    hidden: (B,S,D); head_w: (D, Vpad); labels: (B,S).
+    """
+    del unroll
+    B, S, D = hidden.shape
+    pad = (-S) % chunk
+    if pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+    nch = (S + pad) // chunk
+    valid = (torch.arange(S + pad, device=hidden.device) < S).to(
+        torch.float32).reshape(nch, chunk)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(nch):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        args = (hidden[:, sl], head_w, labels[:, sl], valid[i], vocab_size)
+        total = total + (tcheckpoint.checkpoint(_chunk_ce, *args,
+                                                use_reentrant=False)
+                         if torch.is_grad_enabled() else _chunk_ce(*args))
+    return total / (B * S)
+
+
+def train_loss(params, cfg: ModelConfig, batch, act_spec=None,
+               moe_groups=1):
+    """(loss, {"ce_loss", "load_balance_loss", "dropped_frac"}), the
+    reference's: ``ce_loss`` is the loss with the MoE term in it."""
+    if cfg.ce_impl == "chunked":
+        hidden, _, aux = lm_forward(params, cfg, batch, act_spec=act_spec,
+                                    moe_groups=moe_groups, skip_head=True)
+        head_w = (params["embed"]["embedding"].T if cfg.tie_embeddings
+                  else params["lm_head"]["w"])
+        loss = cross_entropy_chunked(
+            hidden, head_w, batch["labels"], cfg.vocab_size,
+            unroll=(cfg.attn_impl == "chunked_unrolled"))
+    else:
+        logits, _, aux = lm_forward(params, cfg, batch, act_spec=act_spec,
+                                    moe_groups=moe_groups)
+        loss = cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    if cfg.num_experts:
+        loss = loss + 0.01 * aux["load_balance_loss"]
+    return loss, {"ce_loss": loss, **aux}
+
+
+def prefill(params, cfg: ModelConfig, batch, cache, act_spec=None,
+            moe_groups=1):
     """Run the full prompt, writing into a preallocated decode cache."""
     logits, cache, _ = lm_forward(params, cfg, batch, cache=cache, offset=0,
-                                  mode="prefill", moe_groups=moe_groups)
+                                  mode="prefill", act_spec=act_spec,
+                                  moe_groups=moe_groups)
     return logits, cache
 
 
-def decode_step(params, cfg: ModelConfig, batch, cache, offset):
+def decode_step(params, cfg: ModelConfig, batch, cache, offset,
+                act_spec=None):
     """One token step against an existing cache.  ``offset``, the cache
     position of the step's first token, is taken as a 0-d int64 tensor
     on the batch's device (a Python int is made one), as the reference's
@@ -279,5 +429,6 @@ def decode_step(params, cfg: ModelConfig, batch, cache, offset):
     dev = next(iter(batch.values())).device
     offset = torch.as_tensor(offset, dtype=torch.int64, device=dev)
     logits, cache, _ = lm_forward(params, cfg, batch, cache=cache,
-                                  offset=offset, mode="decode")
+                                  offset=offset, mode="decode",
+                                  act_spec=act_spec)
     return logits, cache

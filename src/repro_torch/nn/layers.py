@@ -27,8 +27,21 @@ def promote(*ts):
 
 
 def randn(gen: torch.Generator, shape, scale: float, dtype):
+    if gen.device.type == "meta":         # shapes only (lm.init_lm)
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     return (torch.randn(tuple(shape), generator=gen, device=gen.device)
             * scale).to(dtype)
+
+
+def maybe_constrain(x, spec):
+    """The reference pins (batch, seq, d_model) activations to a
+    PartitionSpec here; on one device there is nothing to pin.  A spec
+    waits for training across cards (ROADMAP queue 1)."""
+    if spec is None:
+        return x
+    raise NotImplementedError(
+        "activation sharding specs need training across cards, which the "
+        "port does not have yet (ROADMAP queue 1)")
 
 
 def dense_init(gen, d_in, d_out, dtype=DEFAULT_DTYPE, bias=False,
