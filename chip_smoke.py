@@ -80,7 +80,23 @@ calls:
   checkpoint served by ``ServeEngine`` through ``params_from_numpy``
   (``flash_attention`` launched once a layer a wave, tokens equal to an
   engine's on the trainer's in-memory params); and ``python -m
-  repro_torch.launch.train --smoke`` exiting 0 on the card.
+  repro_torch.launch.train --smoke`` exiting 0 on the card;
+- training on a mesh (``mesh_training_phase``): a world-size-1 NCCL
+  group on a ``FileStore`` and ``make_debug_mesh()``, (1, 1) ("data",
+  "model"); one fp32 step of the 2-layer cut on the mesh against the
+  same step unsharded (loss and grad_norm within 1e-5 relative, each
+  leaf's update within 1e-2 in L2); ``qwen2-1.5b`` at full size in bf16,
+  three steps through ``Trainer(mesh=...)`` beside three unsharded
+  ones (step ms, tokens/s, peak memory; kernels, device busy and idle
+  share of a traced mesh step, where no hand-written kernel may run);
+  ``compressed_psum`` over the group on a (4, 1,048,576) fp32 tensor,
+  bit-equal to the codec; the mesh trainer's 2-layer bf16 checkpoint
+  restored with and without the mesh bit-equal to the saved state and
+  served by ``ServeEngine`` (``flash_attention`` launched once a layer a
+  wave, tokens equal to the in-memory params'); ``python -m
+  repro_torch.launch.train --smoke --mesh debug`` exiting 0 and
+  ``--mesh pod`` exiting non-zero with the 256-rank error.  The group is
+  destroyed at the phase's end.
 
 It prints the launch geometry of the seven tensor-core kernels
 (``conv1x1_gemm``, ``cuconv_fused``, ``winograd_fused``,
@@ -288,6 +304,10 @@ TRAIN_UPDATE_TOL = 1e-2              # each leaf's p_3 - p_0, relative L2
 # the trainer, checkpoints, resume and serving: the 2-layer cut in bf16
 TRAIN_RESUME_TOL = 1e-3              # resumed step-3 loss, relative
 TRAIN_SERVE_REQUESTS, TRAIN_SERVE_PROMPT, TRAIN_SERVE_NEW = 4, 128, 8
+# training on a mesh: a world-size-1 NCCL group, make_debug_mesh() (1, 1)
+MESH_STEPS = 3                       # full size, bf16; medians of 2-3
+MESH_TOL = 1e-5                      # loss and grad_norm, relative
+MESH_PSUM_SHAPE = (4, 1 << 20)       # compressed_psum's fp32 input
 
 _PHASE = {"name": None, "t0": 0.0, "times": {}}
 
@@ -676,6 +696,300 @@ def training_phase(dev, report, launches, profiled, get_config) -> None:
     out["launcher"] = {"exit": res.returncode, "s": cli_s,
                        "checkpoints": steps_written}
     shutil.rmtree(root, ignore_errors=True)
+
+
+def mesh_training_phase(dev, report, launches, profiled, get_config) -> None:
+    """Training on a mesh: a world-size-1 NCCL process group and
+    ``make_debug_mesh()``, (1, 1) ("data", "model").  The 2-layer fp32
+    cut, one step on the mesh against the same step unsharded; qwen2-1.5b
+    at full size in bf16, three steps through ``Trainer(mesh=...)``
+    beside three unsharded ones (no hand-written kernel in a traced mesh
+    step); ``compressed_psum`` over the one-rank group; the mesh
+    trainer's checkpoint restored with and without the mesh and served
+    (``flash_attention`` launched); the launcher with ``--mesh debug``
+    (exit 0) and ``--mesh pod`` (the 256-rank error).  The group is
+    destroyed at the end."""
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.dist import compress as C
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.tree import leaves, map_tree
+
+    out = report["mesh_train"] = {}
+    base = get_config(TRAIN_ARCH)
+    root = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    def clear():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def whole(tree):
+        """A DTensor tree's whole values, copied (a replicated DTensor's
+        ``full_tensor`` is its local tensor, which a donated step
+        updates in place)."""
+        return map_tree(lambda t: t.full_tensor().clone(), tree)
+
+    # NCCL on the card (gloo where a rehearsal passes the CPU as dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(
+        str(root / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh()
+        print(f"  process group {backend}, world {dist.get_world_size()}; "
+              f"mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+              f"{mesh.device_type}")
+        if tuple(mesh.shape) != (1, 1) or mesh.device_type != dev.type:
+            fail(f"make_debug_mesh() on one card: {mesh}")
+
+        # -- the 2-layer fp32 cut: one step on the mesh vs unsharded ----------
+        cut = dataclasses.replace(base, num_layers=TRAIN_CUT_LAYERS,
+                                  grad_accum=TRAIN_CPU_ACCUM)
+        data = SyntheticLMData(cut.vocab_size, TRAIN_CPU_BATCH,
+                               TRAIN_CPU_SEQ)
+        tcfg = TrainConfig(ckpt_dir=str(root / "unused"),
+                           peak_lr=TRAIN_CPU_LR)
+        runs = {}
+        for name, kw in (("mesh", {"mesh": mesh}), ("one", {"device": dev})):
+            t = Trainer(cut, tcfg, data, **kw)
+            st = t.init_state()
+            st["params"] = map_tree(lambda a: a.float(), st["params"])
+            st["opt"] = adamw_init(st["params"])
+            p0 = leaves(whole(st["params"]) if name == "mesh"
+                        else map_tree(torch.clone, st["params"]))
+            st, m = t.step_fn(st, t.batch_at(0))
+            p1 = leaves(whole(st["params"]) if name == "mesh"
+                        else st["params"])
+            runs[name] = (float(m["loss"]), float(m["grad_norm"]), p0, p1)
+            del t, st
+            clear()
+        (lm_, gm, p0m, p1m), (lo, go, p0o, p1o) = runs["mesh"], runs["one"]
+        same0 = all(torch.equal(a, b) for a, b in zip(p0m, p0o))
+        rel_loss, rel_norm = abs(lm_ - lo) / abs(lo), abs(gm - go) / abs(go)
+        upd = [float(((a - z) - (b - y)).norm()
+                     / max(float((b - y).norm()), 1e-30))
+               for a, z, b, y in zip(p1m, p0m, p1o, p0o)]
+        out["cut"] = {"loss": [lm_, lo], "grad_norm": [gm, go],
+                      "rel_loss": rel_loss, "rel_grad_norm": rel_norm,
+                      "max_rel_update_l2": max(upd), "same_start": same0}
+        print(f"  {TRAIN_CUT_LAYERS} layers fp32, one step at grad_accum "
+              f"{TRAIN_CPU_ACCUM} on the mesh vs unsharded: loss {lm_:.7f} / "
+              f"{lo:.7f} (relative {rel_loss:.2e}), grad_norm {gm:.6f} / "
+              f"{go:.6f} ({rel_norm:.2e}), bound {MESH_TOL}; max relative L2 "
+              f"of a leaf's update difference {max(upd):.2e} over "
+              f"{len(upd)} leaves (bound {TRAIN_UPDATE_TOL}); same start "
+              f"{same0}")
+        if not (same0 and rel_loss <= MESH_TOL and rel_norm <= MESH_TOL
+                and max(upd) <= TRAIN_UPDATE_TOL):
+            fail("the mesh step differs from the unsharded step")
+        del runs, p0m, p1m, p0o, p1o
+        clear()
+
+        # -- full size, bf16: Trainer on the mesh vs unsharded --------------
+        cfg = dataclasses.replace(base, remat="full")
+        data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        full = {}
+        for name, kw in (("mesh", {"mesh": mesh}), ("one", {"device": dev})):
+            torch.cuda.reset_peak_memory_stats()
+            t = Trainer(cfg, TrainConfig(ckpt_dir=str(root / "unused")),
+                        data, **kw)
+            t.state = t.init_state()
+            _build.reset_launches()
+            ms, losses = [], []
+            for s_ in range(MESH_STEPS):
+                batch = t.batch_at(s_)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t.state, m = t.step_fn(t.state, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+            row = {"step_ms": ms, "losses": losses,
+                   "step_ms_median": float(np.median(ms[1:])),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "launches": {k: v for k, v in _build.LAUNCHES.items()
+                                if v}}
+            row["tokens_per_s"] = tokens / row["step_ms_median"] * 1e3
+            if name == "mesh":
+                local = sum(x.to_local().numel() for x in leaves(t.state))
+                row["state_local_numel"] = local
+                row["state_numel"] = sum(x.numel() for x in leaves(t.state))
+                batch = t.batch_at(MESH_STEPS)
+                with profiled(host=False) as prof:
+                    t.state, m = t.step_fn(t.state, batch)
+                    losses.append(float(m["loss"]))
+                row["traced_kernels"] = traced_launches(prof)
+                records = device_records(prof)
+                del prof
+                row["traced_step_kernels"] = sum(
+                    1 for r in records if is_kernel(r[0]))
+                row["traced_step_device_ms"] = busy_ms(records)
+                row["idle_share_untraced"] = (
+                    1 - row["traced_step_device_ms"] / row["step_ms_median"])
+            full[name] = row
+            del t, m, batch
+            clear()
+        mrow, orow = full["mesh"], full["one"]
+        out["full"] = full
+        print(f"  {TRAIN_ARCH} full size bf16, batch {TRAIN_BATCH}x{TRAIN_SEQ},"
+              f" grad_accum {cfg.grad_accum}, remat {cfg.remat}, "
+              f"{MESH_STEPS} steps: on the (1, 1) mesh step ms "
+              f"{[round(x, 1) for x in mrow['step_ms']]} (median of 2-"
+              f"{MESH_STEPS} {mrow['step_ms_median']:.1f}, "
+              f"{mrow['tokens_per_s']:.0f} tokens/s, peak "
+              f"{mrow['peak_gib']:.2f} GiB); unsharded "
+              f"{[round(x, 1) for x in orow['step_ms']]} (median "
+              f"{orow['step_ms_median']:.1f}, {orow['tokens_per_s']:.0f} "
+              f"tokens/s, peak {orow['peak_gib']:.2f} GiB); mesh over "
+              f"unsharded {mrow['step_ms_median'] / orow['step_ms_median']:.2f}"
+              f"x")
+        print(f"  a traced mesh step: {mrow['traced_step_kernels']} kernels "
+              f"(unsharded, the training phase's trace: "
+              f"{report['train']['full']['traced_step_kernels']}), device "
+              f"busy {mrow['traced_step_device_ms']:.1f} ms, idle share "
+              f"against the untraced median "
+              f"{mrow['idle_share_untraced']:.3f}; kernels of ours "
+              f"{mrow['traced_kernels']}, counters {mrow['launches']} and "
+              f"{orow['launches']}; losses mesh "
+              f"{[round(x, 4) for x in mrow['losses']]}, unsharded "
+              f"{[round(x, 4) for x in orow['losses']]}; state "
+              f"{mrow['state_local_numel']} of {mrow['state_numel']} "
+              f"elements local")
+        if not all(np.isfinite(r["losses"]).all() for r in full.values()):
+            fail("training on the mesh: a non-finite loss")
+        if mrow["traced_kernels"] or mrow["launches"] or orow["launches"]:
+            fail(f"training on the mesh launched hand-written kernels: "
+                 f"{mrow['traced_kernels']} {mrow['launches']}")
+
+        # -- compressed_psum over the one-rank group ---------------------------
+        g = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn(MESH_PSUM_SHAPE, generator=g, device=dev)
+        zero = torch.zeros_like(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, err = C.compressed_psum(x, mesh["data"], zero)
+        torch.cuda.synchronize()
+        psum_ms = (time.perf_counter() - t0) * 1e3
+        (q, sc, shape), want_err = C.quantize_with_feedback(x, zero)
+        ok = (torch.equal(got, C.dequantize(q, sc, shape))
+              and torch.equal(err, want_err))
+        out["compressed_psum"] = {"shape": list(MESH_PSUM_SHAPE),
+                                  "bit_equal": ok, "ms": psum_ms}
+        print(f"  compressed_psum over mesh['data'] on a "
+              f"{MESH_PSUM_SHAPE} fp32 tensor: {psum_ms:.2f} ms (first "
+              f"call), equal to dequantize(quantize_with_feedback(x, 0)) "
+              f"bit for bit: {ok}")
+        if not ok:
+            fail("compressed_psum over one rank differs from the codec")
+        del x, zero, got, err, q, sc, want_err
+        clear()
+
+        # -- the mesh trainer's checkpoint: restored, served ----------------
+        cut = dataclasses.replace(base, num_layers=TRAIN_CUT_LAYERS)
+        data = SyntheticLMData(cut.vocab_size, TRAIN_BATCH, TRAIN_SERVE_PROMPT)
+        run_dir = root / "run"
+        t = Trainer(cut, TrainConfig(steps=2, ckpt_every=2,
+                                     ckpt_dir=str(run_dir), ckpt_async=True,
+                                     log_every=1), data, mesh=mesh)
+        t.run()
+        saved = leaves(whole(t.state))
+        like = t.init_state(device="meta")
+        plain = ckpt.restore_checkpoint(run_dir, 2, like, device=dev)
+        onto = ckpt.restore_checkpoint(run_dir, 2, like,
+                                       shardings=t.shardings)
+        same = (all(torch.equal(a, b) for a, b in zip(saved, leaves(plain)))
+                and all(torch.equal(a, b.full_tensor())
+                        for a, b in zip(saved, leaves(onto))))
+        print(f"  the mesh trainer ({TRAIN_CUT_LAYERS} layers, bf16): 2 steps, "
+              f"checkpoint {ckpt.latest_steps(run_dir)}; restored without "
+              f"the mesh and onto it, bit-equal to the saved state: {same}")
+        if not same or ckpt.latest_steps(run_dir) != [2]:
+            fail("the mesh trainer's checkpoint does not restore bit-equal")
+        del plain, onto, saved
+        tree = ckpt.load_numpy(run_dir, 2, prefix="params")
+        served = lm.params_from_numpy(tree["params"], cut, device=dev)
+        in_memory = whole(t.state["params"])
+        del tree, t
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cut.vocab_size, (
+            TRAIN_SERVE_REQUESTS, TRAIN_SERVE_PROMPT)).astype(np.int32)
+        waves = -(-TRAIN_SERVE_REQUESTS // LM_SLOTS)
+
+        def serve(params):
+            eng = ServeEngine(cut, params, slots=LM_SLOTS,
+                              max_len=TRAIN_SERVE_PROMPT + TRAIN_SERVE_NEW,
+                              device=dev)
+            for i, pr in enumerate(prompts):
+                eng.submit(Request(i, pr, max_new_tokens=TRAIN_SERVE_NEW))
+            done = eng.run(prompt_len=TRAIN_SERVE_PROMPT)
+            torch.cuda.synchronize()
+            return {r.rid: r.out_tokens for r in done}
+
+        _build.reset_launches()
+        toks = serve(served)
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        for k, v in counts.items():
+            launches[k] += v
+        want = serve(in_memory)
+        planned = {"flash_attention": TRAIN_CUT_LAYERS * waves}
+        print(f"  its checkpoint served by ServeEngine: launches {counts} "
+              f"(planned {planned}); tokens equal to the in-memory params': "
+              f"{toks == want}")
+        if counts != planned:
+            fail(f"serving the mesh checkpoint: launches {counts} != "
+                 f"{planned}")
+        if toks != want or len(toks) != TRAIN_SERVE_REQUESTS:
+            fail("serving the mesh checkpoint: tokens differ")
+        out["trainer"] = {"restored_bit_equal": same,
+                          "served_launches": counts,
+                          "served_tokens_equal": True}
+        del served, in_memory
+        clear()
+
+        # -- the launcher: --mesh debug, --mesh pod -----------------------------
+        cli = {}
+        for kind in ("debug", "pod"):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                   "--arch", TRAIN_ARCH, "--smoke", "--steps", "3",
+                   "--mesh", kind, "--ckpt-dir", str(root / f"cli_{kind}")]
+            if dev.type != "cuda":
+                cmd += ["--device", dev.type]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=600, env=dict(
+                                     os.environ,
+                                     PYTHONPATH=str(ROOT / "src")))
+            cli[kind] = {"exit": res.returncode,
+                         "s": time.perf_counter() - t0,
+                         "tail": (res.stdout + res.stderr).strip()
+                         .splitlines()[-1:]}
+            print(f"  launcher --mesh {kind}: exit {res.returncode} in "
+                  f"{cli[kind]['s']:.1f} s; {cli[kind]['tail']}")
+            if kind == "debug" and (res.returncode != 0 or
+                                    ckpt.latest_steps(root / "cli_debug")
+                                    != [3]):
+                fail(f"launcher --mesh debug: exit {res.returncode}: "
+                     f"{res.stderr[-2000:]}")
+            if kind == "pod" and (res.returncode == 0
+                                  or "needs 256 ranks" not in res.stderr):
+                fail(f"launcher --mesh pod: exit {res.returncode} without "
+                     f"the 256-rank error: {res.stderr[-2000:]}")
+        out["launcher"] = cli
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> None:
@@ -1919,6 +2233,12 @@ def main() -> None:
     phase(f"training: {TRAIN_ARCH} at full size in bf16, card vs CPU, the "
           f"trainer, checkpoints, the checkpoint served, the launcher")
     training_phase(dev, report, launches, profiled, get_config)
+
+    # -- 4g. training on a mesh: a world-size-1 NCCL group, a (1, 1) mesh --
+    phase(f"training on a mesh: make_debug_mesh() (1, 1) over a one-rank "
+          f"NCCL group; {TRAIN_ARCH} mesh vs unsharded, compressed_psum, "
+          f"the mesh checkpoint served, the launcher")
+    mesh_training_phase(dev, report, launches, profiled, get_config)
 
     # -- 5. timing -------------------------------------------------------------
     phase("timing (CUDA graph replays between CUDA events)")

@@ -10,18 +10,25 @@ to within one quantization step.
 The blocks of a tree's leaf are those of the reference's array: a leaf
 of an LM layer is one row of the reference's repeats-stacked array
 (``tree.walk``), so the rows are stacked, coded as one array and split
-again, and a block may span two layers as it does there.
+again, and a block may span two layers as it does there.  On a mesh the
+leaves are DTensors: the stack is of their global rows (each gathered
+whole), so the blocks are still the reference's, and the results are
+placed back as the leaves were.
 
-``compressed_psum``, the all-reduce of the int8 payload inside
-``shard_map``, waits for training across cards (ROADMAP queue 1).
+``compressed_psum`` is the reference's all-reduce of the payload inside
+``shard_map``: each rank codes its own tensor with error feedback, and a
+``torch.distributed.all_reduce`` sums the dequantized payloads over the
+group of one mesh axis.
 """
 from __future__ import annotations
 
 from typing import Any, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import place_like, whole
 from repro_torch.quant import symmetric
 from repro_torch.tree import leaves, map_tree, unflatten, walk
 
@@ -59,8 +66,10 @@ def quantize_with_feedback(g, err) -> Tuple[Tuple, Any]:
 
 
 def init_feedback(params):
-    return map_tree(lambda a: torch.zeros(a.shape, dtype=torch.float32,
-                                          device=a.device), params)
+    return map_tree(lambda a: torch.zeros_like(
+        a, dtype=torch.float32, memory_format=torch.contiguous_format),
+        params)
+
 
 
 def tree_quantize_with_feedback(grads, ef):
@@ -76,15 +85,35 @@ def tree_quantize_with_feedback(grads, ef):
     for idx in rows.values():
         stacked = items[idx[0]][1] is not None
         if stacked:
-            g = torch.stack([items[i][2] for i in idx])
-            e = torch.stack([errs[i] for i in idx])
+            g = torch.stack([whole(items[i][2]) for i in idx])
+            e = torch.stack([whole(errs[i]) for i in idx])
         else:
-            g, e = items[idx[0]][2], errs[idx[0]]
+            g, e = whole(items[idx[0]][2]), whole(errs[idx[0]])
         (q, s, shape), ne = quantize_with_feedback(g, e)
         d = dequantize(q, s, shape)
         if stacked:
             for j, i in enumerate(idx):
-                deqs[i], new_errs[i] = d[j], ne[j]
+                deqs[i] = place_like(d[j], items[i][2])
+                new_errs[i] = place_like(ne[j], errs[i])
         else:
-            deqs[idx[0]], new_errs[idx[0]] = d, ne
+            i = idx[0]
+            deqs[i] = place_like(d, items[i][2])
+            new_errs[i] = place_like(ne, errs[i])
     return unflatten(grads, deqs), unflatten(ef, new_errs)
+
+
+def compressed_psum(x, axis_name, err):
+    """EF-compressed all-reduce: each participant contributes its
+    dequantized int8 payload.  ``axis_name``: the group to sum over, a
+    ``ProcessGroup`` or a one-dimensional ``DeviceMesh`` (a mesh axis,
+    ``mesh["data"]``); None is the default group.  Returns (sum,
+    new_err), each of ``x``'s shape, fp32."""
+    if hasattr(axis_name, "get_group"):
+        if axis_name.ndim != 1:
+            raise ValueError(f"compressed_psum sums over one mesh axis; "
+                             f"got a {axis_name.ndim}-D mesh")
+        axis_name = axis_name.get_group()
+    (q, s, shape), new_err = quantize_with_feedback(x, err)
+    out = dequantize(q, s, shape).contiguous()
+    dist.all_reduce(out, group=axis_name)
+    return out, new_err

@@ -37,7 +37,7 @@ def launch_geometry(B: int, L: int, D: int) -> dict:
 def conv1d_tap_plain(x, w, b=None):
     K, L = w.shape[0], x.shape[1]
     xp = F.pad(x.float(), (0, 0, K - 1, 0))
-    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    y = torch.zeros_like(x, dtype=torch.float32)    # a DTensor's too
     for k in range(K):
         y = y + xp[:, k:k + L, :] * w[k].float()
     if b is not None:

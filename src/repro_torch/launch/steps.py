@@ -6,14 +6,24 @@ The train step runs eagerly: autograd through ``lm.train_loss`` (train
 mode runs no hand-written kernel, as the reference's train mode reaches
 no Pallas kernel), gradient accumulation over micro-batches summed in
 fp32, optional int8 + error-feedback compression, then AdamW.
+
+On a mesh the state and the batch are DTensors (``dist/sharding.py``)
+and the same step runs on them: each gradient is brought back to its
+param's placements, the accumulation and AdamW run on the local shards,
+and the metrics come back as plain replicated values.  Micro-batch ``i``
+holds rows ``[i*b, (i+1)*b)`` of the *global* batch, as the reference's
+reshape does, not each rank's ``i``-th local slice: the MoE aux losses
+and the fp32 sums depend on which rows a micro-batch holds.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.dist.sharding import local_shard, place_like, whole
 from repro_torch.models import lm
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 from repro_torch.tree import leaves, unflatten
@@ -55,14 +65,21 @@ def state_specs(cfg: ModelConfig, key=None) -> Dict[str, Any]:
 
 def _split_batch(batch, accum):
     """The reference's micro-batches: rows [i*b, (i+1)*b) of the batch
-    axis, which is dim 1 of (3, B, S) M-RoPE positions."""
+    axis, which is dim 1 of (3, B, S) M-RoPE positions.  A DTensor's
+    rows are those of the global batch, placed as the batch was."""
     def rows(k, v, i):
         b = v.shape[1 if k == "positions" and v.dim() == 3 else 0] // accum
         if k == "positions" and v.dim() == 3:
             return v[:, i * b:(i + 1) * b]
         return v[i * b:(i + 1) * b]
-    return [{k: rows(k, v, i) for k, v in batch.items()}
-            for i in range(accum)]
+
+    out = [{} for _ in range(accum)]
+    for k, v in batch.items():
+        w = whole(v)
+        for i in range(accum):
+            out[i][k] = place_like(rows(k, w, i), v)
+    return out
+
 
 
 def make_train_step(cfg: ModelConfig, peak_lr=3e-4, total_steps=10_000,
@@ -83,7 +100,11 @@ def make_train_step(cfg: ModelConfig, peak_lr=3e-4, total_steps=10_000,
             grads = torch.autograd.grad(loss, req, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(req, grads)]
-        return loss.detach(), grads
+        # a DTensor's gradient may come back partial or otherwise placed
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if isinstance(g, DTensor) and g.placements != p.placements
+                 else g for p, g in zip(req, grads)]
+        return whole(loss.detach()), grads
 
     def train_step(state, batch):
         params = state["params"]
@@ -95,10 +116,11 @@ def make_train_step(cfg: ModelConfig, peak_lr=3e-4, total_steps=10_000,
                     gsum = [g.to(torch.float32, copy=True) for g in grads]
                     lsum = loss
                 else:
-                    torch._foreach_add_(gsum, grads)
+                    torch._foreach_add_([local_shard(g) for g in gsum],
+                                        [local_shard(g) for g in grads])
                     lsum = lsum + loss
                 del grads
-            torch._foreach_div_(gsum, accum)
+            torch._foreach_div_([local_shard(g) for g in gsum], accum)
             grads, loss = gsum, lsum / accum
         else:
             loss, grads = loss_and_grads(params, batch)

@@ -302,7 +302,7 @@ def lm_forward(params, cfg: ModelConfig, batch: Dict[str, Any],
     x = L.maybe_constrain(x, act_spec)
     positions = batch.get("positions")
     if positions is None:
-        positions = L.make_positions(B, Sq, offset, x.device)
+        positions = L.like(L.make_positions(B, Sq, offset, x.device), x)
     remat = mode == "train" and torch.is_grad_enabled()
 
     aux = {"load_balance_loss": torch.zeros((), device=x.device),
@@ -340,24 +340,32 @@ def _mask_padded(logits, vocab_size):
     lf = logits.float()
     Vpad = lf.shape[-1]
     if Vpad > vocab_size:
-        col = torch.arange(Vpad, device=lf.device) < vocab_size
+        col = L.like(torch.arange(Vpad, device=lf.device) < vocab_size, lf)
         lf = lf.masked_fill(~col, -1e30)
     return lf
+
+
+def _gold(logits, labels):
+    """The label's logit at each position.  On a mesh each rank gathers
+    its own positions with the vocab whole (``layers.shard_local``):
+    DTensor's gather along a sharded dim returns a partial that the next
+    index cannot take."""
+    return L.shard_local(
+        lambda lf, y: torch.gather(lf, -1, y[..., None].long())[..., 0],
+        logits, labels, dims=(0, 1))
 
 
 def cross_entropy(logits, labels, vocab_size):
     """Mean CE over tokens; logits (B,S,Vpad), labels (B,S) in [0, vocab)."""
     lf = _mask_padded(logits, vocab_size)
     logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    return (logz - gold).mean()
+    return (logz - _gold(lf, labels)).mean()
 
 
 def _chunk_ce(xc, head_w, yc, vc, vocab_size):
     logits = _mask_padded(torch.matmul(*L.promote(xc, head_w)), vocab_size)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
-    return torch.sum((logz - gold) * vc[None, :])
+    return torch.sum((logz - _gold(logits, yc)) * vc[None, :])
 
 
 def cross_entropy_chunked(hidden, head_w, labels, vocab_size,

@@ -24,6 +24,8 @@ v head dim, which the kernel's single head dim cannot take.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import ops
@@ -112,7 +114,7 @@ def exact_attention(q, k, v, causal=True):
     if causal:
         valid = (torch.arange(Sq, device=q.device)[:, None]
                  >= torch.arange(Sk, device=q.device)[None, :])
-    return _softmax_attend(q, k, v, valid)
+    return _softmax_attend(q, k, v, L.like(valid, q))
 
 
 def chunked_attention(q, k, v, causal=True, chunk=KV_CHUNK):
@@ -124,17 +126,18 @@ def chunked_attention(q, k, v, causal=True, chunk=KV_CHUNK):
     Sk = k.shape[1]
     nchunks = (Sk + chunk - 1) // chunk
     scale = 1.0 / torch.tensor(D, dtype=torch.float32).sqrt()
-    qi = torch.arange(Sq, device=q.device)[:, None]
+    qi = L.like(torch.arange(Sq, device=q.device)[:, None], q)
     NEG = torch.finfo(torch.float32).min / 2
-    m = torch.full((B, H, Sq), float("-inf"), device=q.device)
-    l = torch.zeros((B, H, Sq), device=q.device)
-    acc = torch.zeros((B, H, Sq, Dv), device=q.device)
+    m = L.like(torch.full((B, H, Sq), float("-inf"), device=q.device), q)
+    l = L.like(torch.zeros((B, H, Sq), device=q.device), q)
+    acc = L.like(torch.zeros((B, H, Sq, Dv), device=q.device), q)
     for ci in range(nchunks):
         kb = k[:, ci * chunk:(ci + 1) * chunk]
         vb = v[:, ci * chunk:(ci + 1) * chunk]
         n = kb.shape[1]
         s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kb.float()) * scale
-        ki = ci * chunk + torch.arange(n, device=q.device)[None, :]
+        ki = L.like(ci * chunk + torch.arange(n, device=q.device)[None, :],
+                    q)
         mask = ki < Sk
         if causal:
             mask = mask & (qi >= ki)
@@ -162,6 +165,14 @@ def _plain_attention(cfg, q, k, v):
     return exact_attention(q, k, v)
 
 
+def _attend_heads(cfg, q, k, v):
+    """``_plain_attention`` on each rank's (batch, head) pairs on a mesh
+    (``layers.shard_local``): the einsums flatten the batch and head
+    dims, which DTensor cannot do with both sharded (torch 2.11)."""
+    return L.shard_local(functools.partial(_plain_attention, cfg), q, k, v,
+                         dims=(0, 2))
+
+
 def gqa_fwd(p, cfg, x, positions, cache=None, offset=0, mode="train"):
     """Returns (out, cache).
 
@@ -177,8 +188,8 @@ def gqa_fwd(p, cfg, x, positions, cache=None, offset=0, mode="train"):
     B, S, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
     if mode == "train":
-        out = _plain_attention(cfg, q, _repeat_kv(k, cfg.num_heads),
-                               _repeat_kv(v, cfg.num_heads))
+        out = _attend_heads(cfg, q, _repeat_kv(k, cfg.num_heads),
+                            _repeat_kv(v, cfg.num_heads))
     elif mode == "prefill":
         out = ops.flash_attention(q, k, v, causal=True)
         ck, cv = cache
@@ -269,7 +280,7 @@ def mla_fwd(p, cfg, x, positions, cache=None, offset=0, mode="train"):
     q, latent = _mla_qkv(p, cfg, x, positions, None)
     if mode in ("train", "prefill"):
         k, v = _mla_expand(p, cfg, latent)
-        out = _plain_attention(cfg, q, k, v)
+        out = _attend_heads(cfg, q, k, v)
         if mode == "prefill":
             cache[:, offset:offset + S] = latent.to(cache.dtype)
     else:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -34,14 +35,66 @@ def randn(gen: torch.Generator, shape, scale: float, dtype):
 
 
 def maybe_constrain(x, spec):
-    """The reference pins (batch, seq, d_model) activations to a
-    PartitionSpec here; on one device there is nothing to pin.  A spec
-    waits for training across cards (ROADMAP queue 1)."""
+    """The reference's ``with_sharding_constraint``: pin an activation
+    to ``spec``, a ``dist.sharding.NamedSharding`` (None: unconstrained,
+    on one device).  ``x`` must be a DTensor on the spec's mesh: a step
+    asked to run on a mesh never quietly runs unsharded."""
     if spec is None:
         return x
-    raise NotImplementedError(
-        "activation sharding specs need training across cards, which the "
-        "port does not have yet (ROADMAP queue 1)")
+    if not isinstance(x, DTensor):
+        raise TypeError(f"an activation spec {spec!r} needs a DTensor "
+                        f"activation; got a {type(x).__name__}")
+    return x.redistribute(spec.mesh, spec.placements)
+
+
+def like(t, ref):
+    """``t``, a tensor the forward made itself (a rope table, a mask, a
+    pad, zeros), as a replicated DTensor on ``ref``'s mesh where ``ref``
+    is a DTensor; ``t`` itself otherwise.  Every rank makes the same
+    ``t``, so no data moves."""
+    if isinstance(ref, DTensor) and not isinstance(t, DTensor):
+        mesh = ref.device_mesh
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return t
+
+
+def shard_local(fn, *args, dims=(0,)):
+    """``fn`` run on each rank's shard of the tensor dims ``dims``: for a
+    function that treats each index of those dims alone (the batch rows
+    of the SSD scan; the (batch, head) pairs of attention), or, with
+    ``dims=()``, on the whole of every argument on every rank (the MoE
+    dispatch).  For the ops DTensor has no rule for (or a wrong one),
+    named where each call is made.
+
+    Each DTensor argument keeps the shards of ``dims`` that the first
+    one has and is whole on every other dim (other shards redistributed
+    to ``Replicate``); a replicated argument's gradient is the sum over
+    the ranks that split the work (``Partial``).  Tensor outputs come
+    back placed as the first DTensor argument.  Plain arguments run
+    ``fn`` directly."""
+    ref = next((a for a in args if isinstance(a, DTensor)), None)
+    if ref is None:
+        return fn(*args)
+    mesh = ref.device_mesh
+    place = [p if p.is_shard() and p.dim % ref.dim() in dims
+             else Replicate() for p in ref.placements]
+    locs = []
+    for a in args:
+        if not isinstance(a, DTensor):
+            locs.append(a)
+            continue
+        # an argument keeps the shards it shares with the first one
+        keep = [p if p.is_shard() and p == q else Replicate()
+                for p, q in zip(a.placements, place)]
+        grad = [p if p.is_shard() else Partial() if q.is_shard()
+                else Replicate() for p, q in zip(keep, place)]
+        locs.append(a.redistribute(placements=keep).to_local(
+            grad_placements=grad))
+    out = fn(*locs)
+    wrap = (lambda t: DTensor.from_local(t, mesh, place, run_check=False)
+            if isinstance(t, torch.Tensor) else t)
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
 
 
 def dense_init(gen, d_in, d_out, dtype=DEFAULT_DTYPE, bias=False,
@@ -82,7 +135,9 @@ def embed_init(gen, vocab, d, dtype=DEFAULT_DTYPE):
 
 
 def embed_fwd(p, ids):
-    return p["embedding"][ids]
+    # on a mesh on each rank's batch rows, the table whole (torch 2.11's
+    # DTensor cannot place the index_put of the lookup's backward)
+    return shard_local(lambda i, w: w[i], ids, p["embedding"])
 
 
 def mlp_init(gen, d, d_ff, dtype=DEFAULT_DTYPE):
@@ -117,10 +172,10 @@ def apply_rope(x, positions, theta=1e6, sections=(), impl="f32"):
     (angles still fp32).
     """
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                       # (d/2,)
+    freqs = like(rope_freqs(d, theta, x.device), x)              # (d/2,)
     if positions.dim() == 3 and sections:
-        sec_id = torch.cat([torch.full((s,), i, device=positions.device)
-                            for i, s in enumerate(sections)])
+        sec_id = like(torch.cat([torch.full((s,), i, device=x.device)
+                                 for i, s in enumerate(sections)]), x)
         pos = positions[sec_id]                                  # (d/2, B, L)
         ang = pos.float().permute(1, 2, 0) * freqs               # (B, L, d/2)
     else:

@@ -16,6 +16,8 @@ reference's K-wide window sum over the cached tails.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -72,8 +74,8 @@ def _segsum(dA):
     T = dA.shape[-1]
     cs = torch.cumsum(dA, dim=-1)
     out = cs[..., :, None] - cs[..., None, :]
-    mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
-                                 device=dA.device))
+    mask = L.like(torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                        device=dA.device)), dA)
     return out.masked_fill(~mask, float("-inf"))
 
 
@@ -114,7 +116,7 @@ def ssd_chunked(x, dt, A, B, C, chunk=CHUNK):
 
     # 3) inter-chunk recurrence
     chunk_decay = torch.exp(dA_cum[..., -1])              # (b,nc,g,rep)
-    carry = torch.zeros((b, g, rep, p, n), device=x.device)
+    carry = L.like(torch.zeros((b, g, rep, p, n), device=x.device), x)
     prev = []
     for c in range(nc):
         prev.append(carry)                                # state entering c
@@ -163,8 +165,11 @@ def mamba_fwd(p, cfg, u, cache=None, mode="train"):
 
     if mode in ("train", "prefill"):
         # y[l] = sum_k w[k] x[l-K+1+k] + b in fp32: prefill through the
-        # kernel, train through the differentiable plain version
-        conv = ops.conv1d_causal if mode == "prefill" else causal_conv1d
+        # kernel, train through the differentiable plain version (on a
+        # mesh on each rank's batch rows, ``layers.shard_local``: DTensor
+        # mis-places the gradient of its causal pad)
+        conv = (ops.conv1d_causal if mode == "prefill"
+                else functools.partial(L.shard_local, causal_conv1d))
         x, Bc, Cc = (F.silu(conv(raw, p[n]["w"], p[n]["b"]))
                      for raw, n in ((x_raw, "conv_x"), (B_raw, "conv_B"),
                                     (C_raw, "conv_C")))
@@ -173,10 +178,14 @@ def mamba_fwd(p, cfg, u, cache=None, mode="train"):
         pad = (-S) % chunk
         if pad:
             x, Bc, Cc, dt = (F.pad(t, (0, 0, 0, pad)) for t in (x, Bc, Cc, dt))
-        y, final_state = ssd_chunked(
+        # on a mesh the scan runs on each rank's batch rows, its channels
+        # whole (``layers.shard_local``): DTensor has no rule for the
+        # ``flip`` of its cumsum's backward, and its einsum breaks on a
+        # channel-sharded SSD
+        y, final_state = L.shard_local(
+            functools.partial(ssd_chunked, chunk=chunk),
             x.reshape(Bsz, -1, H, P), dt, A,
-            Bc.reshape(Bsz, -1, G, N), Cc.reshape(Bsz, -1, G, N),
-            chunk=chunk)
+            Bc.reshape(Bsz, -1, G, N), Cc.reshape(Bsz, -1, G, N))
         y = y.reshape(Bsz, -1, d_in)[:, :S]
         y = y + x[:, :S].float() * D_rep
         if mode == "prefill":

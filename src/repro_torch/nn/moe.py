@@ -80,37 +80,22 @@ def dispatch(p, cfg, xg, dropless=False):
     return probs, eidx, gate_te, vals, tok_idx
 
 
-def moe_fwd(p, cfg, x, dropless=False, n_groups=1):
-    """x: (B, S, D) -> (B, S, D), plus the aux metrics dict
-    (``load_balance_loss``, ``dropped_frac``, fp32 scalars).
+def _expert_tokens(x2, tok_idx, G):
+    """Each expert's top-C tokens gathered from x2 (T, D): (E, ng*C, D)."""
+    ng, E, C = tok_idx.shape
+    rows = tok_idx + (torch.arange(ng, device=x2.device) * G)[:, None, None]
+    ein = x2.index_select(0, rows.transpose(0, 1).reshape(-1))
+    return ein.reshape(E, ng * C, x2.shape[-1])
 
-    n_groups: routing groups (the reference sets the data-parallel
-    degree); 1 when it does not divide the tokens.  dropless=True sets
-    each expert's capacity to the whole group (decode).
-    """
-    B, S, D = x.shape
-    T = B * S
-    E = cfg.num_experts
-    if T % n_groups != 0:
-        n_groups = 1
-    ng, G = n_groups, T // n_groups
-    probs, eidx, gate_te, vals, tok_idx = dispatch(
-        p, cfg, x.reshape(ng, G, D), dropless)
-    C = tok_idx.shape[-1]
 
-    # gather each expert's tokens, (E, ng*C, D), and run the banks
-    rows = tok_idx + (torch.arange(ng, device=x.device) * G)[:, None, None]
-    ein = x.reshape(T, D).index_select(0, rows.transpose(0, 1).reshape(-1))
-    ein = ein.reshape(E, ng * C, D)
-    ex = p["experts"]
-    h = F.silu(torch.bmm(*L.promote(ein, ex["wi"])))
-    h = h * torch.bmm(*L.promote(ein, ex["wg"]))
-    eout = torch.bmm(*L.promote(h, ex["wo"]))              # (E, ng*C, D)
-    w = eout.reshape(E, ng, C, D).transpose(0, 1).float() * vals[..., None]
-
-    # combine: token g of group n reads slot pos[n, e, g] of each routed e
-    slots = torch.arange(C, device=x.device).expand(ng, E, C)
-    pos = torch.full((ng, E, G), -1, dtype=torch.int64, device=x.device)
+def _combine(w, tok_idx, eidx):
+    """Token g of group n reads slot pos[n, e, g] of each routed expert e
+    of the gate-weighted outputs w (ng, E, C, D) and sums them in fp32:
+    (ng, G, D)."""
+    ng, E, C, D = w.shape
+    G = eidx.shape[1]
+    slots = torch.arange(C, device=w.device).expand(ng, E, C)
+    pos = torch.full((ng, E, G), -1, dtype=torch.int64, device=w.device)
     pos.scatter_(-1, tok_idx, slots)
     slot = pos.gather(1, eidx.transpose(1, 2)).transpose(1, 2)  # (ng,G,K)
     flat = eidx * C + slot.clamp_min(0)                         # (ng,G,K)
@@ -118,17 +103,60 @@ def moe_fwd(p, cfg, x, dropless=False, n_groups=1):
         1, flat.reshape(ng, -1, 1).expand(-1, -1, D))           # (ng,G*K,D)
     picked = picked.reshape(ng, G, -1, D)
     picked = torch.where((slot >= 0)[..., None], picked,
-                         torch.zeros((), device=x.device))
-    out = picked.sum(2).to(x.dtype).reshape(B, S, D)
+                         torch.zeros((), device=w.device))
+    return picked.sum(2)
 
-    if cfg.num_shared_experts:
-        out = out + L.mlp_fwd(p["shared"], x)
 
-    # load-balance aux loss (Switch-style) + dropped-token fraction
+def _aux(probs, eidx, vals, gate_te):
+    """Load-balance aux loss (Switch-style) and dropped-token fraction."""
+    E = probs.shape[-1]
     me = probs.mean((0, 1))                                    # (E,)
     ce = torch.zeros_like(probs).scatter_(-1, eidx, 1.0).mean((0, 1))
     kept = (vals > 0).sum((1, 2)).float()                      # per group
     routed = (gate_te > 0).sum((1, 2)).float()
-    aux = {"load_balance_loss": E * torch.sum(me * ce),
-           "dropped_frac": 1.0 - (kept / routed.clamp_min(1.0)).mean()}
-    return out, aux
+    return (E * torch.sum(me * ce),
+            1.0 - (kept / routed.clamp_min(1.0)).mean())
+
+
+def moe_fwd(p, cfg, x, dropless=False, n_groups=1):
+    """x: (B, S, D) -> (B, S, D), plus the aux metrics dict
+    (``load_balance_loss``, ``dropped_frac``, fp32 scalars).
+
+    n_groups: routing groups (the reference sets the data-parallel
+    degree); 1 when it does not divide the tokens.  dropless=True sets
+    each expert's capacity to the whole group (decode).
+
+    On a mesh (DTensor x) the routing, the token gather and the combine
+    run on the whole tokens on every rank (``layers.shard_local`` with
+    ``dims=()``): the stable sort over tokens, ``scatter``, ``gather``
+    and ``index_select`` have no DTensor rule.  The expert products stay
+    sharded (EP x FSDP).
+    """
+    B, S, D = x.shape
+    T = B * S
+    E = cfg.num_experts
+    if T % n_groups != 0:
+        n_groups = 1
+    ng, G = n_groups, T // n_groups
+    probs, eidx, gate_te, vals, tok_idx = L.shard_local(
+        lambda xg, w: dispatch({"router": {"w": w}}, cfg, xg, dropless),
+        x.reshape(ng, G, D), p["router"]["w"], dims=())
+    C = tok_idx.shape[-1]
+
+    # gather each expert's tokens, (E, ng*C, D), and run the banks
+    ein = L.shard_local(_expert_tokens, x.reshape(T, D), tok_idx, G,
+                        dims=())
+    ex = p["experts"]
+    h = F.silu(torch.bmm(*L.promote(ein, ex["wi"])))
+    h = h * torch.bmm(*L.promote(ein, ex["wg"]))
+    eout = torch.bmm(*L.promote(h, ex["wo"]))              # (E, ng*C, D)
+    w = eout.reshape(E, ng, C, D).transpose(0, 1).float() * vals[..., None]
+
+    out = L.shard_local(_combine, w, tok_idx, eidx, dims=())
+    out = out.to(x.dtype).reshape(B, S, D)
+
+    if cfg.num_shared_experts:
+        out = out + L.mlp_fwd(p["shared"], x)
+
+    lb, dropped = L.shard_local(_aux, probs, eidx, vals, gate_te, dims=())
+    return out, {"load_balance_loss": lb, "dropped_frac": dropped}

@@ -14,6 +14,11 @@ and biases included) and only 1-d leaves outside the layers, such as
 ``final_norm.scale``, do not.  The port keeps one dict per layer, so a
 leaf's dims are counted as the reference's stacked array has them
 (``tree.walk`` gives its repeat).
+
+On a mesh the leaves are DTensors of equal placements (a param, its
+gradient, master and moments): the foreach passes run on the local
+shards, and the global norm is one reduction over the mesh, each
+shard's sum of squares counted once.
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial
 
+from repro_torch.dist.sharding import local_shard
 from repro_torch.tree import leaves, map_tree, walk
 
 #: leaves per foreach pass are grouped up to this many elements
@@ -34,23 +41,48 @@ def adamw_init(params) -> Dict[str, Any]:
     f32 = lambda t: map_tree(
         lambda a: a.detach().to(torch.float32, copy=True), t)
     zeros = lambda t: map_tree(
-        lambda a: torch.zeros(a.shape, dtype=torch.float32,
-                              device=a.device), t)
+        lambda a: torch.zeros_like(a, dtype=torch.float32,
+                                   memory_format=torch.contiguous_format), t)
     return {"master": f32(params), "m": zeros(params), "v": zeros(params)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32.  On the card
-    one foreach pass; on the CPU a pairwise ``sum`` per leaf, since the
-    CPU's norm kernel sums a tensor in one fp32 accumulator (7.5% low
-    over 233 M elements, qwen2-1.5b's embedding)."""
-    ls = leaves(tree)
+def _sum_sq(ls) -> torch.Tensor:
+    """The sum of squares of plain tensors, in fp32.  On the card one
+    foreach pass; on the CPU a pairwise ``sum`` per leaf, since the CPU's
+    norm kernel sums a tensor in one fp32 accumulator (7.5% low over
+    233 M elements, qwen2-1.5b's embedding)."""
     if all(t.is_cuda for t in ls):
         sq = torch.stack(torch._foreach_norm(
             ls, 2, dtype=torch.float32)).square()
     else:
         sq = torch.stack([torch.sum(torch.square(t.float())) for t in ls])
-    return torch.sqrt(torch.sum(sq))
+    return torch.sum(sq)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32, as a plain
+    tensor.  DTensor leaves (all on one mesh): a rank sums the local
+    shards of the leaves it is the first copy of (coordinate 0 on every
+    mesh dim that replicates the leaf), then one all-reduce over the
+    mesh adds the ranks' sums."""
+    ls = leaves(tree)
+    if not any(isinstance(t, DTensor) for t in ls):
+        return torch.sqrt(_sum_sq(ls))
+    if not all(isinstance(t, DTensor) for t in ls):
+        raise TypeError("global_norm: a tree mixes DTensor and plain "
+                        "leaves")
+    mesh = ls[0].device_mesh
+    coord = mesh.get_coordinate()
+    mine = [t.to_local() for t in ls
+            if all(p.is_shard() or c == 0
+                   for p, c in zip(t.placements, coord))]
+    dev = ls[0].to_local().device
+    part = (_sum_sq(mine) if mine
+            else torch.zeros((), dtype=torch.float32, device=dev))
+    total = DTensor.from_local(part, mesh, [Partial()] * mesh.ndim,
+                               run_check=False).full_tensor()
+    return torch.sqrt(total)
+
 
 
 def _groups(n_items, numel):
@@ -75,15 +107,21 @@ def adamw_update(params, grads, opt, step, lr, *, b1=0.9, b2=0.95,
         params, opt = (map_tree(lambda a: a.clone(), t)
                        for t in (params, opt))
     items = list(walk(params))
-    p = [leaf for _, _, leaf in items]
-    g, mw = leaves(grads), leaves(opt["master"])
-    m, v = leaves(opt["m"]), leaves(opt["v"])
-    if not len(p) == len(g) == len(mw) == len(m) == len(v):
+    g = leaves(grads)
+    if not len(items) == len(g) == len(leaves(opt["master"])):
         raise ValueError("params, grads and optimizer state differ in "
                          "structure")
     # the reference decays a leaf of its stacked layout with ndim > 1
     decay = [leaf.dim() + (rep is not None) > 1 for _, rep, leaf in items]
     gnorm = global_norm(g)
+    # the passes below run on the local shards of DTensor leaves
+    p = [local_shard(leaf) for _, _, leaf in items]
+    g = [local_shard(t) for t in g]
+    mw, m, v = ([local_shard(t) for t in leaves(opt[k])]
+                for k in ("master", "m", "v"))
+    if not len(p) == len(g) == len(mw) == len(m) == len(v):
+        raise ValueError("params, grads and optimizer state differ in "
+                         "structure")
     scale = (torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
              if grad_clip > 0 else None)
     t = np.float32(int(step) + 1)

@@ -18,7 +18,12 @@ A checkpoint written by either package restores in the other:
   * async: ``save_checkpoint(..., async_=True)`` copies every tensor to
     the host before the writer thread starts, so the train loop may
     update the state in place while the disk write runs;
-  * auto-resume: ``latest_step`` finds the newest complete checkpoint.
+  * auto-resume: ``latest_step`` finds the newest complete checkpoint;
+  * mesh-independent: a DTensor leaf is gathered whole (``full_tensor``,
+    on every rank) and rank 0 writes the unsharded layout while the
+    other ranks wait at a barrier, so ``restore_checkpoint(...,
+    shardings=...)`` places it onto whatever mesh comes up (the
+    reference's elastic re-mesh), or onto none.
 """
 from __future__ import annotations
 
@@ -32,9 +37,12 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.convspec import resolve_device
-from repro_torch.tree import fill, key, walk
+from repro_torch.dist import sharding as shd
+from repro_torch.tree import fill, key, leaves, unflatten, walk
 
 _SENTINEL = "manifest.json"
 
@@ -51,7 +59,7 @@ _TORCH_NAME = {torch.float32: "float32", torch.float64: "float64",
 def _to_host(t: torch.Tensor):
     """(numpy array to save, logical dtype name): a copy, never a view of
     the tensor (the caller may update it in place afterwards)."""
-    t = t.detach()
+    t = shd.whole(t.detach())
     for name, (dt, bits) in _EXOTIC.items():
         if t.dtype == dt:
             raw = t.view(_SIGNED[bits]).to("cpu", copy=True).numpy()
@@ -93,11 +101,22 @@ def _hash(arr: np.ndarray) -> str:
 def save_checkpoint(ckpt_dir, step: int, tree, *, async_=False,
                     keep: int = 3):
     """Write ``tree`` as ``ckpt_dir/step_{step}``; returns its path, or
-    with ``async_`` the started writer thread."""
+    with ``async_`` the started writer thread.  A tree of DTensors is a
+    collective call: every rank gathers, rank 0 writes, and a sync save
+    returns on every rank once the checkpoint is published (an async
+    one returns None on the other ranks)."""
     ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    sharded = any(isinstance(t, DTensor) for t in leaves(tree))
+    writer = not sharded or dist.get_rank() == 0
+    if writer:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
     # device -> host (blocking part; the disk write can be async)
     host = _flatten_host(tree)
+    if not writer:
+        del host
+        if not async_:
+            dist.barrier()
+        return None
 
     def write():
         tmp = ckpt_dir / f"step_{step}.tmp"
@@ -124,6 +143,8 @@ def save_checkpoint(ckpt_dir, step: int, tree, *, async_=False,
         t.start()
         return t
     write()
+    if sharded:
+        dist.barrier()
     return ckpt_dir / f"step_{step}"
 
 
@@ -162,14 +183,20 @@ def restore_checkpoint(ckpt_dir, step: int, like_tree, *, shardings=None,
     """Restore into the structure, shapes and dtypes of ``like_tree`` (its
     leaves may be meta tensors), on ``device`` (default: the card).
 
-    ``shardings`` is the reference's re-sharding onto another mesh; it
-    waits for training across cards and must be None.
+    ``shardings``: optional tree of ``dist.sharding.NamedSharding``
+    matching ``like_tree``.  This is the elastic path: each saved array
+    is placed onto the *current* mesh, as a DTensor on the mesh's device,
+    whatever mesh it was saved from.
     """
     if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh needs training across cards, which the "
-            "port does not have yet (ROADMAP queue 1)")
-    dev = resolve_device(device)
+        shards = leaves(shardings)
+        if not shards or not all(isinstance(x, shd.NamedSharding)
+                                 for x in shards):
+            raise TypeError("shardings must be a tree of NamedSharding "
+                            "(dist.sharding.named) matching like_tree")
+        dev = shd.device_of(shards[0].mesh)
+    else:
+        dev = resolve_device(device)
     d = Path(ckpt_dir) / f"step_{step}"
     manifest = json.loads((d / _SENTINEL).read_text())
     expect: Dict[str, tuple] = {}
@@ -197,7 +224,14 @@ def restore_checkpoint(ckpt_dir, step: int, like_tree, *, shardings=None,
         t = loaded[key(path)]
         t = t if rep is None else t[rep]
         return t.to(device=dev, dtype=like.dtype, copy=True)
-    return fill(like_tree, place)
+    out = fill(like_tree, place)
+    if shardings is None:
+        return out
+    ts = leaves(out)
+    if len(ts) != len(shards):
+        raise ValueError(f"shardings hold {len(shards)} leaves; the tree "
+                         f"{len(ts)}")
+    return unflatten(out, [shd.place(t, sh) for t, sh in zip(ts, shards)])
 
 
 def load_numpy(ckpt_dir, step: int, prefix: Optional[str] = None,

@@ -100,7 +100,7 @@ def test_restore_refuses_another_tree(tmp_path, rng):
     wrong = dict(_meta(t), a=torch.empty((4, 8), device="meta"))
     with pytest.raises(ValueError, match="shape mismatch"):
         ckpt.restore_checkpoint(tmp_path, 1, wrong, device="cpu")
-    with pytest.raises(NotImplementedError, match="across cards"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         ckpt.restore_checkpoint(tmp_path, 1, _meta(t), device="cpu",
                                 shardings={"a": None})
 
@@ -366,3 +366,84 @@ def test_the_port_resumes_a_jax_run(tmp_path):
         assert np.linalg.norm(node - want) <= 1e-2 * d, (
             jax.tree_util.keystr(path), np.linalg.norm(node - want) / d)
     assert int(back["step"]) == 4
+
+
+# ---------------------------------------------------------------------------
+# on a (2, 2) mesh of four gloo processes
+
+@pytest.fixture(scope="module")
+def mesh_ckpt(tmp_path_factory):
+    """The ``ckpt`` case of ``_torch_mesh_worker``: compressed_psum's
+    inputs (four rows and their residuals) and a JAX trainer's step-2
+    checkpoint go in; the ranks run once."""
+    from _torch_mesh_worker import run_ranks
+    d = tmp_path_factory.mktemp("mesh_ckpt")
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=(4, 600)) * 2).astype(np.float32)
+    err = (rng.normal(size=(4, 600)) * 1e-2).astype(np.float32)
+    np.savez(d / "psum_in.npz", x=x, err=err)
+    jcfg, _ = _smoke()
+    jt = JTrainer(jcfg, JTrainConfig(steps=2, ckpt_every=2,
+                                     ckpt_dir=str(d / "jax"),
+                                     ckpt_async=False, log_every=100),
+                  JSyntheticLMData(jcfg.vocab_size, 4, 16))
+    jt.run()
+    run_ranks("ckpt", d, timeout=300)
+    return d, x, err
+
+
+def test_compressed_psum_matches_the_reference_codec_sum(mesh_ckpt):
+    """compressed_psum over a 4-rank mesh axis: the all-reduce of each
+    rank's payload equals the sum of the reference's
+    dequantize(quantize_with_feedback(x_i, e_i)) over the four rows
+    (fp32 sums, in any order: 1e-6 relative), and each rank's new
+    residual is the reference's bit for bit; within 2% of the exact
+    sum, as the reference's own psum test holds it."""
+    d, x, err = mesh_ckpt
+    out = np.load(d / "psum_out.npz")
+    deqs, errs = [], []
+    for i in range(4):
+        (q, s, shape), ne = JC.quantize_with_feedback(jnp.asarray(x[i]),
+                                                      jnp.asarray(err[i]))
+        deqs.append(np.asarray(JC.dequantize(q, s, shape)))
+        errs.append(np.asarray(ne))
+    want = np.sum(deqs, axis=0)
+    np.testing.assert_allclose(out["sum"], want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(out["err"], np.stack(errs))
+    exact = (x + err).sum(0)
+    assert np.abs(out["sum"] - exact).max() / np.abs(exact).max() < 0.02
+
+
+def test_compressed_psum_on_one_rank_is_the_codec(tmp_path, rng):
+    """A world of one rank: the sum is dequantize(quantize_with_feedback)
+    bit for bit; a mesh of two dims is refused."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    x = torch.from_numpy(rng.normal(size=(3, 300)).astype(np.float32))
+    e = torch.from_numpy(rng.normal(size=(3, 300)).astype(np.float32))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        out, ne = TC.compressed_psum(x, None, e)
+        (q, s, shape), want_e = TC.quantize_with_feedback(x, e)
+        assert torch.equal(out, TC.dequantize(q, s, shape))
+        assert torch.equal(ne, want_e)
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("a", "b"))
+        assert torch.equal(TC.compressed_psum(x, mesh["a"], e)[0], out)
+        with pytest.raises(ValueError, match="one mesh axis"):
+            TC.compressed_psum(x, mesh, e)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_elastic_restore_onto_another_mesh_and_none(mesh_ckpt):
+    """A (2, 2) trainer's checkpoint restores onto (4, 1) and onto no
+    mesh bit-equal to the state it saved, and the JAX trainer's
+    checkpoint restores onto the (2, 2) mesh (each rank its shards)
+    equal to its restore without a mesh (the ranks check; rank 0 marks
+    it done)."""
+    d, _, _ = mesh_ckpt
+    assert (d / "ckpt_ok").read_text() == "ok"
+    tree = ckpt.load_numpy(d / "elastic", 1)
+    assert int(tree["step"]) == 1
+    assert sorted(tree) == ["opt", "params", "step"]

@@ -1160,3 +1160,92 @@ def test_checkpoint_round_trip_on_the_card(tmp_path):
                           .read_text())["arrays"]
     assert manifest["params/segments/0/pos0/ln1/scale"]["shape"] == [
         cfg.num_layers, cfg.d_model]
+
+
+@pytest.fixture
+def card_mesh(tmp_path):
+    """A world-size-1 NCCL process group and make_debug_mesh() over it,
+    (1, 1) on the card; destroyed after the test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: an NCCL group lies on the card")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_debug_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@requires_cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b",
+                                  "deepseek-moe-16b"])
+def test_mesh_step_on_card_matches_the_unsharded_step(arch, card_mesh):
+    """One fp32 step (grad_accum 2) through Trainer(mesh=(1, 1)) and
+    through the unsharded Trainer on the card, from the same seed and
+    batch: loss and grad_norm within 1e-5 relative, each leaf's update
+    within 1e-2 relative in L2; no kernel launched."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.tree import leaves, map_tree
+    assert tuple(card_mesh.shape) == (1, 1)
+    assert card_mesh.device_type == "cuda"
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)), grad_accum=2)
+    data = SyntheticLMData(cfg.vocab_size, 4, 32)
+    _build.reset_launches()
+    runs = []
+    for kw in ({"mesh": card_mesh}, {"device": "cuda"}):
+        t = Trainer(cfg, TrainConfig(peak_lr=3e-3), data, **kw)
+        st = t.init_state()
+        st["params"] = map_tree(lambda a: a.float(), st["params"])
+        st["opt"] = adamw_init(st["params"])
+        full = (lambda x: x.full_tensor().clone()) if "mesh" in kw else (
+            lambda x: x.clone())
+        p0 = [full(x) for x in leaves(st["params"])]
+        st, m = t.step_fn(st, t.batch_at(0))
+        runs.append((float(m["loss"]), float(m["grad_norm"]), p0,
+                     [full(x) for x in leaves(st["params"])]))
+    assert sum(_build.LAUNCHES.values()) == 0
+    (lm_, gm, a0, a1), (lo, go, b0, b1) = runs
+    np.testing.assert_allclose([lm_, gm], [lo, go], rtol=1e-5)
+    for x0, x1, y0, y1 in zip(a0, a1, b0, b1):
+        assert torch.equal(x0, y0)
+        assert ((x1 - x0) - (y1 - y0)).norm() <= 1e-2 * max(
+            (y1 - y0).norm().item(), 1e-12)
+
+
+@requires_cuda
+def test_mesh_checkpoint_and_compressed_psum_on_card(card_mesh, tmp_path):
+    """The mesh trainer's bf16 checkpoint restores onto the mesh and
+    without it bit-equal to the state it saved; compressed_psum over the
+    one-rank group is the codec bit for bit."""
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.dist import compress as C
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.tree import leaves
+    cfg = smoke_variant(get_config("qwen2-1.5b"))
+    t = Trainer(cfg, TrainConfig(steps=2, ckpt_every=2,
+                                 ckpt_dir=str(tmp_path / "run")),
+                SyntheticLMData(cfg.vocab_size, 4, 16), mesh=card_mesh)
+    t.run()
+    saved = [x.full_tensor().clone() for x in leaves(t.state)]
+    like = t.init_state(device="meta")
+    onto = ckpt.restore_checkpoint(tmp_path / "run", 2, like,
+                                   shardings=t.shardings)
+    plain = ckpt.restore_checkpoint(tmp_path / "run", 2, like,
+                                    device="cuda")
+    for a, b, c in zip(saved, leaves(onto), leaves(plain), strict=True):
+        assert torch.equal(a, b.full_tensor()) and torch.equal(a, c)
+        assert b.to_local().is_cuda and c.is_cuda
+    x = torch.randn(4, 5000, device="cuda")
+    e = torch.randn(4, 5000, device="cuda") * 1e-2
+    got, ne = C.compressed_psum(x, card_mesh["data"], e)
+    (q, s, shape), want_e = C.quantize_with_feedback(x, e)
+    assert torch.equal(got, C.dequantize(q, s, shape))
+    assert torch.equal(ne, want_e)

@@ -131,7 +131,9 @@ def test_cpu_is_served_only_when_asked_for():
                                  "repro_torch.data",
                                  "repro_torch.launch.train",
                                  "repro_torch.launch.steps",
-                                 "repro_torch.dist.compress"])
+                                 "repro_torch.dist.compress",
+                                 "repro_torch.dist.sharding",
+                                 "repro_torch.launch.mesh"])
 def test_the_training_modules_import_no_jax(mod):
     code = (f"import sys, importlib\n"
             f"importlib.import_module({mod!r})\n"
@@ -174,8 +176,22 @@ def test_training_entry_points_raise_without_cuda(tmp_path):
         ckpt.restore_checkpoint(tmp_path, 1, like)
     assert int(ckpt.restore_checkpoint(tmp_path, 1, like,
                                        device="cpu")["step"]) == 1
-    with pytest.raises(NotImplementedError, match="across cards"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(cfg, tcfg, data, mesh=object(), device="cpu")
+    # a training mesh lies on the card unless a gloo group or the caller
+    # says otherwise: no process group and no card raises, never a CPU
+    # mesh
+    from repro_torch.launch.mesh import make_debug_mesh, \
+        make_production_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_debug_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="no process group"):
+        make_debug_mesh(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launcher.main(["--arch", "qwen2-1.5b", "--smoke", "--steps", "1",
+                       "--ckpt-dir", str(tmp_path), "--mesh", "debug"])
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -220,14 +236,9 @@ ABSENT = {
         "int8_gemm": "removed as unused when the int8 executor became one "
                      "int8_conv launch per node"},
 }
-#: modules ported in part: the names still to come (ROADMAP queue 1,
-#: training across cards and analysis)
-PARTIAL = {
-    "dist/compress.py": {"compressed_psum"},    # an all-reduce in shard_map
-    "dist/sharding.py": {"batch_specs", "cache_specs", "logical_axes",
-                         "make_rules", "named", "opt_specs", "param_specs"},
-    "launch/mesh.py": {"make_debug_mesh", "make_production_mesh"},
-}
+#: modules ported in part: the names still to come (none: every ported
+#: module is whole)
+PARTIAL = {}
 #: reference modules not ported yet (ROADMAP queue 1, analysis)
 NOT_PORTED = {"launch/dryrun.py", "roofline/__init__.py",
               "roofline/analysis.py"}

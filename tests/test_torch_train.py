@@ -7,6 +7,7 @@ numpy; the reference's train step runs under ``jax.jit``, the port's
 eagerly.  The integration tests mirror ``tests/test_training.py``.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -480,10 +481,12 @@ def test_skip_head_and_params_to_numpy(rng):
 
 
 def test_maybe_constrain_on_one_device():
+    """No spec: the tensor itself; a spec on a plain tensor (no mesh)
+    raises rather than running unsharded."""
     from repro_torch.nn import layers as L
     x = torch.ones(2, 3)
     assert L.maybe_constrain(x, None) is x
-    with pytest.raises(NotImplementedError, match="across cards"):
+    with pytest.raises(TypeError, match="needs a DTensor"):
         L.maybe_constrain(x, ("data", None, None))
 
 
@@ -503,8 +506,16 @@ def test_launcher_trains_and_resumes_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from step 6" in out and "'step': 7" in out
     assert ckpt.latest_steps(tmp_path) == [3, 6, 8]
-    with pytest.raises(NotImplementedError, match="across cards"):
-        launcher.main(args + ["--mesh", "debug"])
+    # --mesh debug: a world of one gloo rank, resumed onto its (1, 1) mesh
+    launcher.main(args[:4] + ["9"] + args[5:] + ["--mesh", "debug"])
+    out = capsys.readouterr().out
+    assert "resumed from step 8" in out and "'step': 8" in out
+    assert ckpt.latest_steps(tmp_path) == [6, 8, 9]
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="needs 256 ranks"):
+        launcher.main(args + ["--mesh", "pod"])
+    assert not dist.is_initialized()
 
 
 def test_sigterm_checkpoints_at_the_next_step_boundary(tmp_path,
@@ -546,3 +557,77 @@ def test_sigterm_checkpoints_at_the_next_step_boundary(tmp_path,
     for a, b in zip(got_l, want_l):
         np.testing.assert_array_equal(a, b)
     assert int(got["step"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# on a (2, 2) mesh of four gloo processes
+
+@pytest.fixture(scope="module")
+def mesh_trainer(tmp_path_factory):
+    """The ``trainer`` case of ``_torch_mesh_worker`` on four gloo ranks,
+    run once for the tests below."""
+    from _torch_mesh_worker import run_ranks
+    d = tmp_path_factory.mktemp("mesh_trainer")
+    run_ranks("trainer", d, timeout=300)
+    return d
+
+
+def test_mesh_trainer_resumes_to_the_unsharded_loss(mesh_trainer, tmp_path):
+    """Trainer(mesh=(2, 2)) takes 2 steps (a checkpoint each), a second
+    one resumes onto the mesh and takes step 3: each loss within 1e-5
+    of the unsharded trainer's, whose state each rank shards."""
+    from _torch_mesh_worker import trainer_setup
+    got = json.loads((mesh_trainer / "trainer.json").read_text())
+    cfg, data, make = trainer_setup()
+    t = make(cfg, TrainConfig(steps=3, ckpt_dir=str(tmp_path / "one"),
+                              ckpt_every=100, log_every=100), data,
+             device="cpu")
+    t.run()
+    want = [m["loss"] for m in t.metrics_log]
+    assert len(got) == len(want) == 3
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_mesh_grad_compression_codes_the_global_rows(mesh_trainer):
+    """One fp32 step with int8 + error feedback on the (2, 2) mesh
+    against the same step unsharded: the loss within 1e-5, each leaf's
+    update within 1e-2 relative in L2, and the feedback residuals within
+    1e-6 on all but a thousandth of their elements (the blocks are the
+    global rows', as the reference's; blocks cut per shard would scale
+    every block differently)."""
+    got = json.loads((mesh_trainer / "compressed.json").read_text())
+    np.testing.assert_allclose(got["loss"][0], got["loss"][1], rtol=1e-5)
+    assert got["max_rel_update_l2"] <= 1e-2, got
+    assert got["ef_off"] <= got["ef_total"] // 1000, got
+    assert got["ef_max"] > 0
+
+
+def test_mesh_trainer_stops_every_rank_at_one_boundary(mesh_trainer):
+    """A stop requested on rank 0 alone inside step 2 (its SIGTERM): the
+    ranks agree at the next step boundary, every rank runs 2 steps, and
+    one sync checkpoint of step 2 is written."""
+    got = json.loads((mesh_trainer / "stop.json").read_text())
+    assert got == {"steps_run": 2, "state_step": 2, "checkpoints": [2]}
+
+
+def test_torchrun_launcher_on_four_cpu_ranks(tmp_path):
+    """python -m torch.distributed.run --nproc-per-node 4 -m
+    repro_torch.launch.train --smoke --mesh debug --device cpu: exits 0
+    with the last step's checkpoint written once, by rank 0."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+           "--arch", "qwen2-1.5b", "--smoke", "--mesh", "debug",
+           "--device", "cpu", "--steps", "2", "--seq", "16", "--batch",
+           "8", "--ckpt-dir", str(tmp_path)]
+    out = subprocess.run(cmd, env=dict(__import__("os").environ,
+                                       PYTHONPATH=str(src),
+                                       OMP_NUM_THREADS="1"),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert out.stdout.count("[train] done:") == 4
+    from repro_torch.train import checkpoint as ckpt
+    assert ckpt.latest_steps(tmp_path) == [2]
