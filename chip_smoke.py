@@ -96,7 +96,21 @@ calls:
   wave, tokens equal to the in-memory params'); ``python -m
   repro_torch.launch.train --smoke --mesh debug`` exiting 0 and
   ``--mesh pod`` exiting non-zero with the 256-rank error.  The group is
-  destroyed at the phase's end.
+  destroyed at the phase's end;
+- the analysis (``analysis_phase``): on a world-size-1 NCCL group's
+  (1, 1) mesh, qwen2-1.5b's training step (8x512 tokens, grad_accum 4,
+  full remat, bf16) counted by ``launch/dryrun.py`` on meta and by its
+  ``CostCounter`` around the real step on the card (FLOPs per rank
+  within 1%, collective counts equal; the counted peak and
+  ``torch.cuda.max_memory_allocated`` printed, not gated); the step's
+  roofline with ``roofline.HW`` (NVIDIA's published H100 SXM peaks)
+  beside the measured step ms (the largest term over the measured step
+  at most 1.05); one prefill wave (4x512) counted on meta and on the
+  card, where ``flash_attention`` launches once a layer (its formula's
+  FLOPs equal on both); and ``python -m repro_torch.launch.dryrun`` on
+  three cells of the pod mesh (qwen2-1.5b train_4k, deepseek-moe-16b
+  decode_32k, mamba2-1.3b long_500k) under this machine's torch, each
+  exiting 0 with status ``OK``.
 
 It prints the launch geometry of the seven tensor-core kernels
 (``conv1x1_gemm``, ``cuconv_fused``, ``winograd_fused``,
@@ -308,6 +322,12 @@ TRAIN_SERVE_REQUESTS, TRAIN_SERVE_PROMPT, TRAIN_SERVE_NEW = 4, 128, 8
 MESH_STEPS = 3                       # full size, bf16; medians of 2-3
 MESH_TOL = 1e-5                      # loss and grad_norm, relative
 MESH_PSUM_SHAPE = (4, 1 << 20)       # compressed_psum's fp32 input
+# the analysis: meta against the card, and the dry-run CLI's cells
+ANALYSIS_FLOP_TOL = 0.01             # FLOPs per rank, relative
+ANALYSIS_SHARE_MAX = 1.05            # largest roofline term / measured step
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("deepseek-moe-16b",
+                                             "decode_32k"),
+                ("mamba2-1.3b", "long_500k"))
 
 _PHASE = {"name": None, "t0": 0.0, "times": {}}
 
@@ -990,6 +1010,223 @@ def mesh_training_phase(dev, report, launches, profiled, get_config) -> None:
     finally:
         dist.destroy_process_group()
         shutil.rmtree(root, ignore_errors=True)
+
+
+def analysis_phase(dev, report, launches, get_config) -> None:
+    """The analysis (``launch/dryrun.py``, ``roofline/``) held to the
+    card: on a world-size-1 NCCL group's (1, 1) mesh, qwen2-1.5b's
+    training step (8x512 tokens, grad_accum 4, full remat, bf16) counted
+    by the dry-run on meta and by the same counter around the real step
+    on the card (FLOPs within ``ANALYSIS_FLOP_TOL``, collective counts
+    equal; both peaks printed); the step's roofline with ``HW`` beside
+    its measured ms (the largest term over the measured step at most
+    ``ANALYSIS_SHARE_MAX``); one prefill wave counted on meta and on the
+    card, where ``flash_attention`` launches once a layer (its formula's
+    FLOPs equal); and ``python -m repro_torch.launch.dryrun`` on three
+    cells of the pod mesh under this machine's torch (exit 0, ``OK``)."""
+    import json
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.roofline.analysis import HW, analyze_record
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.tree import leaves
+
+    out = report["analysis"] = {"card": report["card"]}
+    card = report["card"]
+    root = ROOT / "build" / "chip_smoke_analysis"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    # the CLI's three cells first, in parallel, while this process counts
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {f"{a}/{s_}": subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+         "--shape", s_, "--out", str(root / "cli")], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for a, s_ in DRYRUN_CELLS}
+    t_cli = time.perf_counter()
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(
+        str(root / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh()
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), remat="full")
+        shape = ShapeConfig("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
+
+        # -- the training step: on meta, then on the card -----------------
+        t0 = time.perf_counter()
+        *_, meta = D.lower_cell(TRAIN_ARCH, shape, False, cfg=cfg, mesh=mesh)
+        meta_s = time.perf_counter() - t0
+        t = Trainer(cfg, TrainConfig(ckpt_dir=str(root / "unused")),
+                    SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ),
+                    mesh=mesh)
+        t.state = t.init_state()
+        ms = []
+        for s_ in range(2):                  # a warm step, a timed one
+            batch = t.batch_at(s_)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.state, _ = t.step_fn(t.state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        batch = t.batch_at(2)
+        args = (t.state, batch)
+        arg_bytes = D.local_bytes(args)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counter = D.CostCounter(arguments=[
+            x.to_local() if hasattr(x, "to_local") else x
+            for x in leaves(t.state) + list(batch.values())])
+        t0 = time.perf_counter()
+        with counter:
+            t.state, m = t.step_fn(t.state, batch)
+        torch.cuda.synchronize()
+        counted_ms = (time.perf_counter() - t0) * 1e3
+        card_peak = torch.cuda.max_memory_allocated()
+        card_c = D.collective_bytes(counter)
+        rel = abs(counter.flops - meta["flops_per_device"]) / max(
+            meta["flops_per_device"], 1.0)
+        counts = ({k: v["count"] for k, v in meta["collectives"].items()},
+                  {k: v["count"] for k, v in card_c.items()})
+        row = {"meta_flops": meta["flops_per_device"],
+               "card_flops": float(counter.flops), "rel_flops": rel,
+               "meta_bytes": meta["bytes_accessed_per_device"],
+               "card_bytes": float(counter.bytes),
+               "collective_counts": list(counts),
+               "meta_peak_bytes": meta["memory"]["peak_bytes"],
+               "card_counted_peak_bytes": arg_bytes + counter.peak_temp,
+               "card_max_memory_allocated": card_peak,
+               "meta_s": meta_s, "step_ms": ms, "counted_step_ms":
+               counted_ms, "loss": float(m["loss"])}
+        print(f"  [{card}] {TRAIN_ARCH} training step, {TRAIN_BATCH}x"
+              f"{TRAIN_SEQ} tokens, grad_accum {cfg.grad_accum}, remat "
+              f"{cfg.remat}, bf16, on the (1, 1) mesh: FLOPs per rank "
+              f"counted on meta {meta['flops_per_device']:.6e} ({meta_s:.1f}"
+              f" s on the host), on the card {counter.flops:.6e} (relative "
+              f"{rel:.2e}, bound {ANALYSIS_FLOP_TOL}); bytes "
+              f"{meta['bytes_accessed_per_device']:.6e} / "
+              f"{counter.bytes:.6e}; collectives {counts[0]} / {counts[1]}")
+        print(f"  [{card}] peak: counted on meta "
+              f"{meta['memory']['peak_bytes'] / 2**30:.3f} GiB, counted on "
+              f"the card {row['card_counted_peak_bytes'] / 2**30:.3f} GiB, "
+              f"torch.cuda.max_memory_allocated "
+              f"{card_peak / 2**30:.3f} GiB (recorded, not gated); step ms "
+              f"{[round(x, 1) for x in ms]} untraced, {counted_ms:.1f} "
+              f"under the counter")
+        if not (np.isfinite(row["loss"]) and rel <= ANALYSIS_FLOP_TOL
+                and counts[0] == counts[1]):
+            fail("the dry-run's count of the training step differs from "
+                 "the card's")
+
+        # -- its roofline with HW ----------------------------------------
+        rec = dict(meta, status="OK", arch=TRAIN_ARCH, shape=shape.name,
+                   mesh="1x1", devices=1, kind="train",
+                   params=cfg.num_params(),
+                   active_params=cfg.num_active_params(),
+                   tokens=TRAIN_BATCH * TRAIN_SEQ)
+        roof = analyze_record(rec)
+        step_s = ms[-1] / 1e3
+        share = max(roof["compute_s"], roof["memory_s"],
+                    roof["collective_s"]) / step_s
+        row["roofline"] = {k: roof[k] for k in (
+            "compute_s", "memory_s", "collective_s", "dominant",
+            "useful_ratio", "roofline_frac", "peak_gib")}
+        row["roofline"]["share"] = share
+        print(f"  [{card}] roofline with {HW.name} ({HW.peak_flops:.3g} "
+              f"FLOP/s, {HW.hbm_bw:.3g} B/s, links {HW.nvlink_bw:.3g} / "
+              f"{HW.internode_bw:.3g} B/s; NVIDIA's published figures, not "
+              f"measured): compute {roof['compute_s'] * 1e3:.3f} ms, memory "
+              f"{roof['memory_s'] * 1e3:.3f} ms (unfused), collective "
+              f"{roof['collective_s'] * 1e3:.3f} ms, bound "
+              f"{roof['dominant']}; measured step {ms[-1]:.1f} ms: share "
+              f"{share:.4f} (bound {ANALYSIS_SHARE_MAX}); 6ND/counted "
+              f"{roof['useful_ratio']:.3f}")
+        if share > ANALYSIS_SHARE_MAX:
+            fail(f"roofline share {share:.3f} > {ANALYSIS_SHARE_MAX}: the "
+                 f"count or the constants are wrong")
+        out["train"] = row
+        del t, args, batch, counter, m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- one prefill wave: meta and the card ---------------------------
+        lcfg = get_config(TRAIN_ARCH)
+        wave = {}
+        for where in ("meta", "card"):
+            d = torch.device("meta") if where == "meta" else dev
+            params = lm.init_lm(lcfg, seed=0, device=d)
+            cache = lm.init_cache(lcfg, LM_SLOTS, LM_MAX_LEN, device=d)
+            toks = torch.zeros((LM_SLOTS, LM_PROMPT), dtype=torch.int32,
+                               device=d)
+            _build.reset_launches()
+            c = D.CostCounter(arguments=leaves(params) + leaves(cache))
+            with c, torch.no_grad():
+                logits, _ = lm.prefill(params, lcfg, {"tokens": toks}, cache)
+            torch.cuda.synchronize()
+            wave[where] = {"flops": c.flops,
+                           "flash_flops": c.flops_by_op.get(
+                               "flash_attention", 0),
+                           "launches": {k: v for k, v in
+                                        _build.LAUNCHES.items() if v}}
+            if where == "card":
+                for k, v in wave[where]["launches"].items():
+                    launches[k] += v
+            del params, cache, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+        planned = {"flash_attention": lcfg.num_layers}
+        print(f"  [{card}] one {TRAIN_ARCH} prefill wave ({LM_SLOTS}x"
+              f"{LM_PROMPT}): flash_attention FLOPs by its formula on meta "
+              f"{wave['meta']['flash_flops']:.6e}, on the card "
+              f"{wave['card']['flash_flops']:.6e}; all FLOPs "
+              f"{wave['meta']['flops']:.6e} / {wave['card']['flops']:.6e}; "
+              f"launches on meta {wave['meta']['launches']}, on the card "
+              f"{wave['card']['launches']} (planned {planned})")
+        if (wave["meta"]["flash_flops"] != wave["card"]["flash_flops"]
+                or not wave["card"]["flash_flops"]
+                or wave["meta"]["launches"]
+                or wave["card"]["launches"] != planned):
+            fail("the prefill wave's kernel count differs between meta and "
+                 "the card")
+        out["prefill"] = wave
+    finally:
+        dist.destroy_process_group()
+
+    # -- the CLI's cells, under this machine's torch ------------------------
+    cli = {}
+    for cell, proc in procs.items():
+        text, _ = proc.communicate(timeout=600)
+        arch, shp = cell.split("/")
+        f = root / "cli" / f"{arch}__{shp}__pod.json"
+        rec = json.loads(f.read_text()) if f.exists() else {}
+        cli[cell] = {"exit": proc.returncode,
+                     "status": rec.get("status", "no record"),
+                     "compile_s": rec.get("compile_s"),
+                     "probe": rec.get("probe")}
+        if "traceback" in rec:
+            cli[cell]["traceback"] = rec["traceback"]
+        print(f"  [{card}] python -m repro_torch.launch.dryrun --arch {arch} "
+              f"--shape {shp}: exit {proc.returncode}, "
+              f"{cli[cell]['status']} in {rec.get('compile_s')} s of meta "
+              f"runs; {text.strip().splitlines()[-1:]}")
+    print(f"  the CLI's cells: {time.perf_counter() - t_cli:.1f} s wall, "
+          f"beside the counts above")
+    out["cli"] = cli
+    if any(v["exit"] != 0 or v["status"] != "OK" for v in cli.values()):
+        fail(f"the dry-run CLI under torch {torch.__version__}: {cli}\n"
+             + "\n".join(v.get("traceback", "")[-3000:]
+                         for v in cli.values()))
+    shutil.rmtree(root / "cli", ignore_errors=True)
 
 
 def main() -> None:
@@ -2239,6 +2476,12 @@ def main() -> None:
           f"NCCL group; {TRAIN_ARCH} mesh vs unsharded, compressed_psum, "
           f"the mesh checkpoint served, the launcher")
     mesh_training_phase(dev, report, launches, profiled, get_config)
+
+    # -- 4h. the analysis: the dry-run's counts held to the card --------------
+    phase(f"analysis: {TRAIN_ARCH}'s training step and a prefill wave "
+          f"counted on meta and on the card, the roofline with the H100's "
+          f"published peaks, the dry-run CLI on the pod mesh")
+    analysis_phase(dev, report, launches, get_config)
 
     # -- 5. timing -------------------------------------------------------------
     phase("timing (CUDA graph replays between CUDA events)")

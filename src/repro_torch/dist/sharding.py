@@ -31,7 +31,7 @@ How the step is partitioned.  GSPMD computes the unsharded step's
 function from the reference's shardings; the port does so by running
 the forward and backward on DTensors, whose ops pick their own
 collectives (an FSDP weight is all-gathered around its matmul, a
-contraction over a TP dim is a partial sum all-reduced).  Two rules
+contraction over a TP dim is a partial sum all-reduced).  Three rules
 keep it exact:
   * a tensor the forward makes itself (rope tables, masks, pads,
     zeros) meets a sharded one as a replicated DTensor on its mesh,
@@ -43,13 +43,41 @@ keep it exact:
     called.  These pieces are the MoE dispatch (the stable sort over
     tokens, ``scatter``, ``gather``, ``index_select``: whole tokens on
     every rank; the expert products stay sharded), the attention core of
-    train mode (per (batch, head)), Mamba2's SSD scan and causal conv
-    (per batch row), the embedding lookup (per batch row, the table
-    whole) and the cross entropy's gather (per position, the vocab
-    whole).
+    train mode and prefill's ``flash_attention`` (per (batch, head)),
+    Mamba2's SSD scan and causal conv, prefill's ``conv1d_tap`` too (per
+    batch row), the embedding lookup (per batch row, the table whole)
+    and the cross entropy's gather (per position, the vocab whole).
+    The kernels take local tensors only.  Each argument is brought to
+    the first one's shards (a ``Replicate`` -> ``Shard`` moves no
+    data), or named whole.
+  * prefill and decode write the caches (``cache_specs`` of the
+    per-repeat layout ``lm.init_cache`` makes) through
+    ``layers.write``/``write_at``: the new rows placed as the cache,
+    each rank writing its own shard (the KV length's, in long-context
+    decode).
 The micro-batches of gradient accumulation are rows of the *global*
 batch (``launch/steps.py``), and AdamW runs its foreach passes on the
 local shards with one global norm over the mesh (``optim/adamw.py``).
+
+Heads that the 'model' axis does not divide (qwen2's 12 query and 2 kv
+heads, qwen3's 40, mistral's 96 and every GQA arch's 8 kv heads over a
+'model' axis of 16).  DTensor cannot cut a head across ranks, where
+GSPMD pads.  So a q/k/v projection cut over 'model' is gathered whole
+over it before its reshape into heads (``layers.split_heads``), and the
+attention core pads the heads with zeros to a multiple of the axis and
+cuts them over it again (``layers.pad_heads``: a local chunk, no data
+moved; a zero query head over zero keys gives a zero output, dropped by
+``layers.unpad_heads``).  Per rank and attention layer this adds, in the
+forward, an all-gather over 'model' of each undivided projection, (B_r,
+S, H*D) with B_r the rank's batch rows, and one of the core's output,
+(B_r, S, H_p*D) with H_p the padded count; the backward adds their
+reduce-scatters.  Memory: those gathered (B_r, S, H*D) tensors, 'model'
+times a shard's size, live around the reshape, and the core computes
+H_p/H of the heads (16/12 for qwen2).  Prefill's kernel takes the kv
+heads repeated to the query heads' count on a mesh (a rank's query
+heads need not map onto a whole kv head), another (B_r, S, H*D) each
+for k and v; decode attends with the heads whole on every 'model' rank.
+Where 'model' divides the heads, nothing of this runs.
 
 Serving.  CNN param trees carry no logical axes: inference params are
 replicated wholesale and only the batch axis of each request batch is
@@ -224,7 +252,12 @@ def cache_specs(cache_shapes, cfg, rules) -> Any:
     pairs of the reference's (layers, batch, length, ...) arrays.  Dim 2
     of rank>=4 leaves takes the kv_len rule so long-context decode can
     sequence-shard KV caches; SSM conv/state caches take it too, as in
-    the reference."""
+    the reference.
+
+    Given the port's own cache (``lm.init_cache``: per segment a list of
+    per-repeat dicts of tensors, what ``lm_forward`` reads as
+    ``cache[si][r]["pos{i}"]``), the specs take that layout: each leaf's
+    is the stacked leaf's without its leading (repeats) entry."""
     del cfg
     b, kl = _entry(rules["batch"]), _entry(rules.get("kv_len"))
 
@@ -237,6 +270,8 @@ def cache_specs(cache_shapes, cfg, rules) -> Any:
         return P(*([None] * n))
 
     def walk(node):
+        if isinstance(node, torch.Tensor):        # a per-repeat leaf
+            return P(*spec((1,) + tuple(node.shape)).entries[1:])
         if (isinstance(node, tuple) and len(node) == 2
                 and isinstance(node[1], torch.dtype)):
             return spec(tuple(node[0]))

@@ -265,6 +265,15 @@ def on_card(kernel: str, t) -> bool:
                      f"(cuda runs the kernel, cpu its plain version)")
 
 
+def flop_formula(op, formula) -> None:
+    """Register ``formula(*input shapes)`` as the FLOPs of the custom op
+    ``op`` with ``torch.utils.flop_counter``, so a counter sees a
+    kernel's work whether it runs on the card or on meta."""
+    from torch.utils.flop_counter import register_flop_formula
+    register_flop_formula(op._opoverload.overloadpacket)(
+        lambda *shapes, out_shape=None, **kw: formula(*shapes))
+
+
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise where a kernel would be launched on an input that requires
     grad with grad mode on: the kernels have no backward, so their

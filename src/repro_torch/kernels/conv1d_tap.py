@@ -16,6 +16,8 @@ memory.  ``conv1d_tap_plain`` is the same function in plain PyTorch.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -45,25 +47,18 @@ def conv1d_tap_plain(x, w, b=None):
     return y.to(x.dtype)
 
 
-def conv1d_tap(x, w, b=None):
-    """x: (B, L, D); w: (K, D); b: (D,) or None, all of x's dtype.
-    Returns (B, L, D) in x.dtype.  CPU tensors run the plain version;
-    CUDA tensors launch the kernel."""
+def flops(x_shape, w_shape) -> int:
+    """The kernel's work, as its bound counts it: K multiply-adds an
+    output element."""
+    return 2 * w_shape[0] * x_shape[0] * x_shape[1] * x_shape[2]
+
+
+@torch.library.custom_op("repro_torch::conv1d_tap", mutates_args=())
+def _kernel(x: torch.Tensor, w: torch.Tensor,
+            b: Optional[torch.Tensor]) -> torch.Tensor:
+    """The launch on the card (validated by ``conv1d_tap``)."""
     name = "conv1d_tap"
-    if x.dim() != 3 or w.dim() != 2 or w.shape[1] != x.shape[2]:
-        raise ValueError(f"{name}: x must be (B, L, D) and w (K, D); got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
     B, L, D = x.shape
-    K = w.shape[0]
-    if not 1 <= K <= MAX_TAPS:
-        raise ValueError(f"{name}: {K} taps; the kernel takes 1..{MAX_TAPS}")
-    if b is not None and tuple(b.shape) != (D,):
-        raise ValueError(f"{name}: bias must be ({D},); got "
-                         f"{tuple(b.shape)}")
-    _build.check_operands(name, x.device, x.dtype, x=x, w=w, b=b)
-    if not _build.on_card(name, x):
-        return conv1d_tap_plain(x, w, b)
-    _build.refuse_grad(name, x, w, b)
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
@@ -71,8 +66,40 @@ def conv1d_tap(x, w, b=None):
     with torch.cuda.device(x.device):
         code = lib.conv1d_tap_launch(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-            y.data_ptr(), _build.DTYPE_CODES[str(x.dtype)[6:]], B, L, D, K,
-            _build.stream_of(x))
+            y.data_ptr(), _build.DTYPE_CODES[str(x.dtype)[6:]], B, L, D,
+            w.shape[0], _build.stream_of(x))
     _build.check("conv1d_tap", name, code)
     _build.LAUNCHES[name] += 1
     return y
+
+
+@_kernel.register_fake
+def _(x, w, b):
+    return torch.empty_like(x)
+
+
+_build.flop_formula(_kernel, lambda x, w, b, *_: flops(x, w))
+
+
+def conv1d_tap(x, w, b=None):
+    """x: (B, L, D); w: (K, D); b: (D,) or None, all of x's dtype.
+    Returns (B, L, D) in x.dtype.  CPU tensors run the plain version;
+    CUDA tensors launch the kernel; meta tensors give the output's shape
+    and dtype and launch nothing (the op ``repro_torch::conv1d_tap``,
+    whose FLOPs are ``flops``, on the card and on meta)."""
+    name = "conv1d_tap"
+    if x.dim() != 3 or w.dim() != 2 or w.shape[1] != x.shape[2]:
+        raise ValueError(f"{name}: x must be (B, L, D) and w (K, D); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    K = w.shape[0]
+    if not 1 <= K <= MAX_TAPS:
+        raise ValueError(f"{name}: {K} taps; the kernel takes 1..{MAX_TAPS}")
+    if b is not None and tuple(b.shape) != (x.shape[2],):
+        raise ValueError(f"{name}: bias must be ({x.shape[2]},); got "
+                         f"{tuple(b.shape)}")
+    _build.check_operands(name, x.device, x.dtype, x=x, w=w, b=b)
+    # meta: the op's shape function (no launch)
+    if x.device.type != "meta" and not _build.on_card(name, x):
+        return conv1d_tap_plain(x, w, b)
+    _build.refuse_grad(name, x, w, b)
+    return _kernel(x, w, b)

@@ -88,10 +88,64 @@ def flash_attention_plain(q, k, v, causal=True):
     return out.squeeze(2) if flat else out
 
 
+def causal_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """The (query, key) pairs the kernel computes: query i sees keys
+    0..i under the top-left causal mask."""
+    if not causal:
+        return Sq * Sk
+    n = min(Sq, Sk)
+    return n * (n + 1) // 2 + (Sq - n) * Sk
+
+
+def flops(q_shape, k_shape, causal=True) -> int:
+    """The kernel's work, as its bound counts it: QK^T and PV, 2 x D
+    multiply-adds each, over every (query, key) pair of every head."""
+    if len(q_shape) == 3:
+        q_shape, k_shape = (q_shape[0], q_shape[1], 1, q_shape[2]), (
+            k_shape[0], k_shape[1], 1, k_shape[2])
+    B, Sq, H, D = q_shape
+    return 4 * D * B * H * causal_pairs(Sq, k_shape[1], causal)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    """The launch on the card (validated by ``flash_attention``)."""
+    name = "flash_attention"
+    q4, k4, _, _ = _as_bshd(q, k, v)
+    B, Sq, H, D = q4.shape
+    Sk, KVH = k4.shape[1], k4.shape[2]
+    geo = launch_geometry(B, Sq, H, D, q.element_size())
+    out = torch.empty_like(q)
+    lib = _build.library("flash_attention")
+    with torch.cuda.device(q.device):
+        code = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _build.DTYPE_CODES[str(q.dtype)[6:]], B, Sq, Sk, H, KVH, D,
+            geo["dp"], 1.0 / D ** 0.5, int(bool(causal)), geo["smem"],
+            _build.stream_of(q))
+    _build.check("flash_attention", name, code)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+@_kernel.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+_build.flop_formula(_kernel, lambda q, k, v, causal, *_:
+                    flops(q, k, causal))
+
+
 def flash_attention(q, k, v, causal=True):
     """q: (B, Sq, H, D), k, v: (B, Sk, KVH, D); or all (BH, S, D).
     Returns q's shape and dtype.  CPU tensors run the plain version;
-    CUDA tensors launch the kernel."""
+    CUDA tensors launch the kernel; meta tensors give the output's shape
+    and dtype and launch nothing.  On the card and on meta the call is
+    the op ``repro_torch::flash_attention``, whose FLOPs are ``flops``
+    (``torch.utils.flop_counter``), so a count on meta and one on the
+    card agree."""
     name = "flash_attention"
     q4, k4, v4, _ = _as_bshd(q, k, v)
     B, Sq, H, D = q4.shape
@@ -108,17 +162,8 @@ def flash_attention(q, k, v, causal=True):
     _build.check_operands(name, q.device, q.dtype, q=q, k=k, v=v)
     geo = launch_geometry(B, Sq, H, D, q.element_size())
     _build.check_smem(name, geo["smem"], f"head_dim {D}")
-    if not _build.on_card(name, q):
+    # meta: the op's shape function (no launch)
+    if q.device.type != "meta" and not _build.on_card(name, q):
         return flash_attention_plain(q, k, v, causal)
     _build.refuse_grad(name, q, k, v)
-    out = torch.empty_like(q)
-    lib = _build.library("flash_attention")
-    with torch.cuda.device(q.device):
-        code = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _build.DTYPE_CODES[str(q.dtype)[6:]], B, Sq, Sk, H, KVH, D,
-            geo["dp"], 1.0 / D ** 0.5, int(bool(causal)), geo["smem"],
-            _build.stream_of(q))
-    _build.check("flash_attention", name, code)
-    _build.LAUNCHES[name] += 1
-    return out
+    return _kernel(q, k, v, bool(causal))

@@ -53,9 +53,13 @@ def gqa_init(gen, cfg, dtype=L.DEFAULT_DTYPE):
 
 def _qkv(p, cfg, x, positions):
     B, S, _ = x.shape
-    q = L.dense_fwd(p["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = L.dense_fwd(p["wk"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = L.dense_fwd(p["wv"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    # on a mesh a head count the 'model' axis does not divide is split
+    # whole (``layers.split_heads``)
+    q = L.split_heads(L.dense_fwd(p["wq"], x), cfg.num_heads, cfg.head_dim)
+    k = L.split_heads(L.dense_fwd(p["wk"], x), cfg.num_kv_heads,
+                      cfg.head_dim)
+    v = L.split_heads(L.dense_fwd(p["wv"], x), cfg.num_kv_heads,
+                      cfg.head_dim)
     if cfg.qk_norm:
         q = L.rmsnorm_fwd(p["q_norm"], q, cfg.rms_norm_eps, cfg.norm_impl)
         k = L.rmsnorm_fwd(p["k_norm"], k, cfg.rms_norm_eps, cfg.norm_impl)
@@ -168,9 +172,29 @@ def _plain_attention(cfg, q, k, v):
 def _attend_heads(cfg, q, k, v):
     """``_plain_attention`` on each rank's (batch, head) pairs on a mesh
     (``layers.shard_local``): the einsums flatten the batch and head
-    dims, which DTensor cannot do with both sharded (torch 2.11)."""
-    return L.shard_local(functools.partial(_plain_attention, cfg), q, k, v,
-                         dims=(0, 2))
+    dims, which DTensor cannot do with both sharded (torch 2.11).  Heads
+    that the 'model' axis does not cut (a count it does not divide) are
+    zero-padded and cut over it for the core (``layers.pad_heads``)."""
+    (q, k, v), H = L.pad_heads(q, k, v)
+    out = L.shard_local(functools.partial(_plain_attention, cfg), q, k, v,
+                        dims=(0, 2))
+    return L.unpad_heads(out, H)
+
+
+def _flash_heads(cfg, q, k, v):
+    """``ops.flash_attention`` (causal), the prefill's attention.  On a
+    mesh it runs on each rank's (batch, head) pairs
+    (``layers.shard_local``; the kernel takes local tensors), its kv
+    heads repeated to the query heads' count there (a rank's query heads
+    need not map onto a whole kv head) and, as in ``_attend_heads``,
+    heads the 'model' axis does not cut padded and cut over it."""
+    if not isinstance(q, L.DTensor):
+        return ops.flash_attention(q, k, v, causal=True)
+    H = cfg.num_heads
+    (q, k, v), H = L.pad_heads(q, _repeat_kv(k, H), _repeat_kv(v, H))
+    out = L.shard_local(functools.partial(ops.flash_attention, causal=True),
+                        q, k, v, dims=(0, 2))
+    return L.unpad_heads(out, H)
 
 
 def gqa_fwd(p, cfg, x, positions, cache=None, offset=0, mode="train"):
@@ -191,18 +215,18 @@ def gqa_fwd(p, cfg, x, positions, cache=None, offset=0, mode="train"):
         out = _attend_heads(cfg, q, _repeat_kv(k, cfg.num_heads),
                             _repeat_kv(v, cfg.num_heads))
     elif mode == "prefill":
-        out = ops.flash_attention(q, k, v, causal=True)
+        out = _flash_heads(cfg, q, k, v)
         ck, cv = cache
-        ck[:, offset:offset + S] = k.to(ck.dtype)
-        cv[:, offset:offset + S] = v.to(cv.dtype)
+        L.write(ck[:, offset:offset + S], k.to(ck.dtype))
+        L.write(cv[:, offset:offset + S], v.to(cv.dtype))
     else:
         ck, cv = cache                             # (B, Lmax, KVH, D) x2
-        qi = offset + torch.arange(S, device=x.device)      # int64 (S,)
-        ck.index_copy_(1, qi, k.to(ck.dtype))
-        cv.index_copy_(1, qi, v.to(cv.dtype))
-        ki = torch.arange(ck.shape[1], device=x.device)[None, :]
+        qi = L.like(offset + torch.arange(S, device=x.device), x)  # (S,)
+        L.write_at(ck, 1, qi, k.to(ck.dtype))
+        L.write_at(cv, 1, qi, v.to(cv.dtype))
+        ki = L.like(torch.arange(ck.shape[1], device=x.device)[None, :], x)
         out = grouped_attend(q, ck, cv, ki <= qi[:, None])
-    out = out.reshape(B, S, cfg.q_dim)
+    out = L.merge_heads(out, cfg.num_heads)
     return L.dense_fwd(p["wo"], out), cache
 
 
@@ -231,7 +255,7 @@ def _mla_qkv(p, cfg, x, positions, latent):
     B, S, _ = x.shape
     H = cfg.num_heads
     qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
-    q = L.dense_fwd(p["wq"], x).reshape(B, S, H, qk_dim)
+    q = L.split_heads(L.dense_fwd(p["wq"], x), H, qk_dim)
     q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta,
                           impl=cfg.rope_impl)
@@ -253,12 +277,24 @@ def _mla_expand(p, cfg, latent):
     B, S, _ = latent.shape
     H = cfg.num_heads
     c_kv, k_rope = latent.split([cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
-    kv = L.dense_fwd(p["w_ukv"], c_kv).reshape(
-        B, S, H, cfg.qk_nope_dim + cfg.v_head_dim)
+    kv = L.split_heads(L.dense_fwd(p["w_ukv"], c_kv), H,
+                       cfg.qk_nope_dim + cfg.v_head_dim)
     k_nope, v = kv.split([cfg.qk_nope_dim, cfg.v_head_dim], dim=-1)
     k_rope = k_rope[:, :, None, :].expand(B, S, H, cfg.qk_rope_dim)
     k = torch.cat(L.promote(k_nope, k_rope), dim=-1)
     return k, v
+
+
+def _decode_attend(q, k, v, valid):
+    """MLA decode's attention over the expanded cache: q (B, Sq, H,
+    qk_nope + qk_rope), k (B, L, H, qk_nope + qk_rope), v (B, L, H,
+    v_head_dim), valid (Sq, L) bool; fp32 scores, softmax in q's
+    dtype."""
+    scale = 1.0 / torch.tensor(q.shape[-1], dtype=torch.float32).sqrt()
+    scores = torch.einsum("bqhd,bkhd->bhqk", *L.promote(q, k)).float() * scale
+    scores = scores.masked_fill(~valid, float("-inf"))
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", *L.promote(w, v))
 
 
 def mla_fwd(p, cfg, x, positions, cache=None, offset=0, mode="train"):
@@ -282,18 +318,19 @@ def mla_fwd(p, cfg, x, positions, cache=None, offset=0, mode="train"):
         k, v = _mla_expand(p, cfg, latent)
         out = _attend_heads(cfg, q, k, v)
         if mode == "prefill":
-            cache[:, offset:offset + S] = latent.to(cache.dtype)
+            L.write(cache[:, offset:offset + S], latent.to(cache.dtype))
     else:
-        qi = offset + torch.arange(S, device=x.device)      # int64 (S,)
-        cache.index_copy_(1, qi, latent.to(cache.dtype))
+        qi = L.like(offset + torch.arange(S, device=x.device), x)  # (S,)
+        L.write_at(cache, 1, qi, latent.to(cache.dtype))
         k, v = _mla_expand(p, cfg, cache)
-        scale = 1.0 / torch.tensor(cfg.qk_nope_dim + cfg.qk_rope_dim,
-                                   dtype=torch.float32).sqrt()
-        scores = torch.einsum("bqhd,bkhd->bhqk",
-                              *L.promote(q, k)).float() * scale
-        ki = torch.arange(cache.shape[1], device=x.device)[None, :]
-        scores = scores.masked_fill(~(ki <= qi[:, None]), float("-inf"))
-        w = torch.softmax(scores, dim=-1).to(q.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", *L.promote(w, v))
-    out = out.reshape(B, S, cfg.num_heads * cfg.v_head_dim)
+        ki = L.like(torch.arange(cache.shape[1], device=x.device)[None, :],
+                    x)
+        # on a mesh per rank's (batch, head) pairs (``layers.shard_local``):
+        # DTensor's strategy search for these einsums on a 3-D mesh does
+        # not finish
+        (q, k, v), H = L.pad_heads(q, k, v)
+        out = L.unpad_heads(L.shard_local(
+            _decode_attend, q, k, v, ki <= qi[:, None], dims=(0, 2),
+            whole=(3,)), H)
+    out = L.merge_heads(out, cfg.num_heads)
     return L.dense_fwd(p["wo"], out), cache

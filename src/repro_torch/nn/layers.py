@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -59,7 +59,7 @@ def like(t, ref):
     return t
 
 
-def shard_local(fn, *args, dims=(0,)):
+def shard_local(fn, *args, dims=(0,), whole=()):
     """``fn`` run on each rank's shard of the tensor dims ``dims``: for a
     function that treats each index of those dims alone (the batch rows
     of the SSD scan; the (batch, head) pairs of attention), or, with
@@ -67,12 +67,15 @@ def shard_local(fn, *args, dims=(0,)):
     dispatch).  For the ops DTensor has no rule for (or a wrong one),
     named where each call is made.
 
-    Each DTensor argument keeps the shards of ``dims`` that the first
-    one has and is whole on every other dim (other shards redistributed
-    to ``Replicate``); a replicated argument's gradient is the sum over
-    the ranks that split the work (``Partial``).  Tensor outputs come
-    back placed as the first DTensor argument.  Plain arguments run
-    ``fn`` directly."""
+    Every DTensor argument is brought to the first one's shards of
+    ``dims`` and made whole on every other mesh dim: a ``Replicate`` ->
+    ``Shard`` is a local chunk and moves no data.  The arguments at the
+    positions ``whole`` (a table the rows index, a conv's taps) are
+    whole on every rank instead.  A gradient comes back in its
+    argument's shards; a whole argument's is the sum over the ranks
+    that split the work (``Partial``).  Tensor outputs come back placed
+    as the first DTensor argument.  Plain arguments run ``fn``
+    directly."""
     ref = next((a for a in args if isinstance(a, DTensor)), None)
     if ref is None:
         return fn(*args)
@@ -80,13 +83,11 @@ def shard_local(fn, *args, dims=(0,)):
     place = [p if p.is_shard() and p.dim % ref.dim() in dims
              else Replicate() for p in ref.placements]
     locs = []
-    for a in args:
+    for i, a in enumerate(args):
         if not isinstance(a, DTensor):
             locs.append(a)
             continue
-        # an argument keeps the shards it shares with the first one
-        keep = [p if p.is_shard() and p == q else Replicate()
-                for p, q in zip(a.placements, place)]
+        keep = ([Replicate()] * mesh.ndim if i in whole else place)
         grad = [p if p.is_shard() else Partial() if q.is_shard()
                 else Replicate() for p, q in zip(keep, place)]
         locs.append(a.redistribute(placements=keep).to_local(
@@ -95,6 +96,131 @@ def shard_local(fn, *args, dims=(0,)):
     wrap = (lambda t: DTensor.from_local(t, mesh, place, run_check=False)
             if isinstance(t, torch.Tensor) else t)
     return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def split_heads(t, n: int, d: int):
+    """(B, S, n*d) -> (B, S, n, d).  On a mesh, where the last dim is cut
+    over mesh dims whose size does not divide ``n`` (qwen2's 12 query
+    and 2 kv heads over a 'model' axis of 16), those dims are gathered
+    first: DTensor cannot cut a head across ranks, where GSPMD pads.
+    ``pad_heads`` then splits the heads again for the attention core."""
+    if isinstance(t, DTensor):
+        last = t.dim() - 1
+        cut = [i for i, p in enumerate(t.placements)
+               if p.is_shard() and p.dim % t.dim() == last]
+        if n % int(np.prod([t.device_mesh.shape[i] for i in cut])):
+            t = t.redistribute(placements=[
+                Replicate() if i in cut else p
+                for i, p in enumerate(t.placements)])
+    return t.reshape(*t.shape[:-1], n, d)
+
+
+def merge_heads(t, n: int):
+    """(B, S, n, d) -> (B, S, n*d), the inverse of ``split_heads``.  On
+    a mesh, where a mesh dim of a size that does not divide ``n`` leaves
+    the result whole, the result is cut over it on its last dim (a local
+    chunk), so the backward gathers the gradient there before it splits
+    it into heads: DTensor (torch 2.11) cannot split a cut dim into
+    heads it does not divide."""
+    B, S = t.shape[0], t.shape[1]
+    out = t.reshape(B, S, -1)
+    if isinstance(out, DTensor):
+        sizes = out.device_mesh.shape
+        last = out.dim() - 1
+        place = [Shard(last) if not p.is_shard() and sizes[i] > 1
+                 and n % sizes[i] and out.shape[last] % sizes[i] == 0
+                 else p for i, p in enumerate(out.placements)]
+        if tuple(place) != tuple(out.placements):
+            out = out.redistribute(placements=place)
+    return out
+
+
+def _free_dims(t):
+    """The mesh dims of size > 1 that cut none of a DTensor's dims."""
+    return [i for i, (p, size) in enumerate(zip(t.placements,
+                                                t.device_mesh.shape))
+            if size > 1 and not p.is_shard()]
+
+
+def pad_heads(*ts, dim=2):
+    """(B, S, H, D) DTensors -> the same with their heads zero-padded to a
+    multiple of the mesh dims that cut none of the first one's dims, and
+    cut over them (a local chunk: no data moves), so an attention core
+    run per (batch, head) (``shard_local``) is split over every rank.
+    Returns the tensors and H.  A zero query head over zero keys gives a
+    zero output that ``unpad_heads`` drops.  Plain tensors, heads already
+    cut (over 'model', which divides them), or no free mesh dim pass
+    through.  The pad, and ``unpad_heads``'s narrow, run on the local
+    tensors: torch 2.11's DTensor gives either op on a 2-D mesh a spec
+    of one placement."""
+    H = ts[0].shape[dim]
+    t0 = ts[0]
+    if (not isinstance(t0, DTensor) or not _free_dims(t0)
+            or any(p.is_shard(dim) for p in t0.placements)):
+        return ts, H
+    free = _free_dims(t0)
+    n = int(np.prod([t0.device_mesh.shape[i] for i in free]))
+    pad = (-H) % n
+    out = []
+    for t in ts:
+        if pad:
+            t = DTensor.from_local(
+                F.pad(t.to_local(), (0, 0) * (t.dim() - 1 - dim) + (0, pad)),
+                t.device_mesh, t.placements, run_check=False)
+        out.append(t.redistribute(placements=[
+            Shard(dim) if i in free else p
+            for i, p in enumerate(t.placements)]))
+    return tuple(out), H
+
+
+def unpad_heads(t, H: int, dim=2):
+    """The first ``H`` heads of a ``pad_heads`` result: where it padded,
+    whole on the mesh dims it cut them over (an all-gather); else ``t``
+    as it is (heads cut evenly)."""
+    if not isinstance(t, DTensor) or t.shape[dim] == H:
+        return t
+    t = t.redistribute(placements=[
+        Replicate() if p.is_shard(dim) else p for p in t.placements])
+    return DTensor.from_local(t.to_local().narrow(dim, 0, H), t.device_mesh,
+                              t.placements, run_check=False)
+
+
+def write(dst, src):
+    """``dst.copy_(src)``, a cache write.  On a mesh ``src`` is first
+    placed as ``dst`` is: an in-place op cannot change its target's
+    placements."""
+    if (isinstance(dst, DTensor) and isinstance(src, DTensor)
+            and src.placements != dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    return dst.copy_(src)
+
+
+def write_at(buf, dim: int, index, src):
+    """``buf.index_copy_(dim, index, src)``, the decode step's cache
+    write.  On a mesh each rank writes its own shard of ``buf``: where
+    ``dim`` is cut (the KV length of long-context decode), a rank whose
+    shard the index misses writes back what it holds."""
+    if not isinstance(buf, DTensor):
+        return buf.index_copy_(dim, index, src)
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = buf.device_mesh
+    shape, off = compute_local_shape_and_global_offset(
+        buf.shape, mesh, buf.placements)
+    keep = [Replicate() if p.is_shard(dim) else p for p in buf.placements]
+    s = src.redistribute(mesh, keep).to_local()
+    idx = index.to_local() if isinstance(index, DTensor) else index
+    loc = buf.to_local()
+    if shape[dim] == buf.shape[dim]:
+        loc.index_copy_(dim, idx, s)
+    elif shape[dim]:
+        rel = idx - off[dim]
+        hit = ((rel >= 0) & (rel < shape[dim])).view(
+            [-1 if i == dim else 1 for i in range(loc.dim())])
+        rel = rel.clamp(0, shape[dim] - 1)
+        loc.index_copy_(dim, rel, torch.where(
+            hit, s, loc.index_select(dim, rel)))
+    return buf
 
 
 def dense_init(gen, d_in, d_out, dtype=DEFAULT_DTYPE, bias=False,
@@ -137,7 +263,7 @@ def embed_init(gen, vocab, d, dtype=DEFAULT_DTYPE):
 def embed_fwd(p, ids):
     # on a mesh on each rank's batch rows, the table whole (torch 2.11's
     # DTensor cannot place the index_put of the lookup's backward)
-    return shard_local(lambda i, w: w[i], ids, p["embedding"])
+    return shard_local(lambda i, w: w[i], ids, p["embedding"], whole=(1,))
 
 
 def mlp_init(gen, d, d_ff, dtype=DEFAULT_DTYPE):

@@ -145,6 +145,29 @@ def ssd_decode_step(state, x, dt, A, B, C):
     return y, new_state
 
 
+def _decode_local(cfg, dtype, x_raw, B_raw, C_raw, dt_raw, tx, tB, tC,
+                  state, wx, bx, wB, bB, wC, bC, A, dt_bias, D_rep):
+    """One decode step of the block's conv and recurrence: each stream's
+    K-wide window over its cached tail and the new value, the conv and
+    SiLU, then ``ssd_decode_step``.  Returns y (B, 1, d_inner) fp32 with
+    the D skip, the three new tails and the new state."""
+    Bsz = x_raw.shape[0]
+    d_in, G, N, H = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    P = cfg.ssm_head_dim
+    wins = [torch.cat([t.to(raw.dtype), raw[:, :1]], dim=1)
+            for t, raw in ((tx, x_raw), (tB, B_raw), (tC, C_raw))]
+    x, Bc, Cc = (F.silu(_conv_decode(win, w, b)).to(dtype)
+                 for win, (w, b) in zip(wins, ((wx, bx), (wB, bB),
+                                               (wC, bC))))
+    dt = F.softplus(dt_raw[:, 0].float() + dt_bias)
+    y, new_state = ssd_decode_step(
+        state.float(), x.reshape(Bsz, H, P), dt, A,
+        Bc.reshape(Bsz, G, N), Cc.reshape(Bsz, G, N))
+    y = y.reshape(Bsz, 1, d_in)
+    y = y + x.reshape(Bsz, 1, d_in).float() * D_rep
+    return (y,) + tuple(win[:, 1:] for win in wins) + (new_state,)
+
+
 def mamba_fwd(p, cfg, u, cache=None, mode="train"):
     """u: (B, S, D).  Returns (out, cache).
 
@@ -168,8 +191,9 @@ def mamba_fwd(p, cfg, u, cache=None, mode="train"):
         # kernel, train through the differentiable plain version (on a
         # mesh on each rank's batch rows, ``layers.shard_local``: DTensor
         # mis-places the gradient of its causal pad)
-        conv = (ops.conv1d_causal if mode == "prefill"
-                else functools.partial(L.shard_local, causal_conv1d))
+        conv = functools.partial(
+            L.shard_local, ops.conv1d_causal if mode == "prefill"
+            else causal_conv1d, whole=(1, 2))
         x, Bc, Cc = (F.silu(conv(raw, p[n]["w"], p[n]["b"]))
                      for raw, n in ((x_raw, "conv_x"), (B_raw, "conv_B"),
                                     (C_raw, "conv_C")))
@@ -185,7 +209,8 @@ def mamba_fwd(p, cfg, u, cache=None, mode="train"):
         y, final_state = L.shard_local(
             functools.partial(ssd_chunked, chunk=chunk),
             x.reshape(Bsz, -1, H, P), dt, A,
-            Bc.reshape(Bsz, -1, G, N), Cc.reshape(Bsz, -1, G, N))
+            Bc.reshape(Bsz, -1, G, N), Cc.reshape(Bsz, -1, G, N),
+            whole=(2,))
         y = y.reshape(Bsz, -1, d_in)[:, :S]
         y = y + x[:, :S].float() * D_rep
         if mode == "prefill":
@@ -195,28 +220,23 @@ def mamba_fwd(p, cfg, u, cache=None, mode="train"):
                 t = stream[:, max(0, S - K1):, :]
                 if S < K1:
                     t = F.pad(t, (0, 0, K1 - S, 0))
-                buf.copy_(t)
-            bs.copy_(final_state)
+                L.write(buf, t)
+            L.write(bs, final_state)
     else:
         (tx, tB, tC), ssm_state = cache           # tails: (B, K-1, dim)
-
-        def window(t, raw):
-            return torch.cat([t.to(raw.dtype), raw[:, :1]], dim=1)
-
-        wins = [window(t, raw) for t, raw in ((tx, x_raw), (tB, B_raw),
-                                              (tC, C_raw))]
-        x, Bc, Cc = (
-            F.silu(_conv_decode(win, p[name]["w"], p[name]["b"])).to(u.dtype)
-            for win, name in zip(wins, ("conv_x", "conv_B", "conv_C")))
-        dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])
-        y, new_ssm = ssd_decode_step(
-            ssm_state.float(), x.reshape(Bsz, H, P), dt, A,
-            Bc.reshape(Bsz, G, N), Cc.reshape(Bsz, G, N))
-        y = y.reshape(Bsz, 1, d_in)
-        y = y + x.reshape(Bsz, 1, d_in).float() * D_rep
-        for t, win in zip((tx, tB, tC), wins):
-            t.copy_(win[:, 1:])
-        ssm_state.copy_(new_ssm)
+        # on a mesh on each rank's batch rows, the caches and the conv
+        # taps whole (``layers.shard_local``): torch 2.11's DTensor finds
+        # no rule for the recurrence on a state cut over 'data' (the KV
+        # length's rule, long-context decode)
+        y, *tails, new_ssm = L.shard_local(
+            functools.partial(_decode_local, cfg, u.dtype), x_raw, B_raw,
+            C_raw, dt_raw, tx, tB, tC, ssm_state, p["conv_x"]["w"],
+            p["conv_x"]["b"], p["conv_B"]["w"], p["conv_B"]["b"],
+            p["conv_C"]["w"], p["conv_C"]["b"], A, p["dt_bias"], D_rep,
+            whole=tuple(range(8, 17)))
+        for t, new in zip((tx, tB, tC), tails):
+            L.write(t, new)
+        L.write(ssm_state, new_ssm)
 
     y = y.to(u.dtype) * F.silu(z)
     y = L.rmsnorm_fwd(p["norm"], y, cfg.rms_norm_eps, cfg.norm_impl)

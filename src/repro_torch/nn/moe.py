@@ -138,22 +138,27 @@ def moe_fwd(p, cfg, x, dropless=False, n_groups=1):
     if T % n_groups != 0:
         n_groups = 1
     ng, G = n_groups, T // n_groups
+    # (the reshapes into groups run on the whole local tokens: DTensor
+    # mis-sizes the view of a batch-sharded (B, S, D) into groups)
     probs, eidx, gate_te, vals, tok_idx = L.shard_local(
-        lambda xg, w: dispatch({"router": {"w": w}}, cfg, xg, dropless),
-        x.reshape(ng, G, D), p["router"]["w"], dims=())
+        lambda xs, w: dispatch({"router": {"w": w}}, cfg,
+                               xs.reshape(ng, G, D), dropless),
+        x, p["router"]["w"], dims=())
     C = tok_idx.shape[-1]
 
     # gather each expert's tokens, (E, ng*C, D), and run the banks
-    ein = L.shard_local(_expert_tokens, x.reshape(T, D), tok_idx, G,
-                        dims=())
+    ein = L.shard_local(lambda xs, ti: _expert_tokens(xs.reshape(T, D), ti,
+                                                      G),
+                        x, tok_idx, dims=())
     ex = p["experts"]
     h = F.silu(torch.bmm(*L.promote(ein, ex["wi"])))
     h = h * torch.bmm(*L.promote(ein, ex["wg"]))
     eout = torch.bmm(*L.promote(h, ex["wo"]))              # (E, ng*C, D)
     w = eout.reshape(E, ng, C, D).transpose(0, 1).float() * vals[..., None]
 
-    out = L.shard_local(_combine, w, tok_idx, eidx, dims=())
-    out = out.to(x.dtype).reshape(B, S, D)
+    out = L.shard_local(lambda *a: _combine(*a).reshape(B, S, D), w,
+                        tok_idx, eidx, dims=())
+    out = out.to(x.dtype)
 
     if cfg.num_shared_experts:
         out = out + L.mlp_fwd(p["shared"], x)

@@ -347,6 +347,126 @@ def case_trainer(d: Path, mesh):
             "ef_max": max(float(y.abs().max()) for y in be)}))
 
 
+#: the repairs' archs: heads that a model axis of 4 does not divide (the
+#: smoke qwen2's 2 kv heads; 6 query heads), and the prefill/decode
+#: parity's dense, MoE (GQA and MLA) and SSM smoke variants
+HEAD_ARCHS = {"qwen2-1.5b": {}, "qwen2-1.5b-h6": {"num_heads": 6}}
+SERVE_ARCHS = ["qwen2-1.5b", "deepseek-moe-16b", "deepseek-v2-lite-16b",
+               "mamba2-1.3b"]
+
+
+def _metrics(step, state, batch):
+    _, m = step(state, batch)
+    return {k: float(v) for k, v in m.items()}
+
+
+def case_repairs(d: Path, mesh):
+    """The sharded step's repairs, each against the unsharded function:
+    a train step on a (1, 4) mesh whose 'model' axis does not divide the
+    heads; ``shard_local`` with a first argument placed (Shard(0),
+    Shard(0)) and a second (Shard(0), Replicate()); prefill and one
+    decode step on the (2, 2) mesh.  Results to ``repairs.json``."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.nn import layers as L
+    from repro_torch.optim import adamw_init
+    out = {"heads": {}, "serve": {}}
+
+    # uneven heads: one train step on (1, 4), fp32, against unsharded
+    tall = make_debug_mesh(model=4)
+    rules = sh.make_rules("train")
+    for name, kw in HEAD_ARCHS.items():
+        cfg = _cfg("qwen2-1.5b", grad_accum=STEP_ACCUM, **kw)
+        params = lm.init_lm(cfg, seed=0, device="cpu", dtype=torch.float32)
+        batch = {k: torch.from_numpy(v) for k, v in _grad_batch(
+            cfg, np.random.default_rng(2)).items()}
+        step = St.make_train_step(cfg, peak_lr=STEP_LR)
+        state = {"params": params, "opt": adamw_init(params),
+                 "step": torch.zeros((), dtype=torch.int32)}
+        want = _metrics(step, state, batch)
+        ps = sh.param_specs(params, rules)
+        placed = {"params": sh.place_tree(params, sh.named(tall, ps)),
+                  "opt": sh.place_tree(adamw_init(params), sh.named(
+                      tall, sh.opt_specs(ps))),
+                  "step": torch.zeros((), dtype=torch.int32)}
+        bs = sh.named(tall, sh.batch_specs(batch, rules))
+        act = sh.named(tall, sh.P(rules["batch"], None, None))
+        got = _metrics(St.make_train_step(cfg, peak_lr=STEP_LR,
+                                          act_spec=act), placed,
+                       {k: sh.place(v, bs[k]) for k, v in batch.items()})
+        out["heads"][name] = {"sharded": got, "unsharded": want,
+                              "heads": [cfg.num_heads, cfg.num_kv_heads]}
+
+    # shard_local with mismatched placements, as _gold met them
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn((8, 4, 16), generator=g, dtype=torch.float64)
+    b = torch.randn((8, 4), generator=g, dtype=torch.float64)
+    fn = lambda x, y: (x * y[..., None]).sum(-1) + x[..., 0] * y
+    a_, b_ = (t.clone().requires_grad_(True) for t in (a, b))
+    whole = fn(a_, b_)
+    whole.sum().backward()
+    da = distribute_tensor(a, mesh, [Shard(0), Shard(0)]).requires_grad_()
+    db = distribute_tensor(b, mesh, [Shard(0), Replicate()]).requires_grad_()
+    got = L.shard_local(fn, da, db, dims=(0, 1))
+    got.sum().backward()
+    out["shard_local"] = {
+        "out": float((got.full_tensor() - whole).abs().max()),
+        "grad_a": float((da.grad.full_tensor() - a_.grad).abs().max()),
+        "grad_b": float((db.grad.full_tensor() - b_.grad).abs().max()),
+        "placements": [str(da.grad.placements), str(db.grad.placements)]}
+
+    # prefill, then one decode step, on (2, 2) against unsharded
+    for arch in SERVE_ARCHS:
+        cfg = _cfg(arch, capacity_factor=8.0)
+        B, S, Lmax = 4, 16, 32
+        params = lm.init_lm(cfg, seed=0, device="cpu", dtype=torch.float32)
+        rng = np.random.default_rng(4)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1),
+                                             dtype=np.int64).astype(np.int32))
+        runs = []
+        for m in (None, mesh):
+            cache = lm.init_cache(cfg, B, Lmax, kv_dtype=torch.float32,
+                                  device="cpu")
+            p, act = params, None
+            pre, dec = {"tokens": toks[:, :S]}, {"tokens": toks[:, S:]}
+            if m is not None:
+                rp = sh.make_rules("prefill")
+                p = sh.place_tree(params, sh.named(m, sh.param_specs(params,
+                                                                     rp)))
+                cache = sh.place_tree(cache, sh.named(m, sh.cache_specs(
+                    cache, cfg, rp)))
+                act = sh.named(m, sh.P(rp["batch"], None, None))
+                pre, dec = ({k: sh.place(v, sh.named(m, sh.P(
+                    rp["batch"], None))) for k, v in t.items()}
+                    for t in (pre, dec))
+            lp, cache = St.make_prefill_step(cfg, Lmax, act_spec=act)(
+                p, pre, cache)
+            ld, cache = St.make_decode_step(cfg, act_spec=act)(
+                p, dec, cache, S)
+            runs.append([sh.whole(t).detach() for t in
+                         [lp, ld] + leaves_of(cache)])
+        (plain, sharded) = runs
+        out["serve"][arch] = {
+            "prefill_logits": float((sharded[0] - plain[0]).abs().max()),
+            "decode_logits": float((sharded[1] - plain[1]).abs().max()),
+            "cache": max(float((x - y).abs().max())
+                         for x, y in zip(sharded[2:], plain[2:])),
+            "cache_leaves": len(plain) - 2}
+    if torch.distributed.get_rank() == 0:
+        (d / "repairs.json").write_text(json.dumps(out))
+
+
+def leaves_of(tree):
+    import torch
+    return [t for t in torch.utils._pytree.tree_leaves(tree)
+            if isinstance(t, torch.Tensor)]
+
+
 def case_cards(d: Path, mesh):
     """Under ``torchrun`` on cards (NCCL): every arch's sharded loss and
     gradients against unsharded, and compressed_psum over the mesh's
@@ -443,6 +563,7 @@ def main(case, d, rank=None, world=None):
             case_grads(d, mesh)
         else:
             {"ckpt": case_ckpt, "trainer": case_trainer,
+             "repairs": case_repairs,
              "cards": case_cards, "full": case_full}[case](d, mesh)
     finally:
         dist.destroy_process_group()

@@ -16,8 +16,9 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from _torch_mesh_worker import (GRAD_ARCHS, STEP_ACCUM, STEP_ARCHS,
-                                STEP_BATCH, STEP_LR, STEP_SEQ, run_ranks)
+from _torch_mesh_worker import (GRAD_ARCHS, HEAD_ARCHS, SERVE_ARCHS,
+                                STEP_ACCUM, STEP_ARCHS, STEP_BATCH, STEP_LR,
+                                STEP_SEQ, run_ranks)
 from _torch_parity import _clear_port_caches  # noqa: F401
 from repro.configs import base as jbase
 from repro.dist import sharding as jsh
@@ -384,3 +385,59 @@ def test_sharded_loss_and_grads_match_unsharded(arch, sharded_steps):
     got = json.loads((d / f"{arch}_grads.json").read_text())
     np.testing.assert_allclose(got["loss"][0], got["loss"][1], rtol=1e-5)
     assert got["max_rel_grad_l2"] <= 1e-4, got
+
+
+# ---------------------------------------------------------------------------
+# the sharded step's repairs for the production meshes, on four gloo ranks
+
+@pytest.fixture(scope="module")
+def repairs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mesh_repairs")
+    run_ranks("repairs", d, timeout=400)
+    return json.loads((d / "repairs.json").read_text())
+
+
+@pytest.mark.parametrize("arch", sorted(HEAD_ARCHS))
+def test_sharded_step_with_heads_the_model_axis_does_not_divide(arch,
+                                                                repairs):
+    """A train step at grad_accum 2 on a (1, 4) mesh, whose 'model' axis
+    of 4 divides neither the 2 kv heads nor (the -h6 variant) the 6
+    query heads: loss and grad_norm within 1e-5 relative of the
+    unsharded step (DTensor cannot cut a head across ranks; the heads
+    are split whole and padded, ``layers.split_heads``/``pad_heads``)."""
+    got = repairs["heads"][arch]
+    H, KVH = got["heads"]
+    assert KVH % 4 and (H % 4 or arch == "qwen2-1.5b")
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(got["sharded"][k], got["unsharded"][k],
+                                   rtol=1e-5)
+    assert got["sharded"]["lr"] == got["unsharded"]["lr"]
+
+
+def test_shard_local_brings_arguments_to_the_first_ones_shards(repairs):
+    """A first argument placed (Shard(0), Shard(0)) and a second
+    (Shard(0), Replicate()), as ``_gold`` met the logits and labels at
+    16 x 16: the result and both gradients equal the whole computation
+    (fp64), each gradient in its argument's placements."""
+    got = repairs["shard_local"]
+    assert got["out"] == got["grad_a"] == got["grad_b"] == 0.0
+    assert got["placements"] == ["(Shard(dim=0), Shard(dim=0))",
+                                 "(Shard(dim=0), Replicate())"]
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_prefill_and_decode_match_unsharded(arch, repairs):
+    """Dense, MoE (under GQA and MLA) and SSM smoke variants in fp32: a
+    prefill of 16 tokens
+    and one decode step on DTensor params and caches placed by
+    ``cache_specs`` (the per-repeat layout ``lm_forward`` reads) on the
+    (2, 2) mesh: the logits within 2e-4 of the unsharded steps', every
+    cache leaf within 1e-5 (fp32 rounding of the partial sums the ranks
+    add)."""
+    got = repairs["serve"][arch]
+    assert got["prefill_logits"] <= 2e-4 and got["decode_logits"] <= 2e-4
+    assert got["cache"] <= 1e-5
+    # two layers: k and v (GQA), one latent (MLA), three conv tails and
+    # the SSM state (Mamba2)
+    assert got["cache_leaves"] == {"deepseek-v2-lite-16b": 2,
+                                   "mamba2-1.3b": 8}.get(arch, 4)
