@@ -270,13 +270,23 @@ STAGE2_EARLIER_MS = 0.003832
 # the kernels whose ptxas report may show no spill
 NO_SPILL = ("direct_conv", "cuconv_stage1", "int8_gemm")
 
-# the LM serving path (configs/archs.py), served at full width and depth
+# the LM serving path (configs/archs.py), served at full width and, but
+# where LM_SERVED_LAYERS cuts it, full depth
 LM_ARCHS = ("qwen2-1.5b", "mamba2-1.3b", "deepseek-v2-lite-16b",
-            "deepseek-moe-16b")
+            "deepseek-moe-16b", "jamba-v0.1-52b")
+# depth cuts of the served archs: jamba's 32 layers (95.9 GiB in bf16)
+# exceed the card, so it serves two repeats of its 8-layer period
+LM_SERVED_LAYERS = {"jamba-v0.1-52b": 16}
 LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 4, 512, 16, 1024
 # card vs CPU in fp32: depth cut for the CPU's sake, fp32 cache
 LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_STEPS = 4, 2, 64, 4
 LM_CPU_TOL = 1e-3                # x * max|CPU logits|
+# an arch whose layer period is longer than LM_CPU_LAYERS (stack_plan
+# refuses a part of it; jamba's is 8) is cut to one period, its experts
+# to LM_CPU_EXPERTS (top-K kept) unless the host's available memory
+# holds the period's fp32 params twice over (the card's copy comes back
+# to the host beside the CPU's compute)
+LM_CPU_EXPERTS = 4
 # card vs CPU: a token's top-K experts may differ only where its K-th and
 # (K+1)-th router probabilities on the CPU are this close
 ROUTE_FLIP_GAP = 1e-5
@@ -1549,7 +1559,20 @@ def main() -> None:
                             peak=INT8_OP_PER_S, in_line=False))
         return out
 
-    lm_cfgs = {arch: get_config(arch) for arch in LM_ARCHS}
+    def served_config(arch):
+        """The arch's config as served: full width, its depth cut where
+        ``LM_SERVED_LAYERS`` says (and why, or None)."""
+        cfg = get_config(arch)
+        n = LM_SERVED_LAYERS.get(arch, cfg.num_layers)
+        if n == cfg.num_layers:
+            return cfg, None
+        why = (f"{n} of {cfg.num_layers} layers: "
+               f"{cfg.num_params() * 2 / 2 ** 30:.1f} GiB whole in bf16 "
+               f"exceeds the card")
+        return dataclasses.replace(cfg, num_layers=n), why
+
+    lm_cuts = {arch: served_config(arch) for arch in LM_ARCHS}
+    lm_cfgs = {arch: cfg for arch, (cfg, _) in lm_cuts.items()}
 
     def lm_cases(dtype):
         """The LM kernels' calls at the served models' shapes: prefill
@@ -2010,7 +2033,7 @@ def main() -> None:
                   f"{sizes.sum() / ms * 1e3:.1f} images/s")
         report["serve"][f"{kind} {shape}"]["windows"] = windows
 
-    # -- 4d. the LM serving path, bf16, full width and depth -------------------
+    # -- 4d. the LM serving path, bf16, full width (depth: LM_SERVED_LAYERS) ---
     phase(f"main path: LM served by ServeEngine (bf16, {LM_REQUESTS} "
           f"requests on {LM_SLOTS} slots, prompt {LM_PROMPT}, "
           f"{LM_NEW} new tokens)")
@@ -2239,8 +2262,21 @@ def main() -> None:
                 "decode_expert_floor_ms": expert_bytes / HBM_BYTES_PER_S
                 * 1e3}
 
+    held_first = None
     for arch, cfg in lm_cfgs.items():
-        memory_mark()        # the last model's params, engines and pools
+        # the last model's params, engines, graph pools and caches freed:
+        # what the card holds before each model is what it held before
+        # the first
+        held = memory_mark()[0] / 2 ** 30
+        held_first = held if held_first is None else held_first
+        print(f"  {arch}: {held:.3f} GiB allocated on the card before "
+              f"its init ({held_first:.3f} before the first LM)")
+        if held > held_first + 0.5:
+            fail(f"{arch}: {held - held_first:.3f} GiB of an earlier LM "
+                 f"still on the card")
+        why = lm_cuts[arch][1]
+        if why:
+            print(f"  {arch}: served cut to {why}")
         t0 = time.perf_counter()
         params = lm.init_lm(cfg, seed=0, device=dev)
         torch.cuda.synchronize()
@@ -2315,6 +2351,8 @@ def main() -> None:
         prefill_ms, decode_ms = (call_ms("_prefill", True),
                                  call_ms("_decode", True))
         row = {"params": cfg.num_params(), "param_bytes": param_bytes,
+               "layers": cfg.num_layers, "cut": why,
+               "held_gib_before_init": held,
                "init_s": init_s, "launches": counts,
                "prefill_ms_per_wave": float(np.median(prefill_ms)),
                "decode_ms_per_step": float(np.median(decode_ms)),
@@ -2366,8 +2404,38 @@ def main() -> None:
             fail(f"{k} was not launched on the main path")
 
     # -- 4e. the LM path, card against CPU, fp32 -------------------------------
-    phase(f"LM card vs CPU (fp32, full width, {LM_CPU_LAYERS} layers)")
+    phase(f"LM card vs CPU (fp32, full width, {LM_CPU_LAYERS} layers or "
+          f"one longer period)")
     report["lm_card_vs_cpu"] = {}
+
+    def host_available():
+        """The host's available memory (``/proc/meminfo``), bytes."""
+        for ln in Path("/proc/meminfo").read_text().splitlines():
+            if ln.startswith("MemAvailable:"):
+                return int(ln.split()[1]) * 1024
+        fail("/proc/meminfo has no MemAvailable line")
+
+    def cpu_cut(arch, cfg):
+        """The config of ``arch``'s card-vs-CPU check and its cut: the
+        first ``LM_CPU_LAYERS`` layers, or one layer period where that is
+        longer, its experts cut to ``LM_CPU_EXPERTS`` unless the host
+        holds the period's fp32 params twice."""
+        period = max(len(kinds) for _, kinds in lm.stack_plan(cfg))
+        if period <= LM_CPU_LAYERS:
+            return (dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS),
+                    f"{LM_CPU_LAYERS} of {cfg.num_layers} layers")
+        cut = dataclasses.replace(cfg, num_layers=period)
+        need, host = cut.num_params() * 4, host_available()
+        why = (f"one period, {period} of {get_config(arch).num_layers} "
+               f"layers, fp32: {need / 2 ** 30:.1f} GiB with "
+               f"{cfg.num_experts} experts; the host has "
+               f"{host / 2 ** 30:.1f} GiB available")
+        if host >= 2 * need:
+            return cut, why + ", so all experts are kept"
+        cut = dataclasses.replace(cut, num_experts=LM_CPU_EXPERTS)
+        return cut, (why + f", under twice that: experts cut to "
+                     f"{LM_CPU_EXPERTS} (top-{cut.experts_per_token} "
+                     f"kept), {cut.num_params() * 4 / 2 ** 30:.1f} GiB")
 
     def to_cpu(node):
         if isinstance(node, dict):
@@ -2420,7 +2488,8 @@ def main() -> None:
 
     moe_fwd = tmoe.moe_fwd
     for arch, cfg in lm_cfgs.items():
-        cut = dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS)
+        cut, why = cpu_cut(arch, cfg)
+        print(f"  {arch}: card vs CPU cut to {why}")
         # drawn on the card and copied: the host draws none of them
         params = lm.init_lm(cut, seed=0, device=dev, dtype=torch.float32)
         toks = rng.integers(0, cfg.vocab_size, (LM_CPU_STEPS + 1,
@@ -2453,11 +2522,11 @@ def main() -> None:
             bound = LM_CPU_TOL * b.abs().max().item()
             errs.append({"step": step, "max_abs_err": err, "bound": bound})
             if not (err <= bound and bool(torch.isfinite(a).all())):
-                fail(f"{arch} ({LM_CPU_LAYERS} layers, fp32): card vs CPU "
+                fail(f"{arch} ({cut.num_layers} layers, fp32): card vs CPU "
                      f"{'prefill' if step == 0 else f'decode {step}'} "
                      f"{err:.3e} > {bound:.3e}")
         report["lm_card_vs_cpu"][arch] = {"logits": errs,
-                                          "routing": routing}
+                                          "routing": routing, "cut": why}
         print(f"  {arch}: prefill + {LM_CPU_STEPS} decode steps, max|card - "
               f"cpu| {max(e['max_abs_err'] for e in errs):.3e} (bounds "
               f"{min(e['bound'] for e in errs):.3e}..); card "

@@ -59,6 +59,20 @@ The micro-batches of gradient accumulation are rows of the *global*
 batch (``launch/steps.py``), and AdamW runs its foreach passes on the
 local shards with one global norm over the mesh (``optim/adamw.py``).
 
+A dim that its mesh dims do not divide (a micro-batch of 16 rows over
+the multi-pod mesh's ('pod', 'data') = 32 ranks; 8 rows over 'data' =
+16).  GSPMD pads such an array; DTensor leaves some ranks no rows, or
+uneven rows, and its view and matmul rules fail.  Padding with rows is
+not exact here: a padded row would enter the MoE's capacity routing,
+which competes across tokens, and the loss's mean over rows.  So the
+dim is cut over the largest set of its mesh dims whose size divides it
+and replicated over the rest (16 rows on (2, 16, 16): over 'data',
+replicated over 'pod'), which computes the same function.  One
+function decides it, ``fit_placements``, and everything placed by a
+spec reads it through ``NamedSharding.placements_for``: the batch
+(``place``), each micro-batch (``place_like``) and the activations
+(``layers.maybe_constrain``), so they cannot disagree.
+
 Heads that the 'model' axis does not divide (qwen2's 12 query and 2 kv
 heads, qwen3's 40, mistral's 96 and every GQA arch's 8 kv heads over a
 'model' axis of 16).  DTensor cannot cut a head across ranks, where
@@ -88,6 +102,8 @@ tree is one copy of the tree per mesh device (``Replicated``), made once.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 import re
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -281,6 +297,30 @@ def cache_specs(cache_shapes, cfg, rules) -> Any:
     return walk(cache_shapes)
 
 
+def fit_placements(mesh, placements, shape) -> tuple:
+    """``placements`` for a tensor of ``shape``: a dim cut over mesh
+    dims whose sizes' product does not divide it is cut over the largest
+    set of them whose product does (the minor dims where two sets tie),
+    and replicated over the rest.  Placements that divide come back as
+    they are."""
+    from torch.distributed.tensor import Replicate
+    sizes = tuple(mesh.shape)
+    out = list(placements)
+    size = lambda dims: math.prod(sizes[i] for i in dims)
+    for d in sorted({p.dim for p in placements if p.is_shard()}):
+        cut = [i for i, p in enumerate(placements) if p.is_shard(d)]
+        if shape[d] % size(cut) == 0:
+            continue
+        keep = max((c for n in range(len(cut))
+                    for c in itertools.combinations(cut, n)
+                    if shape[d] % size(c) == 0),
+                   key=lambda c: (size(c), c[::-1]))
+        for i in cut:
+            if i not in keep:
+                out[i] = Replicate()
+    return tuple(out)
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A spec on a mesh: the DTensor placements it stands for.  A mesh
@@ -309,6 +349,11 @@ class NamedSharding:
                 out[i] = Shard(d) if sizes[i] > 1 else out[i]
         return tuple(out)
 
+    def placements_for(self, shape) -> tuple:
+        """The placements of a tensor of ``shape`` under this spec
+        (``fit_placements``)."""
+        return fit_placements(self.mesh, self.placements, shape)
+
 
 def named(mesh, tree) -> Any:
     """``P`` tree -> ``NamedSharding`` tree on the given mesh."""
@@ -319,10 +364,12 @@ def named(mesh, tree) -> Any:
 
 def place(t: torch.Tensor, sharding: NamedSharding):
     """``t`` (the same whole tensor on every rank) as a DTensor with
-    ``sharding``'s placements: each rank keeps its own shard, and no
-    rank's data is sent (every rank already holds the whole)."""
+    ``sharding``'s placements for its shape: each rank keeps its own
+    shard, and no rank's data is sent (every rank already holds the
+    whole)."""
     from torch.distributed.tensor import distribute_tensor
-    return distribute_tensor(t, sharding.mesh, sharding.placements,
+    return distribute_tensor(t, sharding.mesh,
+                             sharding.placements_for(t.shape),
                              src_data_rank=None)
 
 
@@ -333,12 +380,16 @@ def place_tree(tree, shardings):
 
 def place_like(t: torch.Tensor, like):
     """``t`` (the whole value, equal on every rank) placed as the DTensor
-    ``like`` is (no data sent); ``t`` itself where ``like`` is plain."""
+    ``like`` is, fitted to ``t``'s shape (``fit_placements``: a
+    micro-batch of ``like``'s rows); no data sent.  ``t`` itself where
+    ``like`` is plain."""
     from torch.distributed.tensor import DTensor, distribute_tensor
     if not isinstance(like, DTensor):
         return t
-    return distribute_tensor(t.contiguous(), like.device_mesh,
-                             like.placements, src_data_rank=None)
+    return distribute_tensor(
+        t.contiguous(), like.device_mesh,
+        fit_placements(like.device_mesh, like.placements, t.shape),
+        src_data_rank=None)
 
 
 def whole(t: torch.Tensor) -> torch.Tensor:

@@ -37,14 +37,17 @@ def randn(gen: torch.Generator, shape, scale: float, dtype):
 def maybe_constrain(x, spec):
     """The reference's ``with_sharding_constraint``: pin an activation
     to ``spec``, a ``dist.sharding.NamedSharding`` (None: unconstrained,
-    on one device).  ``x`` must be a DTensor on the spec's mesh: a step
-    asked to run on a mesh never quietly runs unsharded."""
+    on one device), fitted to its shape as the batch it came from was
+    (``placements_for``: a micro-batch of fewer rows than the batch
+    ranks is replicated over the ranks it does not divide over).  ``x``
+    must be a DTensor on the spec's mesh: a step asked to run on a mesh
+    never quietly runs unsharded."""
     if spec is None:
         return x
     if not isinstance(x, DTensor):
         raise TypeError(f"an activation spec {spec!r} needs a DTensor "
                         f"activation; got a {type(x).__name__}")
-    return x.redistribute(spec.mesh, spec.placements)
+    return x.redistribute(spec.mesh, spec.placements_for(x.shape))
 
 
 def like(t, ref):

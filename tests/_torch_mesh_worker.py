@@ -33,6 +33,17 @@ STEP_ARCHS = ["qwen2-1.5b", "mamba2-1.3b", "deepseek-moe-16b",
 GRAD_ARCHS = ["jamba-v0.1-52b", "qwen2-vl-2b", "musicgen-large"]
 #: the parity batch and peak lr (tests/test_torch_train.py's)
 STEP_BATCH, STEP_SEQ, STEP_LR, STEP_ACCUM = 8, 16, 3e-3, 2
+#: micro-batches of fewer rows than the batch ranks: a batch of 2 rows at
+#: grad_accum 2, so each micro-batch's one row spans 'data' = 2 (dense,
+#: and MoE whose capacity routing competes across the tokens)
+SMALL_ARCHS, SMALL_BATCH = ["qwen2-1.5b", "deepseek-moe-16b"], 2
+
+
+def step_runs():
+    """(tag, arch) of every sharded step of the ``steps`` case: the
+    parity batch per arch, then the small batch (``<arch>-b2``)."""
+    return ([(arch, arch) for arch in STEP_ARCHS]
+            + [(f"{arch}-b{SMALL_BATCH}", arch) for arch in SMALL_ARCHS])
 
 
 def run_ranks(case: str, d: Path, world: int = 4, timeout: float = 300):
@@ -96,17 +107,17 @@ def _check_local_shards(state):
 
 
 def case_steps(d: Path, mesh):
-    """Per arch: the state from ``<arch>_in`` (a port checkpoint of the
-    reference's fp32 params) restored onto the mesh, one sharded step
-    at grad_accum 2 on ``<arch>_batch.npz``, the metrics to
-    ``<arch>_metrics.json`` and the state to ``<arch>_out``."""
+    """Per run of ``step_runs``: the state from ``<arch>_in`` (a port
+    checkpoint of the reference's fp32 params) restored onto the mesh,
+    one sharded step at grad_accum 2 on ``<tag>_batch.npz``, the metrics
+    to ``<tag>_metrics.json`` and the state to ``<tag>_out``."""
     import numpy as np
     import torch
     from repro_torch.dist import sharding as sh
     from repro_torch.launch import steps as St
     from repro_torch.train import checkpoint as ckpt
     rules = sh.make_rules("train")
-    for arch in STEP_ARCHS:
+    for tag, arch in step_runs():
         cfg = _cfg(arch, grad_accum=STEP_ACCUM)
         like = St.state_specs(cfg)
         like = {"params": _fp32(like["params"]),
@@ -118,7 +129,7 @@ def case_steps(d: Path, mesh):
                                         shardings=sh.named(mesh, specs))
         local, whole = _check_local_shards(state)
         assert local < whole, (local, whole)
-        host = dict(np.load(d / f"{arch}_batch.npz"))
+        host = dict(np.load(d / f"{tag}_batch.npz"))
         batch = {k: torch.from_numpy(v) for k, v in host.items()}
         bspecs = sh.named(mesh, sh.batch_specs(batch, rules))
         batch = {k: sh.place(v, bspecs[k]) for k, v in batch.items()}
@@ -130,9 +141,9 @@ def case_steps(d: Path, mesh):
         metrics = {k: float(v) for k, v in m.items()}
         metrics["local_numel"], metrics["numel"] = _check_local_shards(
             state)
-        ckpt.save_checkpoint(d / f"{arch}_out", 1, state)
+        ckpt.save_checkpoint(d / f"{tag}_out", 1, state)
         if torch.distributed.get_rank() == 0:
-            (d / f"{arch}_metrics.json").write_text(json.dumps(metrics))
+            (d / f"{tag}_metrics.json").write_text(json.dumps(metrics))
 
 
 def _grad_batch(cfg, rng):
@@ -258,9 +269,9 @@ def case_ckpt(d: Path, mesh):
         (d / "ckpt_ok").write_text("ok")
 
 
-def trainer_setup():
+def trainer_setup(rows=8):
     """(config, data, trainer class) of the mesh trainer's case: qwen2
-    at grad_accum 2 on fp32 params."""
+    at grad_accum 2 on fp32 params, ``rows`` rows a batch."""
     from repro_torch.data import SyntheticLMData
     from repro_torch.optim import adamw_init
     from repro_torch.train.trainer import Trainer
@@ -272,13 +283,14 @@ def trainer_setup():
             return dict(s, params=p, opt=adamw_init(p))
 
     cfg = _cfg("qwen2-1.5b", grad_accum=2)
-    return cfg, SyntheticLMData(cfg.vocab_size, 8, 16), Fp32Trainer
+    return cfg, SyntheticLMData(cfg.vocab_size, rows, 16), Fp32Trainer
 
 
 def case_trainer(d: Path, mesh):
     """The mesh trainer: 2 steps with a checkpoint each, then a second
     trainer resumes onto the mesh and takes step 3; its losses to
-    ``trainer.json``."""
+    ``trainer.json``.  Then one step on batches of ``SMALL_BATCH`` rows
+    (``small.json``), a stop, and grad compression."""
     import torch
     from repro_torch.train.trainer import TrainConfig
     cfg, data, make = trainer_setup()
@@ -292,6 +304,19 @@ def case_trainer(d: Path, mesh):
         _check_local_shards(t.state)
     if torch.distributed.get_rank() == 0:
         (d / "trainer.json").write_text(json.dumps(losses))
+
+    # a batch of SMALL_BATCH rows at grad_accum 2: micro-batches of one
+    # row, fewer than the 'data' ranks
+    cfg, data, make = trainer_setup(rows=SMALL_BATCH)
+    t = make(cfg, TrainConfig(steps=1, ckpt_every=100,
+                              ckpt_dir=str(d / "small"), log_every=100),
+             data, mesh=mesh)
+    t.run()
+    _check_local_shards(t.state)
+    if torch.distributed.get_rank() == 0:
+        (d / "small.json").write_text(json.dumps(
+            {k: t.metrics_log[0][k] for k in ("loss", "grad_norm")}))
+    cfg, data, make = trainer_setup()
 
     # a stop requested on rank 0 alone (its SIGTERM) inside step 2: every
     # rank stops at the next step boundary, with one checkpoint there

@@ -237,6 +237,24 @@ def test_a_train_4k_cell_on_the_pod_mesh(world):
                                        "reduce-scatter", "all-to-all"}
 
 
+def test_a_train_4k_batch_under_the_batch_ranks_on_the_pod_mesh(world):
+    """qwen2-1.5b's 1-period probe at train_4k with a batch of 8 rows on
+    16 x 16: 8 rows do not divide over 'data' = 16 (as a micro-batch of
+    16 rows does not over the multi-pod mesh's 32 batch ranks in
+    qwen2-72b's real step).  The batch and the activations are
+    replicated over 'data', so the step lowers and each rank computes
+    all 8 rows: at least a 16th ('model') of 6·N_layer·tokens."""
+    world(256)
+    cfg, _ = D.probe_variant(get_config("qwen2-1.5b"), 1)
+    shape = ShapeConfig("train_4k", 4096, 8, "train")
+    _, _, mesh, rec = D.lower_cell("qwen2-1.5b", shape, False, cfg=cfg)
+    assert mesh.size() == 256
+    layer = cfg.num_params() - 2 * cfg.padded_vocab * cfg.d_model
+    tokens = shape.global_batch * shape.seq_len
+    assert rec["flops_per_device"] >= 6 * layer * tokens / 16
+    assert rec["memory"]["argument_bytes"] > 0
+
+
 def test_the_cli_writes_records_and_refuses_another_group(tmp_path):
     """``main`` brings up its own fake group: a decode cell comes out OK
     with the reference's keys, a long_500k cell of a full-attention arch

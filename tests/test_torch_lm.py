@@ -183,7 +183,32 @@ def test_prefill_and_decode_match_reference(arch, rng):
     prefill logits and 4 decode steps (fp32 cache) against the
     reference's own, and against the teacher-forced forward (at its
     capacity factor 8, so the forward drops no token either)."""
-    jcfg, tcfg = both_configs(arch, capacity_factor=8.0)
+    _prefill_and_decode(arch, rng, capacity_factor=8.0)
+
+
+def test_jamba_at_two_repeats_prefill_and_decode_match_reference(rng):
+    """jamba's smoke width at 16 layers, two repeats of its 8-layer
+    period (the card serves two at full width): the prefill and 4
+    decode steps against the reference's, and the hybrid cache one
+    entry per layer, KV at position 4 of each repeat and SSM state at
+    the other seven, each written at its own repeat."""
+    tcfg, tcache = _prefill_and_decode("jamba-v0.1-52b", rng,
+                                       capacity_factor=8.0, num_layers=16)
+    assert lm.stack_plan(tcfg)[0][0] == 2
+    assert [len(seg) for seg in tcache] == [2]
+    assert sum(len(rep) for seg in tcache for rep in seg) == 16
+    for rep in tcache[0]:
+        assert isinstance(rep["pos4"][0], torch.Tensor)          # k, v
+        assert all(len(rep[f"pos{i}"]) == 2 for i in range(8) if i != 4)
+    # each repeat holds its own layers' entries
+    assert not torch.equal(tcache[0][0]["pos4"][0], tcache[0][1]["pos4"][0])
+    assert not torch.equal(tcache[0][0]["pos0"][1], tcache[0][1]["pos0"][1])
+
+
+def _prefill_and_decode(arch, rng, **kw):
+    """The prefill and decode parity at config overrides ``kw``; returns
+    the port's config and cache."""
+    jcfg, tcfg = both_configs(arch, **kw)
     jp = fp32_params(jcfg, 1)
     tp = lm.params_from_numpy(tree_numpy(jp), tcfg, device="cpu",
                               dtype=torch.float32)
@@ -217,6 +242,7 @@ def test_prefill_and_decode_match_reference(arch, rng):
                 np.testing.assert_allclose(stacked, np32(j), **TOL)
                 n += 1
     assert n == len(jax.tree.leaves(jcache))
+    return tcfg, tcache
 
 
 def test_gqa_fwd_above_the_chunked_threshold_matches_reference(rng):

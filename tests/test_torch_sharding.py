@@ -17,8 +17,9 @@ import torch
 import torch.distributed as dist
 
 from _torch_mesh_worker import (GRAD_ARCHS, HEAD_ARCHS, SERVE_ARCHS,
-                                STEP_ACCUM, STEP_ARCHS, STEP_BATCH, STEP_LR,
-                                STEP_SEQ, run_ranks)
+                                SMALL_ARCHS, SMALL_BATCH, STEP_ACCUM,
+                                STEP_ARCHS, STEP_BATCH, STEP_LR, STEP_SEQ,
+                                run_ranks, step_runs)
 from _torch_parity import _clear_port_caches  # noqa: F401
 from repro.configs import base as jbase
 from repro.dist import sharding as jsh
@@ -287,6 +288,31 @@ def test_a_mesh_dim_of_size_one_replicates(fake_world):
         assert sh.named(mesh, spec).placements == (Replicate(),) * 2
 
 
+@pytest.mark.parametrize("multi_pod, rows, want", [
+    (True, 32, ("S0", "S0", "R")), (True, 16, ("R", "S0", "R")),
+    (True, 48, ("R", "S0", "R")), (True, 2, ("S0", "R", "R")),
+    (True, 1, ("R", "R", "R")), (False, 8, ("R", "R")),
+    (False, 16, ("S0", "R"))])
+def test_a_batch_its_ranks_do_not_divide_is_cut_over_the_most_that_do(
+        fake_world, multi_pod, rows, want):
+    """The batch rule on a micro-batch of ``rows``: cut over the largest
+    set of the batch axes whose size divides the rows (the minor axis
+    where two tie), replicated over the rest; the batch and the
+    activation spec fitted alike (``placements_for``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    fake_world(512 if multi_pod else 256)
+    mesh = M.make_production_mesh(multi_pod=multi_pod)
+    rules = sh.make_rules("train", multi_pod)
+    code = {Replicate(): "R", Shard(0): "S0"}
+    act = sh.named(mesh, sh.P(rules["batch"], None, None))
+    tokens = torch.empty((rows, 16), dtype=torch.int32, device="meta")
+    batch = sh.named(mesh, sh.batch_specs({"tokens": tokens}, rules))
+    got = sh.place(tokens, batch["tokens"])
+    assert tuple(code[p] for p in got.placements) == want
+    assert act.placements_for((rows, 16, 64)) == got.placements
+    assert got.shape == tokens.shape
+
+
 def test_production_mesh_names_its_ranks(fake_world):
     fake_world(4)
     with pytest.raises(ValueError, match="needs 256 ranks; this process "
@@ -305,8 +331,8 @@ def _fp32_tree(cfg):
         jlm.init_lm(cfg, jax.random.PRNGKey(0)))
 
 
-def _make_batch(cfg, rng):
-    B, S = STEP_BATCH, STEP_SEQ
+def _make_batch(cfg, rng, B=STEP_BATCH):
+    S = STEP_SEQ
     return {"labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(
                 np.int32),
             "tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
@@ -315,50 +341,49 @@ def _make_batch(cfg, rng):
 
 @pytest.fixture(scope="module")
 def sharded_steps(tmp_path_factory):
-    """Per arch: the reference's jitted step from fp32 params, and the
+    """Per run of ``step_runs`` (an arch on the parity batch, or on the
+    small batch): the reference's jitted step from fp32 params, and the
     port's step on a (2, 2) mesh from the same params and batch."""
     d = tmp_path_factory.mktemp("mesh_steps")
     rng = np.random.default_rng(0)
     ref = {}
-    for arch in STEP_ARCHS:
+    for tag, arch in step_runs():
         jcfg = dataclasses.replace(jbase.smoke_variant(jbase.get_config(
             arch)), grad_accum=STEP_ACCUM)
         tcfg = dataclasses.replace(tbase.smoke_variant(tbase.get_config(
             arch)), grad_accum=STEP_ACCUM)
         jp = _fp32_tree(jcfg)
-        tp = lm.params_from_numpy(
-            jax.tree.map(lambda a: np.asarray(a, np.float32), jp), tcfg,
-            device="cpu", dtype=torch.float32)
-        ckpt.save_checkpoint(d / f"{arch}_in", 0, {
-            "params": tp, "opt": adamw_init(tp),
-            "step": torch.zeros((), dtype=torch.int32)})
-        batch = _make_batch(jcfg, rng)
-        np.savez(d / f"{arch}_batch.npz", **batch)
+        if tag == arch:
+            tp = lm.params_from_numpy(
+                jax.tree.map(lambda a: np.asarray(a, np.float32), jp), tcfg,
+                device="cpu", dtype=torch.float32)
+            ckpt.save_checkpoint(d / f"{arch}_in", 0, {
+                "params": tp, "opt": adamw_init(tp),
+                "step": torch.zeros((), dtype=torch.int32)})
+        batch = _make_batch(jcfg, rng, STEP_BATCH if tag == arch
+                            else SMALL_BATCH)
+        np.savez(d / f"{tag}_batch.npz", **batch)
         jstate = {"params": jp, "opt": jadamw_init(jp),
                   "step": jnp.zeros((), jnp.int32)}
         jstep = jax.jit(jsteps.make_train_step(jcfg, peak_lr=STEP_LR))
         jstate, jm = jstep(jstate, {k: jnp.asarray(v)
                                     for k, v in batch.items()})
-        ref[arch] = (jp, jstate, {k: float(v) for k, v in jm.items()})
+        ref[tag] = (jp, jstate, {k: float(v) for k, v in jm.items()})
     run_ranks("steps", d, timeout=400)
     return d, ref
 
 
-@pytest.mark.parametrize("arch", STEP_ARCHS)
-def test_sharded_step_matches_the_reference_unsharded_step(arch,
-                                                           sharded_steps):
-    """One step at grad_accum 2 (micro-batches of global rows) on a
-    (2, 2) mesh: loss and grad_norm within 1e-5 relative of the
-    reference's unsharded jitted step, each leaf's update within 1e-2
-    relative in L2; every rank held only its shards."""
-    d, ref = sharded_steps
-    jp, jstate, jm = ref[arch]
-    got = json.loads((d / f"{arch}_metrics.json").read_text())
+def _check_step(d, ref, tag):
+    """The port's sharded step ``tag`` against the reference's: loss and
+    grad_norm within 1e-5 relative, the same lr, each leaf's update
+    within 1e-2 relative in L2; every rank held only its shards."""
+    jp, jstate, jm = ref[tag]
+    got = json.loads((d / f"{tag}_metrics.json").read_text())
     np.testing.assert_allclose(got["loss"], jm["loss"], rtol=1e-5)
     np.testing.assert_allclose(got["grad_norm"], jm["grad_norm"], rtol=1e-5)
     assert got["lr"] == jm["lr"]
     assert got["local_numel"] < got["numel"] / 2
-    params = ckpt.load_numpy(d / f"{arch}_out", 1, prefix="params")
+    params = ckpt.load_numpy(d / f"{tag}_out", 1, prefix="params")
     n = 0
     for path, want in jax.tree_util.tree_leaves_with_path(
             jstate["params"]):
@@ -373,6 +398,28 @@ def test_sharded_step_matches_the_reference_unsharded_step(arch,
             jax.tree_util.keystr(path))
         n += 1
     assert n == len(jax.tree.leaves(jstate["params"]))
+
+
+@pytest.mark.parametrize("arch", STEP_ARCHS)
+def test_sharded_step_matches_the_reference_unsharded_step(arch,
+                                                           sharded_steps):
+    """One step at grad_accum 2 (micro-batches of global rows) on a
+    (2, 2) mesh: loss and grad_norm within 1e-5 relative of the
+    reference's unsharded jitted step, each leaf's update within 1e-2
+    relative in L2; every rank held only its shards."""
+    _check_step(*sharded_steps, arch)
+
+
+@pytest.mark.parametrize("arch", SMALL_ARCHS)
+def test_sharded_step_with_micro_batches_under_the_batch_ranks(
+        arch, sharded_steps):
+    """A batch of 2 rows at grad_accum 2 on the (2, 2) mesh, so each
+    micro-batch's one row spans 'data' = 2 (as 16 rows span the
+    multi-pod mesh's 32 batch ranks in qwen2-72b's real step): the
+    micro-batch and its activations are replicated over 'data', and the
+    step equals the reference's unsharded step as above, dense and with
+    MoE capacity routing (where a padded row would compete)."""
+    _check_step(*sharded_steps, f"{arch}-b{SMALL_BATCH}")
 
 
 @pytest.mark.parametrize("arch", GRAD_ARCHS)

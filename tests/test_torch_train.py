@@ -588,6 +588,22 @@ def test_mesh_trainer_resumes_to_the_unsharded_loss(mesh_trainer, tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
+def test_mesh_trainer_takes_micro_batches_under_the_batch_ranks(
+        mesh_trainer, tmp_path):
+    """Trainer(mesh=(2, 2)) on batches of 2 rows at grad_accum 2, so a
+    micro-batch's one row spans 'data' = 2: its first step's loss and
+    grad_norm within 1e-5 of the unsharded trainer's."""
+    from _torch_mesh_worker import SMALL_BATCH, trainer_setup
+    got = json.loads((mesh_trainer / "small.json").read_text())
+    cfg, data, make = trainer_setup(rows=SMALL_BATCH)
+    t = make(cfg, TrainConfig(steps=1, ckpt_dir=str(tmp_path / "one"),
+                              ckpt_every=100, log_every=100), data,
+             device="cpu")
+    t.run()
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(got[k], t.metrics_log[0][k], rtol=1e-5)
+
+
 def test_mesh_grad_compression_codes_the_global_rows(mesh_trainer):
     """One fp32 step with int8 + error feedback on the (2, 2) mesh
     against the same step unsharded: the loss within 1e-5, each leaf's
