@@ -51,19 +51,31 @@ calls:
   ``AsyncServeFrontend`` bit for bit, and ``python -m
   repro_torch.launch.serve --cnn-dist --requests 16`` must exit 0 and
   print its stats;
-- ``qwen2-1.5b``, ``mamba2-1.3b``, ``deepseek-v2-lite-16b`` and
-  ``deepseek-moe-16b`` served by the LM ``ServeEngine`` at full width
-  and depth in bf16 (seed-0 params made on the card), one model on the
-  card at a time: 8 requests on 4 slots, prompts of 512, 16 new tokens,
-  where every GQA prefill attention runs ``flash_attention`` (MLA
-  attends through the plain versions, as the reference does) and every
-  Mamba2 prefill conv ``conv1d_tap``; the MoE models' routing
-  statistics of a prefill wave are printed, and two eager calls of an
-  MoE layer must give the same bits.  Then each model cut to 4 layers in
-  fp32 (the deepseek pair: one dense layer and three MoE layers), card
-  against the CPU, where each MoE layer's top-K expert sets and kept
-  tokens are compared first: a token may route differently only where
-  its K-th and (K+1)-th router probabilities on the CPU are within 1e-5;
+- ``qwen2-1.5b``, ``qwen3-14b``, ``mamba2-1.3b``,
+  ``deepseek-v2-lite-16b`` and ``deepseek-moe-16b`` served by the LM
+  ``ServeEngine`` at full width and depth in bf16 (seed-0 params made on
+  the card), ``jamba-v0.1-52b`` at full width and 16 of 32 layers, one
+  model on the card at a time: 8 requests on 4 slots, prompts of 512,
+  16 new tokens, where every GQA prefill attention runs
+  ``flash_attention`` (MLA attends through the plain versions, as the
+  reference does) and every Mamba2 prefill conv ``conv1d_tap``; the MoE
+  models' routing statistics of a prefill wave are printed, and two
+  eager calls of an MoE layer must give the same bits;
+- the archs fed embeddings, ``qwen2-vl-2b`` and ``musicgen-large``
+  (MHA at head dim 64), at full width and depth in bf16: their prefill
+  and decode programs (``embeds_programs``: ``lm.prefill`` and
+  ``lm.decode_step`` as CUDA graphs over static embeddings, M-RoPE
+  positions and offset) over two waves of 4 x 512 seeded embeddings and
+  15 teacher-forced decode steps each, qwen2-vl's prompts an image grid
+  (``mrope_grid``) and its decode positions off the cache offset; every
+  call's logits bit-equal to eager calls, ``flash_attention`` once a
+  layer a prefill wave.  Then every LM cut to 4 layers in fp32 (the
+  deepseek pair: one dense layer and three MoE layers; jamba: one
+  8-layer period with all 16 experts), card against the CPU, the CPU
+  side a layer at a time (``layerwise_cpu_logits``), where each MoE
+  call's top-K expert sets and kept tokens are compared first, by (MoE
+  layer, step): a token may route differently only where its K-th and
+  (K+1)-th router probabilities on the CPU are within 1e-5;
 - training (``training_phase``): ``qwen2-1.5b`` at full width and depth
   in bf16 through ``launch.steps.make_train_step`` and
   ``SyntheticLMData`` (5 steps of 8x512 tokens, its config's grad_accum
@@ -272,21 +284,25 @@ NO_SPILL = ("direct_conv", "cuconv_stage1", "int8_gemm")
 
 # the LM serving path (configs/archs.py), served at full width and, but
 # where LM_SERVED_LAYERS cuts it, full depth
-LM_ARCHS = ("qwen2-1.5b", "mamba2-1.3b", "deepseek-v2-lite-16b",
-            "deepseek-moe-16b", "jamba-v0.1-52b")
+LM_ARCHS = ("qwen2-1.5b", "qwen3-14b", "mamba2-1.3b",
+            "deepseek-v2-lite-16b", "deepseek-moe-16b", "jamba-v0.1-52b")
+# the archs fed embeddings (their front ends are stubs: no patch encoder,
+# no EnCodec), served through lm.prefill/decode_step as CUDA graphs at
+# full width and depth; qwen2-vl-2b's prompts are an M-RoPE image grid
+LM_EMBED_ARCHS = ("qwen2-vl-2b", "musicgen-large")
+# each prompt of LM_PROMPT: text, a side x side image, text (mrope_grid)
+LM_GRID = (16, 16, 240)
 # depth cuts of the served archs: jamba's 32 layers (95.9 GiB in bf16)
 # exceed the card, so it serves two repeats of its 8-layer period
 LM_SERVED_LAYERS = {"jamba-v0.1-52b": 16}
 LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 4, 512, 16, 1024
-# card vs CPU in fp32: depth cut for the CPU's sake, fp32 cache
+# card vs CPU in fp32: depth cut for the CPU's sake, fp32 cache; an arch
+# whose layer period is longer than LM_CPU_LAYERS (stack_plan refuses a
+# part of it; jamba's is 8) is cut to one period, all its experts kept
+# (the CPU side runs one layer at a time: layerwise_cpu_logits)
 LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_PROMPT, LM_CPU_STEPS = 4, 2, 64, 4
+LM_CPU_GRID = (8, 6, 20)         # qwen2-vl-2b's grid in LM_CPU_PROMPT
 LM_CPU_TOL = 1e-3                # x * max|CPU logits|
-# an arch whose layer period is longer than LM_CPU_LAYERS (stack_plan
-# refuses a part of it; jamba's is 8) is cut to one period, its experts
-# to LM_CPU_EXPERTS (top-K kept) unless the host's available memory
-# holds the period's fp32 params twice over (the card's copy comes back
-# to the host beside the CPU's compute)
-LM_CPU_EXPERTS = 4
 # card vs CPU: a token's top-K experts may differ only where its K-th and
 # (K+1)-th router probabilities on the CPU are this close
 ROUTE_FLIP_GAP = 1e-5
@@ -431,6 +447,184 @@ def ptxas_entries(log: str) -> list:
         if m and out:
             out[-1]["registers"] = int(m.group(1))
     return out
+
+
+def mrope_grid(text: int, side: int, after: int):
+    """Qwen2-VL's M-RoPE positions (arXiv:2409.12191 §2.1) of a prompt of
+    ``text`` text tokens, a ``side`` x ``side`` image, then ``after``
+    text tokens: (3, S) int32 rows (t, h, w), and the position the next
+    token takes.  A text token at i is (i, i, i); the image's patch
+    (r, c) is (t0, t0 + r, t0 + c) at t0 = ``text``; the text after it
+    resumes one past the image's largest position."""
+    import numpy as np
+    ids = [(i, i, i) for i in range(text)]
+    ids += [(text, text + r, text + c) for r in range(side)
+            for c in range(side)]
+    nxt = text + side
+    ids += [(i, i, i) for i in range(nxt, nxt + after)]
+    return np.array(ids, np.int32).T.copy(), nxt + after
+
+
+class RoutingLog:
+    """While entered, a stand-in for ``moe.moe_fwd`` that records each
+    call's routing under the key (k, step): the router's probs, the
+    top-K expert set of every token and the tokens each expert keeps
+    (``moe.dispatch``, the routing ``moe_fwd`` itself runs).  The caller
+    sets ``step`` before each call of a step.  The k-th MoE call of a
+    step is the k-th MoE layer, whether the steps run layer by layer or
+    the layers step by step, so two callers' records line up by key."""
+
+    def __init__(self):
+        self.step, self.calls = None, {}
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+        self._moe, self._fwd = moe, moe.moe_fwd
+        moe.moe_fwd = self._record
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.moe_fwd = self._fwd
+
+    def _record(self, p, cfg, x, dropless=False, n_groups=1):
+        import torch
+        k = sum(s == self.step for _, s in self.calls)
+        xg = x.reshape(1, -1, x.shape[-1])
+        probs, eidx, _, vals, tok = self._moe.dispatch(p, cfg, xg, dropless)
+        kept = torch.zeros_like(probs, dtype=torch.bool).transpose(1, 2)
+        kept.scatter_(-1, tok, vals > 0)
+        self.calls[(k, self.step)] = {
+            "probs": probs[0].cpu(),
+            "experts": eidx[0].sort(-1).values.cpu(),
+            "kept": kept[0].cpu()}
+        return self._fwd(p, cfg, x, dropless, n_groups)
+
+
+def _batch_dims(batch) -> tuple:
+    """(rows, length) of an LM batch of tokens or embeddings."""
+    return tuple((batch["tokens"] if "tokens" in batch
+                  else batch["embeds"]).shape[:2])
+
+
+def stepwise_logits(params, cfg, inputs, max_len, device, routes=None):
+    """``lm.prefill`` of ``inputs[0]``, then ``lm.decode_step`` of each
+    later input (teacher-forced, at offsets prompt, prompt + 1, ...), on
+    ``device`` over an fp32 cache of ``max_len``: each call's logits, on
+    the host.  ``routes`` (a ``RoutingLog``) learns each call's step."""
+    import torch
+    from repro_torch.models import lm
+    B, S = _batch_dims(inputs[0])
+    cache = lm.init_cache(cfg, B, max_len, kv_dtype=torch.float32,
+                          device=device)
+    out = []
+    for i, batch in enumerate(inputs):
+        if routes is not None:
+            routes.step = i
+        batch = {k: v.to(device) for k, v in batch.items()}
+        if i == 0:
+            logits, cache = lm.prefill(params, cfg, batch, cache)
+        else:
+            logits, cache = lm.decode_step(params, cfg, batch, cache,
+                                           S + i - 1)
+        out.append(logits.cpu())
+    return out
+
+
+def layerwise_cpu_logits(params, cfg, inputs, max_len, routes=None):
+    """What ``stepwise_logits`` computes, on the CPU one layer at a time.
+    The inputs are teacher-forced, so every call's input is known at the
+    start: each layer's params are copied to the host from wherever
+    ``params`` lie, run over the prefill and every decode step, and
+    dropped before the next layer's are copied; then the final norm and
+    the head.  The host holds about one layer, not the model (jamba's
+    fp32 period: 49.4 GiB, its largest layer 10.5 GiB).  Built of
+    ``lm_forward``'s own pieces (``stack_input``, ``_layer_fwd``,
+    ``stack_output``), so on the CPU it gives the same bits."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.tree import map_tree
+    cpu = torch.device("cpu")
+
+    def host(node):
+        return map_tree(lambda t: t.to(cpu), node)
+    B, S = _batch_dims(inputs[0])
+    # decode_step's offset: a 0-d int64 tensor
+    offsets = [0] + [torch.tensor(S + i) for i in range(len(inputs) - 1)]
+    modes = ["prefill"] + ["decode"] * (len(inputs) - 1)
+    src = ({"embed": host(params["embed"])} if cfg.input_mode == "tokens"
+           else params)                   # embeddings: the head's dtype
+    xs, pos = zip(*(lm.stack_input(src, cfg, b, off)
+                    for b, off in zip(inputs, offsets)))
+    xs, pos = list(xs), list(pos)
+    del src
+    cache = lm.init_cache(cfg, B, max_len, kv_dtype=torch.float32,
+                          device=cpu)
+    for si, r, name, mixer, mlp in lm._layers(cfg):
+        layer = host(params["segments"][si][r][name])
+        for i in range(len(inputs)):
+            if routes is not None:
+                routes.step = i
+            xs[i], _, _ = lm._layer_fwd(layer, cfg, mixer, mlp, xs[i],
+                                        pos[i], cache[si][r][name],
+                                        offsets[i], modes[i])
+        del layer
+    head = host({k: v for k, v in params.items() if k != "segments"
+                 and (k != "embed" or cfg.tie_embeddings)})
+    return [lm.stack_output(head, cfg, x) for x in xs]
+
+
+def host_peak_gib() -> float:
+    """This process's peak resident set so far (``getrusage``'s
+    ``ru_maxrss``, KiB on Linux), GiB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def host_rss_gib() -> float:
+    """This process's resident set now (``/proc/self/statm``), GiB."""
+    pages = int(Path("/proc/self/statm").read_text().split()[1])
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2 ** 30
+
+
+def embeds_programs(cfg, slots, prompt, dtype, device, pool=None):
+    """The served prefill and decode programs of an arch fed embeddings
+    (the reference jits ``lm.prefill`` and ``lm.decode_step``; neither
+    package has an engine for this input), each a ``GraphedProgram``
+    sharing ``pool``: static ``embeds`` ((slots, prompt, D), then
+    (slots, 1, D)), for M-RoPE archs static (3, slots, len) int32
+    ``positions``, and for decode a 0-d int64 ``offset``, the cache
+    position, which M-RoPE's positions need not equal.  Each program is
+    ``prog(params, cache, embeds[, positions][, offset])`` and returns
+    the last position's logits (slots, Vpad)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serve.graphs import GraphedProgram
+    mrope = bool(cfg.mrope_sections)
+
+    def batch(embeds, pos):
+        return dict(embeds=embeds, **({"positions": pos[0]} if pos else {}))
+
+    def prefill(params, cache, embeds, *pos):
+        logits, _ = lm.prefill(params, cfg, batch(embeds, pos), cache)
+        # a copy, so the static output is (slots, Vpad), not a view
+        return logits[:, -1, :].contiguous()
+
+    def decode(params, cache, embeds, *rest):
+        *pos, offset = rest
+        logits, _ = lm.decode_step(params, cfg, batch(embeds, pos), cache,
+                                   offset)
+        return logits[:, -1, :]
+
+    def static(length):
+        out = [torch.zeros((slots, length, cfg.d_model), dtype=dtype,
+                           device=device)]
+        if mrope:
+            out.append(torch.zeros((3, slots, length), dtype=torch.int32,
+                                   device=device))
+        return out
+    return (GraphedProgram(prefill, static(prompt), pool),
+            GraphedProgram(decode, static(1) + [torch.zeros(
+                (), dtype=torch.int64, device=device)], pool))
 
 
 def training_phase(dev, report, launches, profiled, get_config) -> None:
@@ -1571,14 +1765,16 @@ def main() -> None:
                f"exceeds the card")
         return dataclasses.replace(cfg, num_layers=n), why
 
-    lm_cuts = {arch: served_config(arch) for arch in LM_ARCHS}
+    lm_cuts = {arch: served_config(arch)
+               for arch in LM_ARCHS + LM_EMBED_ARCHS}
     lm_cfgs = {arch: cfg for arch, (cfg, _) in lm_cuts.items()}
 
     def lm_cases(dtype):
         """The LM kernels' calls at the served models' shapes: prefill
-        attention of 4 slots x 512 (and one train_4k sequence, and the
-        4 x 128 prompts that serve the trained checkpoint), the three
-        Mamba2 streams' conv.  The served bf16 calls make the line."""
+        attention of 4 slots x 512 (and TRAIN_ARCH's train_4k sequence
+        and the 4 x 128 prompts that serve its trained checkpoint), the
+        three Mamba2 streams' conv.  The served bf16 calls make the
+        line."""
         out = []
         bf16 = dtype == torch.bfloat16
         tol = BF16_TOL if bf16 else FP32_TOL
@@ -1586,9 +1782,11 @@ def main() -> None:
             mixers = {mx for mx, _ in cfg.layer_kinds()}
             if "attn" in mixers and not cfg.mla:    # MLA runs no kernel
                 H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-                for b, s in ((LM_SLOTS, LM_PROMPT),
-                             (1, SHAPES["train_4k"].seq_len),
-                             (LM_SLOTS, TRAIN_SERVE_PROMPT)):
+                shapes = [(LM_SLOTS, LM_PROMPT)]
+                if arch == TRAIN_ARCH:      # its training and checkpoint
+                    shapes += [(1, SHAPES["train_4k"].seq_len),
+                               (LM_SLOTS, TRAIN_SERVE_PROMPT)]
+                for b, s in shapes:
                     args = (randn((b, s, H, D), dtype),
                             randn((b, s, KVH, D), dtype),
                             randn((b, s, KVH, D), dtype))
@@ -2130,15 +2328,11 @@ def main() -> None:
                 return group
         return "other"
 
-    def trace_lm(cfg, params, prompts, per_wave):
-        """One prefill wave and LM_TRACE_STEPS decode steps, each step's
-        logits sampled to the host as the engine does, replayed from the
-        engine's CUDA graphs (captured first, outside the trace) under
-        torch.profiler: device time by kernel group and the device's idle
-        share of the wall time (host clock, synchronized; busy time is
-        the union of the kernel and memcpy records' intervals).  The
-        replayed prefill must run ``per_wave``'s counted kernels, the
-        decode steps none."""
+    def engine_calls(cfg, params, prompts):
+        """A fresh ``ServeEngine``'s prefill of one wave of ``prompts``
+        and LM_TRACE_STEPS decode steps, each step's logits sampled to
+        the host as the engine does, for ``trace_lm``; and its graphs'
+        replay count."""
         eng = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
                           device=dev)
         toks = torch.from_numpy(prompts).to(dev)
@@ -2152,9 +2346,21 @@ def main() -> None:
             for t in range(LM_TRACE_STEPS):
                 eng._sample(eng._decode(eng.params, {"tokens": step},
                                         eng.cache, LM_PROMPT + t)[0])
+        return prefill, decode, lambda: sum(g.replays
+                                            for g in eng.graphs.values())
+
+    def trace_lm(arch, prefill, decode, replays, per_wave):
+        """One prefill wave (``prefill()``) and LM_TRACE_STEPS decode
+        steps (``decode()``), replayed from their CUDA graphs (captured
+        first, outside the trace; ``replays()`` counts them) under
+        torch.profiler: device time by kernel group and the device's idle
+        share of the wall time (host clock, synchronized; busy time is
+        the union of the kernel and memcpy records' intervals).  The
+        replayed prefill must run ``per_wave``'s counted kernels, the
+        decode steps none."""
         prefill()
         decode()                       # eager, then captured
-        replays = sum(g.replays for g in eng.graphs.values())
+        before = replays()
         calls = {"prefill": prefill, "decode": decode}
         out = {}
         for what, fn in calls.items():
@@ -2179,14 +2385,14 @@ def main() -> None:
             top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
             traced = traced_launches(prof)
             want = per_wave if what == "prefill" else {}
-            print(f"  {cfg.name} replayed {what}: kernels in the trace "
+            print(f"  {arch} replayed {what}: kernels in the trace "
                   f"{traced}, planned {want}")
             if traced != want:
-                fail(f"{cfg.name} replayed {what}: the trace ran {traced} "
+                fail(f"{arch} replayed {what}: the trace ran {traced} "
                      f"!= planned {want}")
             n_launch = sum(1 for r in records if is_kernel(r[0]))
             per = LM_TRACE_STEPS if what == "decode" else 1
-            print(f"  {cfg.name} replayed {what}: {n_launch} kernel "
+            print(f"  {arch} replayed {what}: {n_launch} kernel "
                   f"launches ({n_launch / per:.0f} per "
                   f"{'step' if what == 'decode' else 'wave'})")
             out[what] = {"wall_ms": wall, "device_ms": busy,
@@ -2197,22 +2403,36 @@ def main() -> None:
                          "groups_ms": groups,
                          "top": [(n[:80], ms, c) for n, (ms, c) in top]}
             if not busy:
-                print(f"  {cfg.name} {what}: the profiler saw no device "
+                print(f"  {arch} {what}: the profiler saw no device "
                       f"time; busy and idle share not measured")
                 continue
-            print(f"  {cfg.name} {what} under the profiler: wall "
+            print(f"  {arch} {what} under the profiler: wall "
                   f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share "
                   f"{1 - busy / wall:.3f}; by group "
                   f"{ {g: round(ms, 4) for g, ms in groups.items()} }")
             if not 0.0 <= 1 - busy / wall <= 1.0:
-                fail(f"{cfg.name} {what}: idle share {1 - busy / wall:.3f} "
+                fail(f"{arch} {what}: idle share {1 - busy / wall:.3f} "
                      f"outside [0, 1] (busy {busy:.3f} ms of {wall:.3f})")
             for n, ms, c in out[what]["top"][:4]:
                 print(f"    {ms:10.4f} ms  x{c:<5d} {n}")
-        if sum(g.replays for g in eng.graphs.values()) - replays != (
-                LM_TRACE_STEPS + 1):
-            fail(f"{cfg.name}: the traced calls did not all replay graphs")
+        if replays() - before != LM_TRACE_STEPS + 1:
+            fail(f"{arch}: the traced calls did not all replay graphs")
         return out
+
+    def decode_idle(arch, row):
+        """A served row's decode idle share: the profiler stretches the
+        host's side of a step, so the traced device ms a step is held
+        against the untraced ms a step."""
+        busy = row["trace"]["decode"]["device_ms"]
+        if not busy:
+            return
+        row["decode_device_ms_per_step"] = busy / LM_TRACE_STEPS
+        row["decode_idle_share_untraced"] = 1 - (
+            row["decode_device_ms_per_step"] / row["decode_ms_per_step"])
+        print(f"  {arch} decode: device {busy / LM_TRACE_STEPS:.4f} ms per "
+              f"step (traced) against {row['decode_ms_per_step']:.4f} ms per "
+              f"step untraced: idle share "
+              f"{row['decode_idle_share_untraced']:.3f}")
 
     def tree_tensors(node):
         if isinstance(node, dict):
@@ -2263,7 +2483,8 @@ def main() -> None:
                 * 1e3}
 
     held_first = None
-    for arch, cfg in lm_cfgs.items():
+    for arch in LM_ARCHS:
+        cfg = lm_cfgs[arch]
         # the last model's params, engines, graph pools and caches freed:
         # what the card holds before each model is what it held before
         # the first
@@ -2362,6 +2583,7 @@ def main() -> None:
                    "decode": call_ms("_decode", False)},
                "run_ms": wall, "tokens": tokens,
                "tokens_per_s": tokens / wall * 1e3,
+               "params_read_floor_ms": param_bytes / HBM_BYTES_PER_S * 1e3,
                "sample_tokens": done[0].out_tokens,
                "graph_tokens_equal_eager": same,
                "peak_gib_graphs": peak_graphs,
@@ -2371,7 +2593,8 @@ def main() -> None:
               f"{row['prefill_ms_per_wave']:.4f} ms per wave of "
               f"{LM_SLOTS}x{LM_PROMPT}, decode "
               f"{row['decode_ms_per_step']:.4f} ms per step of {LM_SLOTS} "
-              f"(first wave / step eager and captured: "
+              f"(all-params read floor {row['params_read_floor_ms']:.4f} "
+              f"ms; first wave / step eager and captured: "
               f"{row['eager_then_capture_ms']}); {tokens} tokens in "
               f"{wall:.2f} ms = {row['tokens_per_s']:.1f} tokens/s; request "
               f"0 {done[0].out_tokens[:6]}...")
@@ -2382,20 +2605,11 @@ def main() -> None:
                   f"{row['decode_expert_floor_ms']:.4f} ms "
                   f"({row['expert_bytes'] / 1e9:.3f} GB of experts at "
                   f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
-        row["trace"] = trace_lm(cfg, params, prompts[:LM_SLOTS],
+        row["trace"] = trace_lm(arch, *engine_calls(cfg, params,
+                                                    prompts[:LM_SLOTS]),
                                 {k: v // waves for k, v in planned.items()
                                  if v})
-        busy = row["trace"]["decode"]["device_ms"]
-        if busy:
-            # the profiler stretches the host's side of a step: the traced
-            # device ms per step over the untraced host ms per step too
-            row["decode_device_ms_per_step"] = busy / LM_TRACE_STEPS
-            row["decode_idle_share_untraced"] = 1 - (
-                row["decode_device_ms_per_step"] / row["decode_ms_per_step"])
-            print(f"  {arch} decode: device {busy / LM_TRACE_STEPS:.4f} ms "
-                  f"per step (traced) against {row['decode_ms_per_step']:.4f}"
-                  f" ms per step untraced: idle share "
-                  f"{row['decode_idle_share_untraced']:.3f}")
+        decode_idle(arch, row)
         del params
         gc.collect()                # the engines and their graph pools
         torch.cuda.empty_cache()
@@ -2403,69 +2617,248 @@ def main() -> None:
         if v < 1:
             fail(f"{k} was not launched on the main path")
 
+    # -- 4d'. the LM embeddings path: lm.prefill/decode_step as CUDA graphs ---
+    phase(f"main path: the LM embeddings path ({', '.join(LM_EMBED_ARCHS)}; "
+          f"bf16, {waves} waves of {LM_SLOTS} x {LM_PROMPT}, {LM_NEW - 1} "
+          f"decode steps each, as CUDA graphs)")
+    report["lm_embeds"] = {}
+
+    def embeds_waves(cfg, seed):
+        """Each wave's inputs, drawn on the card from a seeded generator
+        and teacher-forced (no embedding table feeds a sampled token
+        back): the prefill's (embeds[, positions]) and each decode step's
+        (embeds[, positions], offset).  M-RoPE positions: LM_GRID's image
+        grid, then one past it on all three rows, while the cache writes
+        at LM_PROMPT, LM_PROMPT + 1, ..."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def draw(n):
+            return torch.randn((LM_SLOTS, n, cfg.d_model), generator=g,
+                               device=dev).to(torch.bfloat16)
+        pos = step_pos = ()
+        if cfg.mrope_sections:
+            grid, nxt = mrope_grid(*LM_GRID)
+            if grid.shape[1] != LM_PROMPT:
+                fail(f"LM_GRID {LM_GRID} spans {grid.shape[1]} positions, "
+                     f"not the prompt's {LM_PROMPT}")
+            pos = (torch.from_numpy(grid).to(dev)[:, None].expand(
+                3, LM_SLOTS, LM_PROMPT).contiguous(),)
+            step_pos = [(torch.full((3, LM_SLOTS, 1), nxt + t,
+                                    dtype=torch.int32, device=dev),)
+                        for t in range(LM_NEW - 1)]
+        return [((draw(LM_PROMPT),) + pos,
+                 [(draw(1),) + (step_pos[t] if step_pos else ())
+                  + (LM_PROMPT + t,) for t in range(LM_NEW - 1)])
+                for _ in range(waves)]
+
+    def run_embeds(progs, params, cache, calls, timed, traced=None):
+        """Every call of the waves ``calls`` through the programs
+        (prefill, decode), in order: each call's logits (a copy; none
+        where ``timed``), and where ``timed`` its wall ms between
+        synchronizes as ``(prefill?, ms, replayed)``; the calls whose
+        logits were not finite.  Where ``traced`` (a dict) is given,
+        each prefill call runs under the profiler (the card alone) and
+        the counted kernels its trace shows are added to it; the decode
+        steps, whose replays ``trace_lm`` holds to none, stay untraced
+        (musicgen's 14,320 launches a step made a whole run's trace
+        some 400,000 records)."""
+        outs, times, nonfinite = [], [], []
+        for pre, steps in calls:
+            for i, (prog, args) in enumerate(
+                    [(progs[0], pre)] + [(progs[1], a) for a in steps]):
+                if timed:
+                    torch.cuda.synchronize()
+                before = prog.replays
+                t0 = time.perf_counter()
+                with (profiled(host=False) if traced is not None and i == 0
+                      else contextlib.nullcontext()) as prof:
+                    logits = prog(params, cache, *args)
+                if prof is not None:
+                    for k, n in traced_launches(prof).items():
+                        traced[k] = traced.get(k, 0) + n
+                if timed:
+                    torch.cuda.synchronize()
+                    times.append((i == 0, (time.perf_counter() - t0) * 1e3,
+                                  prog.replays > before))
+                else:
+                    outs.append(logits.clone())
+                if not bool(torch.isfinite(logits).all()):
+                    nonfinite.append(len(outs) + len(times) - 1)
+        return outs, times, nonfinite
+
+    for arch in LM_EMBED_ARCHS:
+        cfg = lm_cfgs[arch]
+        held = memory_mark()[0] / 2 ** 30
+        print(f"  {arch}: {held:.3f} GiB allocated on the card before its "
+              f"init ({held_first:.3f} before the first LM)")
+        if held > held_first + 0.5:
+            fail(f"{arch}: {held - held_first:.3f} GiB of an earlier LM "
+                 f"still on the card")
+        params = lm.init_lm(cfg, seed=0, device=dev)
+        param_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_tensors(params))
+        calls = embeds_waves(cfg, seed=0)
+        n_calls = waves * LM_NEW
+        planned = {"flash_attention": cfg.num_layers * waves}
+        print(f"  {arch}: {cfg.num_params() / 1e9:.3f} B params, "
+              f"{param_bytes / 2 ** 30:.3f} GiB on the card; head dim "
+              f"{cfg.head_dim}, {cfg.num_heads} heads over "
+              f"{cfg.num_kv_heads}; positions "
+              f"{'an M-RoPE grid ' + str(LM_GRID) if cfg.mrope_sections else 'from the offset'}")
+        _build.reset_launches()
+        base = memory_mark()
+        progs = embeds_programs(cfg, LM_SLOTS, LM_PROMPT, torch.bfloat16,
+                                dev, torch.cuda.graph_pool_handle())
+        cache = lm.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+        traced = {}
+        t0 = time.perf_counter()
+        outs, _, nonfinite = run_embeds(progs, params, cache, calls, False,
+                                        traced)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak_graphs = memory_peak(base)
+        counts = dict(_build.LAUNCHES)
+        for k in LM_KERNELS:
+            launches[k] += counts[k]
+        graphs = {"prefill": (progs[0].captures, progs[0].replays),
+                  "decode": (progs[1].captures, progs[1].replays)}
+        print(f"  {arch}: {n_calls} calls in {wall:.1f} ms (the prefills "
+              f"profiled); kernels in their traces {traced}; launch counters "
+              f"{ {k: v for k, v in counts.items() if v} }; planned "
+              f"{planned}; graphs (captures, replays) {graphs}")
+        if traced != planned:
+            fail(f"{arch}: the trace ran {traced} != planned {planned}")
+        if {k: v for k, v in counts.items() if v} != planned:
+            fail(f"{arch}: launches {counts} != planned {planned}")
+        want_graphs = {"prefill": (1, waves - 1),
+                       "decode": (1, waves * (LM_NEW - 1) - 1)}
+        if graphs != want_graphs:
+            fail(f"{arch}: graphs (captures, replays) {graphs} != "
+                 f"{want_graphs}")
+        if nonfinite:
+            fail(f"{arch}: non-finite logits from calls {nonfinite}")
+        # the same calls eagerly, on a cache of their own
+        base = memory_mark()
+        eager_cache = lm.init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+        eager = []
+        for pre, steps in calls:
+            eager.append(progs[0].fn(params, eager_cache, *pre))
+            eager += [progs[1].fn(params, eager_cache, *a).clone()
+                      for a in steps]
+        peak_eager = memory_peak(base)
+        del eager_cache
+        same = [torch.equal(a, b) for a, b in zip(outs, eager)]
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(outs, eager))
+        print(f"  {arch}: every call's logits (eager first calls, then "
+              f"replays) bit-equal to eager lm.prefill/decode_step: "
+              f"{sum(same)} of {len(same)} (max |diff| {diff:.3e}); peak "
+              f"device memory above the params, GiB (allocated, reserved): "
+              f"through graphs {peak_graphs}, eager {peak_eager}")
+        if len(same) != n_calls or not all(same):
+            fail(f"{arch}: replayed logits differ from eager ones at calls "
+                 f"{[i for i, ok in enumerate(same) if not ok]}")
+        del outs, eager
+        _, times, nonfinite = run_embeds(progs, params, cache, calls, True)
+        if nonfinite:
+            fail(f"{arch}: non-finite logits from timed calls {nonfinite}")
+        run_ms = sum(ms for _, ms, _ in times)
+        prefill_ms = [ms for pre, ms, r in times if pre and r]
+        decode_ms = [ms for pre, ms, r in times if not pre and r]
+        tokens = waves * LM_SLOTS * LM_NEW
+        row = {"params": cfg.num_params(), "param_bytes": param_bytes,
+               "layers": cfg.num_layers, "launches": counts,
+               "prefill_ms_per_wave": float(np.median(prefill_ms)),
+               "decode_ms_per_step": float(np.median(decode_ms)),
+               "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+               "run_ms": run_ms, "tokens": tokens,
+               "tokens_per_s": tokens / run_ms * 1e3,
+               "params_read_floor_ms": param_bytes / HBM_BYTES_PER_S * 1e3,
+               "graph_logits_equal_eager": True,
+               "peak_gib_graphs": peak_graphs, "peak_gib_eager": peak_eager}
+        report["lm_embeds"][arch] = row
+        print(f"  {arch} (graph replays, median): prefill "
+              f"{row['prefill_ms_per_wave']:.4f} ms per wave of "
+              f"{LM_SLOTS}x{LM_PROMPT}, decode "
+              f"{row['decode_ms_per_step']:.4f} ms per step of {LM_SLOTS} "
+              f"(all-params read floor {row['params_read_floor_ms']:.4f} "
+              f"ms); {tokens} positions' logits in {run_ms:.2f} ms of calls "
+              f"= {row['tokens_per_s']:.1f} a second")
+        pre, steps = calls[0]
+
+        def prefill():
+            progs[0](params, cache, *pre).float().argmax(-1).cpu()
+
+        def decode():
+            for a in steps[:LM_TRACE_STEPS]:
+                progs[1](params, cache, *a).float().argmax(-1).cpu()
+        row["trace"] = trace_lm(arch, prefill, decode,
+                                lambda: progs[0].replays + progs[1].replays,
+                                {"flash_attention": cfg.num_layers})
+        decode_idle(arch, row)
+        del params, progs, cache, calls, prefill, decode
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # -- 4e. the LM path, card against CPU, fp32 -------------------------------
     phase(f"LM card vs CPU (fp32, full width, {LM_CPU_LAYERS} layers or "
-          f"one longer period)")
+          f"one longer period, all experts; the CPU side a layer at a "
+          f"time)")
     report["lm_card_vs_cpu"] = {}
-
-    def host_available():
-        """The host's available memory (``/proc/meminfo``), bytes."""
-        for ln in Path("/proc/meminfo").read_text().splitlines():
-            if ln.startswith("MemAvailable:"):
-                return int(ln.split()[1]) * 1024
-        fail("/proc/meminfo has no MemAvailable line")
 
     def cpu_cut(arch, cfg):
         """The config of ``arch``'s card-vs-CPU check and its cut: the
         first ``LM_CPU_LAYERS`` layers, or one layer period where that is
-        longer, its experts cut to ``LM_CPU_EXPERTS`` unless the host
-        holds the period's fp32 params twice."""
+        longer, every expert kept."""
         period = max(len(kinds) for _, kinds in lm.stack_plan(cfg))
-        if period <= LM_CPU_LAYERS:
-            return (dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS),
-                    f"{LM_CPU_LAYERS} of {cfg.num_layers} layers")
-        cut = dataclasses.replace(cfg, num_layers=period)
-        need, host = cut.num_params() * 4, host_available()
-        why = (f"one period, {period} of {get_config(arch).num_layers} "
-               f"layers, fp32: {need / 2 ** 30:.1f} GiB with "
-               f"{cfg.num_experts} experts; the host has "
-               f"{host / 2 ** 30:.1f} GiB available")
-        if host >= 2 * need:
-            return cut, why + ", so all experts are kept"
-        cut = dataclasses.replace(cut, num_experts=LM_CPU_EXPERTS)
-        return cut, (why + f", under twice that: experts cut to "
-                     f"{LM_CPU_EXPERTS} (top-{cut.experts_per_token} "
-                     f"kept), {cut.num_params() * 4 / 2 ** 30:.1f} GiB")
+        n = max(period, LM_CPU_LAYERS)
+        cut = dataclasses.replace(cfg, num_layers=n)
+        experts = (f" with all {cut.num_experts} experts"
+                   if cut.num_experts else "")
+        return cut, (f"{n} of {get_config(arch).num_layers} layers"
+                     f"{' (one period)' if period > LM_CPU_LAYERS else ''}, "
+                     f"fp32: {cut.num_params() * 4 / 2 ** 30:.1f} GiB"
+                     f"{experts}")
 
-    def to_cpu(node):
-        if isinstance(node, dict):
-            return {k: to_cpu(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [to_cpu(v) for v in node]
-        return node.cpu()
-
-    def routing_record(log):
-        """A stand-in for ``moe.moe_fwd`` that appends each call's routing
-        to ``log``: the router's probs, the top-K expert set of every
-        token and the tokens each expert keeps (``moe.dispatch``, the
-        routing ``moe_fwd`` itself runs)."""
-        def fwd(p, cfg, x, dropless=False, n_groups=1):
-            xg = x.reshape(1, -1, x.shape[-1])
-            probs, eidx, _, vals, tok = tmoe.dispatch(p, cfg, xg, dropless)
-            kept = torch.zeros_like(probs, dtype=torch.bool).transpose(1, 2)
-            kept.scatter_(-1, tok, vals > 0)
-            log.append({"probs": probs[0].cpu(),
-                        "experts": eidx[0].sort(-1).values.cpu(),
-                        "kept": kept[0].cpu()})
-            return moe_fwd(p, cfg, x, dropless, n_groups)
-        return fwd
+    def cpu_inputs(cfg):
+        """The check's teacher-forced inputs, on the host: a prompt of
+        LM_CPU_BATCH x LM_CPU_PROMPT, then LM_CPU_STEPS one-position
+        steps.  Tokens from ``rng``; embeddings from a seeded generator;
+        M-RoPE positions LM_CPU_GRID's image grid, then one past it on
+        all three rows, while the cache writes at LM_CPU_PROMPT on."""
+        n, B, S = LM_CPU_STEPS + 1, LM_CPU_BATCH, LM_CPU_PROMPT
+        if cfg.input_mode == "tokens":
+            toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (n, B, S)).astype(np.int32))
+            return [{"tokens": toks[0]}] + [{"tokens": toks[t, :, :1]}
+                                            for t in range(1, n)]
+        embeds = torch.randn((n, B, S, cfg.d_model),
+                             generator=torch.Generator().manual_seed(0))
+        out = [{"embeds": embeds[0]}] + [{"embeds": embeds[t, :, :1]}
+                                         for t in range(1, n)]
+        if cfg.mrope_sections:
+            grid, nxt = mrope_grid(*LM_CPU_GRID)
+            if grid.shape[1] != S:
+                fail(f"LM_CPU_GRID {LM_CPU_GRID} spans {grid.shape[1]} "
+                     f"positions, not the prompt's {S}")
+            out[0]["positions"] = torch.from_numpy(grid)[:, None].expand(
+                3, B, S).contiguous()
+            for t in range(1, n):
+                out[t]["positions"] = torch.full((3, B, 1), nxt + t - 1,
+                                                 dtype=torch.int32)
+        return out
 
     def compare_routing(arch, card, cpu):
         """Each MoE call's top-K expert sets and kept tokens, card against
-        CPU.  A token whose expert set differs must have its K-th and
-        (K+1)-th CPU probabilities within ROUTE_FLIP_GAP."""
+        CPU, by (MoE layer, step).  A token whose expert set differs must
+        have its K-th and (K+1)-th CPU probabilities within
+        ROUTE_FLIP_GAP."""
+        if sorted(card) != sorted(cpu):
+            fail(f"{arch}: MoE calls (layer, step) {sorted(card)} on the "
+                 f"card, {sorted(cpu)} on the CPU")
         flips, kept_diff, gaps = 0, 0, []
-        for a, b in zip(card, cpu):
+        for key, b in sorted(cpu.items()):
+            a = card[key]
             diff = (a["experts"] != b["experts"]).any(-1)
             flips += int(diff.sum())
             top = b["probs"].sort(-1, descending=True).values
@@ -2473,51 +2866,46 @@ def main() -> None:
             gap = top[:, K - 1] - top[:, K]
             gaps += gap[diff].tolist()
             kept_diff += int((a["kept"] != b["kept"]).any(0).sum())
-        print(f"  {arch}: routing over {len(cpu)} MoE calls: {flips} "
-              f"token(s) with another top-K expert set on the card "
-              f"(CPU gaps between the K-th and (K+1)-th probabilities "
-              f"{gaps}); {kept_diff} token(s) kept by another expert set")
-        if len(card) != len(cpu):
-            fail(f"{arch}: {len(card)} MoE calls on the card, {len(cpu)} "
-                 f"on the CPU")
+        n_experts = next(iter(cpu.values()))["probs"].shape[-1]
+        print(f"  {arch}: routing over {len(cpu)} MoE calls of "
+              f"{n_experts} experts: {flips} token(s) with another top-K "
+              f"expert set on the card (CPU gaps between the K-th and "
+              f"(K+1)-th probabilities {gaps}); {kept_diff} token(s) kept "
+              f"by another expert set")
         if any(g > ROUTE_FLIP_GAP for g in gaps):
             fail(f"{arch}: a token routed differently on the card with a "
                  f"probability gap above {ROUTE_FLIP_GAP}: {gaps}")
-        return {"moe_calls": len(cpu), "topk_flips": flips,
-                "flip_gaps": gaps, "kept_differs": kept_diff}
+        return {"moe_calls": len(cpu), "experts": n_experts,
+                "topk_flips": flips, "flip_gaps": gaps,
+                "kept_differs": kept_diff}
 
-    moe_fwd = tmoe.moe_fwd
-    for arch, cfg in lm_cfgs.items():
-        cut, why = cpu_cut(arch, cfg)
-        print(f"  {arch}: card vs CPU cut to {why}")
-        # drawn on the card and copied: the host draws none of them
+    for arch in LM_ARCHS + LM_EMBED_ARCHS:
+        cut, why = cpu_cut(arch, lm_cfgs[arch])
+        # drawn on the card; the CPU side copies it a layer at a time
         params = lm.init_lm(cut, seed=0, device=dev, dtype=torch.float32)
-        toks = rng.integers(0, cfg.vocab_size, (LM_CPU_STEPS + 1,
-                                                LM_CPU_BATCH, LM_CPU_PROMPT))
-        toks = torch.from_numpy(toks.astype(np.int32))
-        outs, routes = [], []
-        for device, p in ((dev, params), (torch.device("cpu"),
-                                          to_cpu(params))):
-            routes.append([])
-            tmoe.moe_fwd = routing_record(routes[-1])
-            t0 = time.perf_counter()
-            cache = lm.init_cache(cut, LM_CPU_BATCH,
-                                  LM_CPU_PROMPT + LM_CPU_STEPS,
-                                  kv_dtype=torch.float32, device=device)
-            logits, cache = lm.prefill(p, cut, {"tokens": toks[0].to(device)},
-                                       cache)
-            seq = [logits.cpu()]
-            for t in range(LM_CPU_STEPS):       # teacher-forced tokens
-                logits, cache = lm.decode_step(
-                    p, cut, {"tokens": toks[t + 1, :, :1].to(device)}, cache,
-                    LM_CPU_PROMPT + t)
-                seq.append(logits.cpu())
-            outs.append((seq, time.perf_counter() - t0))
-        tmoe.moe_fwd = moe_fwd
-        routing = (compare_routing(arch, *routes) if cut.num_experts
-                   else None)
+        inputs = cpu_inputs(cut)
+        max_len = LM_CPU_PROMPT + LM_CPU_STEPS
+        routes = RoutingLog(), RoutingLog()
+        t0 = time.perf_counter()
+        with routes[0]:
+            got = stepwise_logits(params, cut, inputs, max_len, dev,
+                                  routes[0])
+        card_s = time.perf_counter() - t0
+        rss, before = host_rss_gib(), host_peak_gib()
+        t0 = time.perf_counter()
+        with routes[1]:
+            want = layerwise_cpu_logits(params, cut, inputs, max_len,
+                                        routes[1])
+        cpu_s, after = time.perf_counter() - t0, host_peak_gib()
+        # the process's peak only rises: where it did not, this side
+        # stayed at or under the peak of an earlier one
+        print(f"  {arch}: card vs CPU cut to {why}; the CPU side one layer "
+              f"at a time: resident set {rss:.2f} GiB before it, the "
+              f"process's peak {before:.2f} -> {after:.2f} GiB")
+        routing = (compare_routing(arch, routes[0].calls, routes[1].calls)
+                   if cut.num_experts else None)
         errs = []
-        for step, (a, b) in enumerate(zip(outs[0][0], outs[1][0])):
+        for step, (a, b) in enumerate(zip(got, want)):
             err = (a - b).abs().max().item()
             bound = LM_CPU_TOL * b.abs().max().item()
             errs.append({"step": step, "max_abs_err": err, "bound": bound})
@@ -2525,13 +2913,16 @@ def main() -> None:
                 fail(f"{arch} ({cut.num_layers} layers, fp32): card vs CPU "
                      f"{'prefill' if step == 0 else f'decode {step}'} "
                      f"{err:.3e} > {bound:.3e}")
-        report["lm_card_vs_cpu"][arch] = {"logits": errs,
-                                          "routing": routing, "cut": why}
+        report["lm_card_vs_cpu"][arch] = {
+            "logits": errs, "routing": routing, "cut": why,
+            "card_s": card_s, "cpu_s": cpu_s,
+            "host_rss_gib_before": rss,
+            "host_peak_rss_gib": (before, after)}
         print(f"  {arch}: prefill + {LM_CPU_STEPS} decode steps, max|card - "
               f"cpu| {max(e['max_abs_err'] for e in errs):.3e} (bounds "
               f"{min(e['bound'] for e in errs):.3e}..); card "
-              f"{outs[0][1]:.2f} s, cpu {outs[1][1]:.2f} s")
-        del params
+              f"{card_s:.2f} s, cpu {cpu_s:.2f} s")
+        del params, got, want, routes
         gc.collect()
         torch.cuda.empty_cache()
 

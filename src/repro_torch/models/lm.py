@@ -290,19 +290,7 @@ def lm_forward(params, cfg: ModelConfig, batch: Dict[str, Any],
     statistics, ``load_balance_loss`` and ``dropped_frac``, each summed
     over the MoE layers (zero without any).
     """
-    if cfg.input_mode == "tokens":
-        x = L.embed_fwd(params["embed"], batch["tokens"])
-        B, Sq = batch["tokens"].shape
-    else:
-        # match the params' compute dtype (tests may cast params to fp32)
-        pdt = (params["lm_head"]["w"].dtype if "lm_head" in params
-               else L.DEFAULT_DTYPE)
-        x = batch["embeds"].to(pdt)
-        B, Sq = x.shape[0], x.shape[1]
-    x = L.maybe_constrain(x, act_spec)
-    positions = batch.get("positions")
-    if positions is None:
-        positions = L.like(L.make_positions(B, Sq, offset, x.device), x)
+    x, positions = stack_input(params, cfg, batch, offset, act_spec)
     remat = mode == "train" and torch.is_grad_enabled()
 
     aux = {"load_balance_loss": torch.zeros((), device=x.device),
@@ -320,15 +308,42 @@ def lm_forward(params, cfg: ModelConfig, batch: Dict[str, Any],
         for k, v in layer_aux.items():
             aux[k] = aux[k] + v
 
+    return stack_output(params, cfg, x, skip_head), cache, aux
+
+
+def stack_input(params, cfg: ModelConfig, batch: Dict[str, Any], offset=0,
+                act_spec=None):
+    """The layer stack's input of ``batch`` (``lm_forward``'s): the
+    hidden states (B, S, D) and the positions, ``batch["positions"]``
+    where it has them, else ``offset`` onwards.  Reads ``params["embed"]``
+    for tokens, and only the head's dtype for embeddings."""
+    if cfg.input_mode == "tokens":
+        x = L.embed_fwd(params["embed"], batch["tokens"])
+        B, Sq = batch["tokens"].shape
+    else:
+        # match the params' compute dtype (tests may cast params to fp32)
+        pdt = (params["lm_head"]["w"].dtype if "lm_head" in params
+               else L.DEFAULT_DTYPE)
+        x = batch["embeds"].to(pdt)
+        B, Sq = x.shape[0], x.shape[1]
+    x = L.maybe_constrain(x, act_spec)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = L.like(L.make_positions(B, Sq, offset, x.device), x)
+    return x, positions
+
+
+def stack_output(params, cfg: ModelConfig, x, skip_head=False):
+    """The final norm and the head over the stack's output (B, S, D):
+    the logits (B, S, Vpad), or with ``skip_head`` the normed states.
+    Reads ``params["final_norm"]`` and the head (``embed`` when tied)."""
     x = L.rmsnorm_fwd(params["final_norm"], x, cfg.rms_norm_eps,
                       cfg.norm_impl)
     if skip_head:
-        return x, cache, aux
+        return x
     if cfg.tie_embeddings:
-        logits = torch.matmul(*L.promote(x, params["embed"]["embedding"].T))
-    else:
-        logits = L.dense_fwd(params["lm_head"], x)
-    return logits, cache, aux
+        return torch.matmul(*L.promote(x, params["embed"]["embedding"].T))
+    return L.dense_fwd(params["lm_head"], x)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,18 @@ requires_cuda = pytest.mark.skipif(
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def chip_smoke():
+    """The repository's ``chip_smoke.py`` as a module (its helpers; its
+    ``main`` is not run): loaded from the file, beside ``tests/``."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def rand(rng, shape, dtype="float32"):
     """Standard-normal numpy input, rounded to ``dtype`` (so both
     packages see bit-identical bf16 values)."""

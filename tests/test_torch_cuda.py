@@ -25,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import _clear_port_caches, requires_cuda  # noqa: F401
+from _torch_parity import (_clear_port_caches, chip_smoke,  # noqa: F401
+                           requires_cuda)
 from repro_torch.kernels import (_build, conv1d_tap, conv1x1, cuconv_fused,
                                  cuconv_stage1, cuconv_stage2, direct_conv,
                                  flash_attention, int8_gemm, winograd_fused)
@@ -1249,3 +1250,52 @@ def test_mesh_checkpoint_and_compressed_psum_on_card(card_mesh, tmp_path):
     (q, s, shape), want_e = C.quantize_with_feedback(x, e)
     assert torch.equal(got, C.dequantize(q, s, shape))
     assert torch.equal(ne, want_e)
+
+
+@requires_cuda
+@pytest.mark.parametrize("arch,head_dim", [("qwen2-vl-2b", 16),
+                                           ("musicgen-large", 64)])
+def test_embeds_programs_replay_bit_equal_to_eager(arch, head_dim):
+    """chip_smoke's programs for the archs fed embeddings, at smoke width
+    in bf16 (musicgen at its real head dim, 64): two waves of 2 slots x
+    24, then 5 decode steps each, qwen2-vl's prompts an M-RoPE image
+    grid and its decode positions off the cache offset.  Every call's
+    logits, eager first calls and replays, equal an eager
+    ``lm.prefill``/``decode_step`` on a cache of its own bit for bit,
+    and every prefill launches ``flash_attention`` once a layer."""
+    import dataclasses
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.models import lm
+    cs = chip_smoke()
+    cfg = dataclasses.replace(smoke_variant(get_config(arch)),
+                              head_dim=head_dim)
+    params = lm.init_lm(cfg, seed=0)
+    slots, S, steps, max_len = 2, 24, 5, 32
+    progs = cs.embeds_programs(cfg, slots, S, torch.bfloat16, "cuda",
+                               torch.cuda.graph_pool_handle())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def embeds(n):
+        return torch.randn((slots, n, cfg.d_model), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+    grid, nxt = cs.mrope_grid(4, 4, 4)
+    assert grid.shape == (3, S) and nxt == 12
+    pos = (torch.from_numpy(grid).cuda()[:, None].expand(3, slots, S)
+           .contiguous(),) if cfg.mrope_sections else ()
+    caches = [lm.init_cache(cfg, slots, max_len) for _ in range(2)]
+    for _ in range(2):
+        calls = [(0, (embeds(S),) + pos)]
+        for t in range(steps):
+            step_pos = ((torch.full((3, slots, 1), nxt + t, dtype=torch.int32,
+                                    device="cuda"),)
+                        if cfg.mrope_sections else ())
+            calls.append((1, (embeds(1),) + step_pos + (S + t,)))
+        for which, args in calls:
+            got = progs[which](params, caches[0], *args).clone()
+            want = progs[which].fn(params, caches[1], *args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (which, args[-1])
+    assert (progs[0].captures, progs[0].replays) == (1, 1)
+    assert (progs[1].captures, progs[1].replays) == (1, 2 * steps - 1)
+    # two graphed waves (one eager, one replayed) and two eager ones
+    assert _build.LAUNCHES["flash_attention"] == 4 * cfg.num_layers

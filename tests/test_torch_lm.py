@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import _clear_port_caches, np32  # noqa: F401
+from _torch_parity import _clear_port_caches, chip_smoke, np32  # noqa: F401
 from repro.configs import base as jbase
 from repro.models import lm as jlm
 from repro.nn import attention as jattn
@@ -33,6 +33,8 @@ PORTED = ["qwen2-72b", "mistral-large-123b", "qwen2-1.5b", "qwen3-14b",
           "deepseek-v2-lite-16b", "deepseek-moe-16b", "jamba-v0.1-52b"]
 #: the archs with MoE layers (and MLA: deepseek-v2-lite)
 MOE_ARCHS = ["deepseek-v2-lite-16b", "deepseek-moe-16b", "jamba-v0.1-52b"]
+#: qk_norm, the embeddings input with M-RoPE, and MHA at head dim 64
+NEW_ARCHS = ["qwen3-14b", "qwen2-vl-2b", "musicgen-large"]
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
@@ -105,8 +107,8 @@ def test_config_parity(arch):
             jc.uniform_stack, jc.padded_vocab, jc.conv_dim)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b",
-                                  "qwen2-vl-2b"] + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"] + NEW_ARCHS
+                         + MOE_ARCHS)
 def test_params_from_numpy_round_trip(arch):
     """Unstacked per layer, bf16 leaves exact, fp32 leaves fp32."""
     jcfg, tcfg = both_configs(arch)
@@ -134,8 +136,10 @@ def test_params_from_numpy_round_trip(arch):
                 node = node[k]
             np.testing.assert_array_equal(np32(node),
                                           np.asarray(leaf, np.float32))
-        seen.add(keys[-1])
+        seen.update(keys[-2:])
     assert "scale" in seen
+    if tcfg.qk_norm:            # the per-head norms, fp32 like every scale
+        assert {"q_norm", "k_norm"} <= seen
     if tcfg.num_experts:        # the router's "w" arrived fp32
         moe = [layer["moe"] for seg in tp["segments"] for rep in seg
                for layer in rep.values() if "moe" in layer]
@@ -143,7 +147,8 @@ def test_params_from_numpy_round_trip(arch):
                            for m in moe)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"] + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"] + NEW_ARCHS
+                         + MOE_ARCHS)
 def test_cache_shapes_match_reference(arch):
     jcfg, tcfg = both_configs(arch)
     jshapes = jlm.cache_shapes(jcfg, 3, 20)
@@ -177,7 +182,8 @@ def test_lm_forward_matches_reference(arch, rng):
     assert sum(_build.LAUNCHES.values()) == 0
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"] + MOE_ARCHS)
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"] + NEW_ARCHS
+                         + MOE_ARCHS)
 def test_prefill_and_decode_match_reference(arch, rng):
     """tests/test_models.py's construction through both packages: the
     prefill logits and 4 decode steps (fp32 cache) against the
@@ -287,6 +293,152 @@ def test_rope_freqs_match_reference(head_dim, theta):
     want = np.asarray(jlayers.rope_freqs(head_dim, theta), np.float32)
     np.testing.assert_array_equal(
         tlayers.rope_freqs(head_dim, theta).numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# M-RoPE over an image grid, whose t, h and w rows differ
+
+def _grid_positions(B, text, side, after):
+    """chip_smoke's M-RoPE grid for B rows, (3, B, S), and the position
+    the next token takes."""
+    grid, nxt = chip_smoke().mrope_grid(text, side, after)
+    return np.broadcast_to(grid[:, None], (3, B, grid.shape[1])).copy(), nxt
+
+
+def test_mrope_grid_is_qwen2_vls():
+    grid, nxt = chip_smoke().mrope_grid(2, 2, 3)
+    np.testing.assert_array_equal(grid, [[0, 1, 2, 2, 2, 2, 4, 5, 6],
+                                         [0, 1, 2, 2, 3, 3, 4, 5, 6],
+                                         [0, 1, 2, 3, 2, 3, 4, 5, 6]])
+    assert nxt == 7
+
+
+def test_apply_rope_on_an_image_grid_matches_reference(rng):
+    """sections (4, 2, 2) over rows that differ: text, a 3x3 image, text;
+    the second row's positions shifted, as another prompt's would be."""
+    from repro.nn import layers as jlayers
+    from repro_torch.nn import layers as tlayers
+    pos, _ = _grid_positions(2, 3, 3, 4)
+    pos[:, 1] += 5
+    assert not (pos[0] == pos[1]).all() and not (pos[1] == pos[2]).all()
+    x = rng.normal(size=(2, pos.shape[2], 3, 16)).astype(np.float32)
+    want = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                              sections=(4, 2, 2))
+    got = tlayers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                             sections=(4, 2, 2))
+    np.testing.assert_allclose(np32(got), np32(want), rtol=2e-5, atol=2e-5)
+
+
+def test_mrope_sections_shift_independently(rng):
+    """tests/test_models.py's check on the port: moving only the h-row
+    positions changes the output only in the h section's rotary slots."""
+    from repro_torch.nn import layers as tlayers
+    B, S, H, D = 1, 6, 2, 16
+    x = torch.from_numpy(rng.normal(size=(B, S, H, D)).astype(np.float32))
+    base = torch.arange(S, dtype=torch.int32).expand(3, B, S).clone()
+    shifted = base.clone()
+    shifted[1] += 5
+    y0 = tlayers.apply_rope(x, base, sections=(4, 2, 2))
+    y1 = tlayers.apply_rope(x, shifted, sections=(4, 2, 2))
+    d = (y0 - y1).abs().sum(dim=(0, 1, 2)).numpy()
+    half = D // 2
+    assert d[:4].sum() == 0 and d[half:half + 4].sum() == 0
+    assert d[4:6].sum() > 0 and d[half + 4:half + 6].sum() > 0
+    assert d[6:half].sum() == 0 and d[half + 6:].sum() == 0
+
+
+def test_qwen2_vl_grid_prefill_and_decode_match_reference(rng):
+    """qwen2-vl-2b at smoke size: a prefill over text, a 3x3 image and
+    text (12 positions), then 4 decode steps at M-RoPE positions 8, 9,
+    ... while the cache writes at 12, 13, ...: the logits and the cache
+    against the reference's ``prefill``/``decode_step``."""
+    jcfg, tcfg = both_configs("qwen2-vl-2b")
+    jp = fp32_params(jcfg, 1)
+    tp = lm.params_from_numpy(tree_numpy(jp), tcfg, device="cpu",
+                              dtype=torch.float32)
+    B, MAX = 2, 20
+    pos, nxt = _grid_positions(B, 2, 3, 1)
+    S = pos.shape[2]
+    assert S == 12 and nxt == 6
+    embeds = rng.normal(size=(B, S + 4, jcfg.d_model)).astype(np.float32)
+    jcache = jlm.init_cache(jcfg, B, MAX, kv_dtype=jnp.float32)
+    tcache = lm.init_cache(tcfg, B, MAX, kv_dtype=torch.float32,
+                           device="cpu")
+    first = {"embeds": embeds[:, :S], "positions": pos}
+    jl, jcache = jlm.prefill(jp, jcfg, to_j(first), jcache)
+    tl, tcache = lm.prefill(tp, tcfg, to_t(first), tcache)
+    np.testing.assert_allclose(np32(tl), np32(jl), **TOL)
+    for t in range(4):
+        step = {"embeds": embeds[:, S + t:S + t + 1],
+                "positions": np.full((3, B, 1), nxt + t, np.int32)}
+        jl, jcache = jlm.decode_step(jp, jcfg, to_j(step), jcache, S + t)
+        tl, tcache = lm.decode_step(tp, tcfg, to_t(step), tcache, S + t)
+        np.testing.assert_allclose(np32(tl), np32(jl), **TOL)
+    for jseg, tseg in zip(jcache, tcache):
+        for pos_name, jpos in jseg.items():
+            for i, j in enumerate(jax.tree.leaves(jpos)):
+                stacked = np.stack([np32(jax.tree.leaves(rep[pos_name])[i])
+                                    for rep in tseg])
+                np.testing.assert_allclose(stacked, np32(j), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke's CPU side of the card-vs-CPU check, one layer at a time
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "qwen2-vl-2b",
+                                  "deepseek-v2-lite-16b"])
+def test_layerwise_cpu_logits_equal_prefill_and_decode(arch):
+    """``layerwise_cpu_logits`` (each layer's params copied in, run over
+    the prefill and every teacher-forced step, dropped) gives the bits
+    of ``lm.prefill`` plus ``lm.decode_step`` (``stepwise_logits``) on
+    the CPU, and the same routing record under the same (MoE layer,
+    step) keys: jamba at smoke width, one period of 8 layers with all
+    its experts; qwen2-vl on an image grid with decode positions off the
+    cache offset; deepseek-v2-lite's dense first layer, MLA and shared
+    experts."""
+    cs = chip_smoke()
+    cfg = tbase.smoke_variant(tbase.get_config(arch))
+    period = max(len(kinds) for _, kinds in lm.stack_plan(cfg))
+    cfg = dataclasses.replace(cfg, num_layers=max(4, period))
+    params = lm.init_lm(cfg, seed=0, device="cpu", dtype=torch.float32)
+    B, steps = 2, 4
+    gen = torch.Generator().manual_seed(0)
+    if cfg.input_mode == "tokens":
+        S = 12
+        toks = torch.randint(0, cfg.vocab_size, (steps + 1, B, S),
+                             generator=gen, dtype=torch.int32)
+        inputs = [{"tokens": toks[0]}] + [{"tokens": toks[t, :, :1]}
+                                          for t in range(1, steps + 1)]
+    else:
+        pos, nxt = _grid_positions(B, 2, 3, 1)
+        S = pos.shape[2]
+        e = torch.randn((steps + 1, B, S, cfg.d_model), generator=gen)
+        inputs = [{"embeds": e[0], "positions": torch.from_numpy(pos)}] + [
+            {"embeds": e[t, :, :1],
+             "positions": torch.full((3, B, 1), nxt + t - 1,
+                                     dtype=torch.int32)}
+            for t in range(1, steps + 1)]
+    routes = cs.RoutingLog(), cs.RoutingLog()
+    with routes[0]:
+        want = cs.stepwise_logits(params, cfg, inputs, S + steps,
+                                  torch.device("cpu"), routes[0])
+    with routes[1]:
+        got = cs.layerwise_cpu_logits(params, cfg, inputs, S + steps,
+                                      routes[1])
+    assert len(got) == len(want) == steps + 1
+    assert got[0].shape == (B, S, cfg.padded_vocab)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    n_moe = sum(mlp == "moe" for _, mlp in cfg.layer_kinds())
+    assert sorted(routes[1].calls) == sorted(routes[0].calls) == sorted(
+        (k, t) for k in range(n_moe) for t in range(steps + 1))
+    for key, rec in routes[0].calls.items():
+        for field, v in rec.items():
+            assert torch.equal(routes[1].calls[key][field], v), (key, field)
+    if arch == "jamba-v0.1-52b":
+        assert n_moe == 4 and next(iter(routes[0].calls.values()))[
+            "probs"].shape[-1] == cfg.num_experts == 4
+    assert sum(_build.LAUNCHES.values()) == 0
 
 
 # ---------------------------------------------------------------------------
