@@ -54,7 +54,7 @@ calls:
 - ``qwen2-1.5b``, ``qwen3-14b``, ``mamba2-1.3b``,
   ``deepseek-v2-lite-16b`` and ``deepseek-moe-16b`` served by the LM
   ``ServeEngine`` at full width and depth in bf16 (seed-0 params made on
-  the card), ``jamba-v0.1-52b`` at full width and 16 of 32 layers, one
+  the card), ``jamba-v0.1-52b`` at full width and 8 of 32 layers, one
   model on the card at a time: 8 requests on 4 slots, prompts of 512,
   16 new tokens, where every GQA prefill attention runs
   ``flash_attention`` (MLA attends through the plain versions, as the
@@ -93,6 +93,26 @@ calls:
   (``flash_attention`` launched once a layer a wave, tokens equal to an
   engine's on the trainer's in-memory params); and ``python -m
   repro_torch.launch.train --smoke`` exiting 0 on the card;
+- training the archs fed embeddings (``embeds_training_phase``):
+  ``musicgen-large`` at full width and depth in bf16 through
+  ``make_train_step`` (5 steps of one seeded 8x512 batch of embeddings,
+  ``embeds_train_batch``, its config's grad_accum 4, full remat; the
+  training phase's measurements), where no hand-written kernel may
+  launch, the loss must fall and the peak stay under the card's memory;
+  ``musicgen-large`` and ``qwen2-vl-2b`` cut to 2 layers at full width in
+  fp32, 3 steps at grad_accum 2 on the card and on the CPU (rows of 512
+  positions, qwen2-vl's each the M-RoPE image grid ``LM_GRID``), with the
+  training phase's bounds;
+- the examples' twins (``examples_phase``): ``examples_torch/``'s
+  quickstart, cnn_inference, serve_lm (qwen2-1.5b and mamba2-1.3b) and
+  train_lm (its 100M config, 120 steps) run in this process through
+  ``runpy``, under their own plan store; quickstart's executors within
+  3e-4 of ``F.conv2d`` with the kernels of the executors it ran
+  launched and its tuned replay ``measured``, cnn_inference's logits
+  within 3e-4, no warm plan() resolution and bf16 within 0.05,
+  serve_lm's requests answered with ``flash_attention`` and
+  ``conv1d_tap`` launched as planned, train_lm's checkpoint at step 100,
+  its loss falling and no kernel of ours launched;
 - training on a mesh (``mesh_training_phase``): a world-size-1 NCCL
   group on a ``FileStore`` and ``make_debug_mesh()``, (1, 1) ("data",
   "model"); one fp32 step of the 2-layer cut on the mesh against the
@@ -293,8 +313,10 @@ LM_EMBED_ARCHS = ("qwen2-vl-2b", "musicgen-large")
 # each prompt of LM_PROMPT: text, a side x side image, text (mrope_grid)
 LM_GRID = (16, 16, 240)
 # depth cuts of the served archs: jamba's 32 layers (95.9 GiB in bf16)
-# exceed the card, so it serves two repeats of its 8-layer period
-LM_SERVED_LAYERS = {"jamba-v0.1-52b": 16}
+# exceed the card, so it serves one repeat of its 8-layer period (two fit
+# the card, but not the script's time beside the training of the
+# embeddings archs and the examples)
+LM_SERVED_LAYERS = {"jamba-v0.1-52b": 8}
 LM_REQUESTS, LM_SLOTS, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 4, 512, 16, 1024
 # card vs CPU in fp32: depth cut for the CPU's sake, fp32 cache; an arch
 # whose layer period is longer than LM_CPU_LAYERS (stack_plan refuses a
@@ -344,6 +366,24 @@ TRAIN_UPDATE_TOL = 1e-2              # each leaf's p_3 - p_0, relative L2
 # the trainer, checkpoints, resume and serving: the 2-layer cut in bf16
 TRAIN_RESUME_TOL = 1e-3              # resumed step-3 loss, relative
 TRAIN_SERVE_REQUESTS, TRAIN_SERVE_PROMPT, TRAIN_SERVE_NEW = 4, 128, 8
+# the embeddings archs' training (embeds_training_phase): musicgen-large at
+# full width and depth in bf16, TRAIN_STEPS steps of TRAIN_BATCH x
+# TRAIN_SEQ, its config's grad_accum, full remat.  Random embeddings and
+# labels carry nothing from one batch to the next (over fresh batches the
+# loss does not fall), so every step takes the batch of EMBED_TRAIN_SEED
+# again and the loss must fall on it
+EMBED_TRAIN_ARCH, EMBED_TRAIN_SEED = "musicgen-large", 0
+# card vs CPU: TRAIN_CUT_LAYERS layers at full width in fp32, as above,
+# over rows of LM_PROMPT positions (qwen2-vl's: the LM_GRID image grid)
+EMBED_TRAIN_CPU_ARCHS = ("musicgen-large", "qwen2-vl-2b")
+# the examples' twins (examples_phase): each float executor and the
+# planned logits against F.conv2d (tests/test_torch_cuda.py's executor
+# bound, x max(1, max|library|)); bf16 logits against fp32 (the
+# reference example's own bound); train_lm's steps (a checkpoint at 100)
+EXAMPLES_TOL, EXAMPLES_BF16_TOL, EXAMPLES_TRAIN_STEPS = 3e-4, 0.05, 120
+# serve_lm's archs (smoke_variant) and its prefill wave: 4 slots x 16
+# positions; lm_cases holds their kernel calls against the plain versions
+EXAMPLES_LM_ARCHS, EXAMPLES_LM_WAVE = ("qwen2-1.5b", "mamba2-1.3b"), (4, 16)
 # training on a mesh: a world-size-1 NCCL group, make_debug_mesh() (1, 1)
 MESH_STEPS = 3                       # full size, bf16; medians of 2-3
 MESH_TOL = 1e-5                      # loss and grad_norm, relative
@@ -355,7 +395,7 @@ DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("deepseek-moe-16b",
                                              "decode_32k"),
                 ("mamba2-1.3b", "long_500k"))
 
-_PHASE = {"name": None, "t0": 0.0, "times": {}}
+_PHASE = {"name": None, "t0": 0.0, "lap": 0.0, "times": {}}
 
 
 def fail(msg: str) -> None:
@@ -371,9 +411,17 @@ def phase(name) -> None:
         secs = now - _PHASE["t0"]
         _PHASE["times"][_PHASE["name"]] = secs
         print(f"   ({_PHASE['name']}: {secs:.1f} s)", flush=True)
-    _PHASE["name"], _PHASE["t0"] = name, now
+    _PHASE["name"], _PHASE["t0"], _PHASE["lap"] = name, now, now
     if name is not None:
         print(f"== {name}", flush=True)
+
+
+def lap(label) -> None:
+    """Print the wall seconds of the part of a phase that ends now,
+    ``label``, since the phase opened or the last lap."""
+    now = time.perf_counter()
+    print(f"   [{label}: {now - _PHASE['lap']:.1f} s]", flush=True)
+    _PHASE["lap"] = now
 
 
 def traced_launches(prof) -> dict:
@@ -627,56 +675,45 @@ def embeds_programs(cfg, slots, prompt, dtype, device, pool=None):
                 (), dtype=torch.int64, device=device)], pool))
 
 
-def training_phase(dev, report, launches, profiled, get_config) -> None:
-    """The training path on the card: qwen2-1.5b at full size through
-    ``make_train_step`` (no hand-written kernel may run); the 2-layer cut
-    in fp32 against the CPU; the ``Trainer`` with async checkpoints,
-    resumed by a second trainer; the step-3 checkpoint served by
-    ``ServeEngine`` (``flash_attention`` launched, the tokens those of the
-    trainer's in-memory params); and ``python -m
-    repro_torch.launch.train`` exiting 0."""
-    import shutil
+def _clear(dev) -> None:
+    """Drop what the collector can and empty the card's cache."""
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def train_full_size(arch, cfg, batch_at, dev, profiled):
+    """``arch`` (``cfg``) at full width and depth in bf16 through
+    ``make_train_step(cfg, donate=True)``: TRAIN_STEPS timed steps on
+    ``batch_at(step)``, then one step under the profiler (the card
+    alone).  Prints the measurements and returns them with the state
+    (left on the card): step ms and their median over steps
+    TRAIN_TIMED_FROM + 1 on, tokens/s, 6*N*tokens over the step at the
+    bf16 peak, peak GiB allocated, and the traced step's kernels, device
+    busy ms, idle share and device ms by group.  Fails on a non-finite
+    loss or grad norm, where a hand-written kernel launched (counters or
+    trace), or where the peak reached the card's memory."""
     import numpy as np
     import torch
-    from repro_torch.data import SyntheticLMData
     from repro_torch.kernels import _build
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import lm
     from repro_torch.optim import adamw_init
-    from repro_torch.serve.engine import Request, ServeEngine
-    from repro_torch.train import checkpoint as ckpt
-    from repro_torch.train.trainer import TrainConfig, Trainer
-    from repro_torch.tree import leaves, map_tree
-
-    out = report["train"] = {}
-    cpu = torch.device("cpu")
-    base = get_config(TRAIN_ARCH)
-
-    def clear():
-        gc.collect()
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-
-    def batch_on(data, step, device):
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                for k, v in data.batch_at(step).items()}
-
-    # -- full width and depth, bf16, through make_train_step -------------
-    cfg = dataclasses.replace(base, remat="full")
-    clear()
+    from repro_torch.tree import leaves
     torch.cuda.reset_peak_memory_stats()
     params = lm.init_lm(cfg, seed=0, device=dev)
     state = {"params": params, "opt": adamw_init(params),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
     del params
     state_bytes = sum(t.numel() * t.element_size() for t in leaves(state))
-    data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
     step_fn = make_train_step(cfg, donate=True)
     _build.reset_launches()
     ms, losses, norms = [], [], []
+    batch = None
     for s_ in range(TRAIN_STEPS):
-        batch = batch_on(data, s_, dev)
+        batch = batch_at(s_)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step_fn(state, batch)
@@ -686,10 +723,11 @@ def training_phase(dev, report, launches, profiled, get_config) -> None:
         norms.append(float(m["grad_norm"]))
     counts = {k: v for k, v in _build.LAUNCHES.items() if v}
     peak = torch.cuda.max_memory_allocated()
-    batch = batch_on(data, TRAIN_STEPS, dev)
+    batch = batch_at(TRAIN_STEPS)
     with profiled(host=False) as prof:
         state, m = step_fn(state, batch)
         losses.append(float(m["loss"]))
+    del batch, m
     traced = traced_launches(prof)
     records = device_records(prof)
     del prof
@@ -707,37 +745,141 @@ def training_phase(dev, report, launches, profiled, get_config) -> None:
     mfu = 6 * n * tokens / (step_ms / 1e3) / BF16_FLOP_PER_S
     busy = busy_ms(records)
     span = ((records[-1][2] - records[0][1]) / 1e3) if records else 0.0
-    out["full"] = {"arch": TRAIN_ARCH, "params": n,
-                   "state_bytes": state_bytes, "batch": TRAIN_BATCH,
-                   "seq": TRAIN_SEQ, "grad_accum": cfg.grad_accum,
-                   "remat": cfg.remat, "step_ms": ms,
-                   "step_ms_median": step_ms,
-                   "tokens_per_s": tokens / step_ms * 1e3,
-                   "model_flop_share_6N": mfu,
-                   "peak_gib": peak / 2 ** 30, "losses": losses,
-                   "grad_norms": norms, "launches": counts,
-                   "traced_kernels": traced,
-                   "traced_step_device_ms": busy,
-                   "traced_step_device_span_ms": span,
-                   "idle_share_untraced": 1 - busy / step_ms,
-                   "traced_step_kernels": sum(1 for r in records
-                                              if is_kernel(r[0])),
-                   "traced_step_device_ms_by_group": groups}
-    print(f"  {TRAIN_ARCH} (full size, bf16, batch {TRAIN_BATCH}x{TRAIN_SEQ},"
-          f" grad_accum {cfg.grad_accum}, remat {cfg.remat}): "
-          f"{n / 1e9:.3f} B params, state {state_bytes / 2 ** 30:.2f} GiB; "
-          f"step ms {[round(t, 1) for t in ms]}, median of steps "
+    card_bytes = (torch.cuda.get_device_properties(dev).total_memory
+                  if dev.type == "cuda" else float("inf"))
+    row = {"arch": arch, "params": n, "layers": cfg.num_layers,
+           "state_bytes": state_bytes, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "grad_accum": cfg.grad_accum,
+           "remat": cfg.remat, "step_ms": ms, "step_ms_median": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "model_flop_share_6N": mfu, "peak_gib": peak / 2 ** 30,
+           "card_gib": card_bytes / 2 ** 30, "losses": losses,
+           "grad_norms": norms, "launches": counts,
+           "traced_kernels": traced, "traced_step_device_ms": busy,
+           "traced_step_device_span_ms": span,
+           "idle_share_untraced": 1 - busy / step_ms,
+           "traced_step_kernels": sum(1 for r in records
+                                      if is_kernel(r[0])),
+           "traced_step_device_ms_by_group": groups}
+    print(f"  {arch} (full size, bf16, {cfg.num_layers} layers, batch "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ}, grad_accum {cfg.grad_accum}, remat "
+          f"{cfg.remat}): {n / 1e9:.3f} B params, state "
+          f"{state_bytes / 2 ** 30:.2f} GiB; step ms "
+          f"{[round(t, 1) for t in ms]}, median of steps "
           f"{TRAIN_TIMED_FROM + 1}-{TRAIN_STEPS} {step_ms:.2f} ms, "
           f"{tokens / step_ms * 1e3:.0f} tokens/s, 6*N*tokens over the step "
           f"at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s: {mfu:.3f}; peak "
-          f"{peak / 2 ** 30:.2f} GiB allocated")
-    print(f"  {TRAIN_ARCH} losses {[round(x, 4) for x in losses]}, grad "
+          f"{peak / 2 ** 30:.2f} GiB allocated of the card's "
+          f"{card_bytes / 2 ** 30:.2f}")
+    print(f"  {arch} losses {[round(x, 4) for x in losses]}, grad "
           f"norms {[round(x, 3) for x in norms]}; launch counters {counts}; "
           f"kernels of ours in a traced step {traced}; the traced step: "
-          f"{out['full']['traced_step_kernels']} kernels, device busy "
+          f"{row['traced_step_kernels']} kernels, device busy "
           f"{busy:.2f} ms of a {span:.2f} ms span; idle share against the "
           f"untraced median step {1 - busy / step_ms:.3f}; device ms by "
           f"group {({k: round(v, 2) for k, v in groups.items()})}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        fail(f"{arch} training: non-finite loss or grad norm")
+    if counts or traced:
+        fail(f"{arch} training launched hand-written kernels: "
+             f"counters {counts}, trace {traced}")
+    if not peak < card_bytes:
+        fail(f"{arch} training: peak {peak / 2 ** 30:.2f} GiB reached the "
+             f"card's {card_bytes / 2 ** 30:.2f} GiB")
+    return row, state
+
+
+def train_card_vs_cpu(arch, cut, batch_at, shape, dev) -> dict:
+    """The cut ``cut`` in fp32 (TF32 off) from the same params:
+    TRAIN_CPU_STEPS steps at peak lr TRAIN_CPU_LR on the card and on the
+    CPU over ``batch_at(step, device)`` (batches of ``shape``).  Fails
+    unless every step's loss and grad_norm agree within TRAIN_CPU_TOL
+    relative and each leaf's update within TRAIN_UPDATE_TOL relative in
+    L2; returns the comparison."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves, map_tree
+    cpu = torch.device("cpu")
+    p0 = lm.init_lm(cut, seed=0, device=dev, dtype=torch.float32)
+    p0 = map_tree(lambda t: t.cpu(), p0)            # the same numbers
+    step_fn = make_train_step(cut, peak_lr=TRAIN_CPU_LR, donate=True)
+    runs = {}
+    for name, device in (("card", dev), ("cpu", cpu)):
+        p = map_tree(lambda t: t.to(device, copy=True), p0)
+        st = {"params": p, "opt": adamw_init(p),
+              "step": torch.zeros((), dtype=torch.int32, device=device)}
+        t0 = time.perf_counter()
+        rows = []
+        for s_ in range(TRAIN_CPU_STEPS):
+            st, m = step_fn(st, batch_at(s_, device))
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[name] = (rows, [t.cpu() for t in leaves(st["params"])],
+                      time.perf_counter() - t0)
+        del st, p
+        _clear(dev)
+    base_leaves = leaves(p0)
+    worst_metric = max(abs(a - b) / abs(b) for ra, rb in zip(
+        runs["card"][0], runs["cpu"][0]) for a, b in zip(ra, rb))
+    upd = []
+    for a, b, z in zip(runs["card"][1], runs["cpu"][1], base_leaves):
+        da, db = a - z, b - z
+        upd.append(float((da - db).norm() / max(float(db.norm()), 1e-30)))
+    print(f"  {arch} card vs CPU ({cut.num_layers} layers, fp32, batch "
+          f"{shape[0]}x{shape[1]}, grad_accum {cut.grad_accum}, "
+          f"{TRAIN_CPU_STEPS} steps): (loss, grad_norm) card "
+          f"{runs['card'][0]}, cpu {runs['cpu'][0]}; max relative "
+          f"difference {worst_metric:.2e} (bound {TRAIN_CPU_TOL}); max "
+          f"relative L2 of a leaf's update difference {max(upd):.2e} over "
+          f"{len(upd)} leaves (bound {TRAIN_UPDATE_TOL}); card "
+          f"{runs['card'][2]:.1f} s, cpu {runs['cpu'][2]:.1f} s")
+    if not worst_metric <= TRAIN_CPU_TOL:
+        fail(f"{arch} training card vs CPU: loss/grad_norm differ by "
+             f"{worst_metric:.2e} relative")
+    if not max(upd) <= TRAIN_UPDATE_TOL:
+        fail(f"{arch} training card vs CPU: a leaf's update differs by "
+             f"{max(upd):.2e} relative in L2")
+    return {"layers": cut.num_layers, "grad_accum": cut.grad_accum,
+            "batch": list(shape), "card": runs["card"][0],
+            "cpu": runs["cpu"][0], "max_rel_loss_or_norm": worst_metric,
+            "max_rel_update_l2": max(upd), "card_s": runs["card"][2],
+            "cpu_s": runs["cpu"][2]}
+
+
+def training_phase(dev, report, launches, profiled, get_config) -> None:
+    """The training path on the card: qwen2-1.5b at full size through
+    ``make_train_step`` (no hand-written kernel may run); the 2-layer cut
+    in fp32 against the CPU; the ``Trainer`` with async checkpoints,
+    resumed by a second trainer; the step-3 checkpoint served by
+    ``ServeEngine`` (``flash_attention`` launched, the tokens those of the
+    trainer's in-memory params); and ``python -m
+    repro_torch.launch.train`` exiting 0."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.tree import leaves
+
+    out = report["train"] = {}
+    base = get_config(TRAIN_ARCH)
+
+    def batch_on(data, step, device):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in data.batch_at(step).items()}
+
+    # -- full width and depth, bf16, through make_train_step -------------
+    cfg = dataclasses.replace(base, remat="full")
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    _clear(dev)
+    out["full"], state = train_full_size(
+        TRAIN_ARCH, cfg, lambda s_: batch_on(data, s_, dev), dev, profiled)
     # where the step's time goes: the same 4,096 tokens in one micro-batch
     # (a quarter of the launches), timed, not gated
     one = make_train_step(dataclasses.replace(cfg, grad_accum=1),
@@ -756,66 +898,20 @@ def training_phase(dev, report, launches, profiled, get_config) -> None:
     print(f"  the same batch in one micro-batch (grad_accum 1): step ms "
           f"{[round(t, 1) for t in one_ms]} (the first warms), peak "
           f"{out['full']['grad_accum_1_peak_gib']:.2f} GiB")
-    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
-        fail(f"{TRAIN_ARCH} training: non-finite loss or grad norm")
-    if counts or traced:
-        fail(f"{TRAIN_ARCH} training launched hand-written kernels: "
-             f"counters {counts}, trace {traced}")
     del state, m, batch
-    clear()
+    _clear(dev)
 
+    lap(f"{TRAIN_ARCH} at full size")
     # -- card vs CPU: 2 layers at full width, fp32 ------------------------
     cut = dataclasses.replace(base, num_layers=TRAIN_CUT_LAYERS,
                               grad_accum=TRAIN_CPU_ACCUM)
-    p0 = lm.init_lm(cut, seed=0, device=dev, dtype=torch.float32)
-    p0 = map_tree(lambda t: t.cpu(), p0)            # the same numbers
     data = SyntheticLMData(cut.vocab_size, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ)
-    step_fn = make_train_step(cut, peak_lr=TRAIN_CPU_LR, donate=True)
-    runs = {}
-    for name, device in (("card", dev), ("cpu", cpu)):
-        p = map_tree(lambda t: t.to(device, copy=True), p0)
-        st = {"params": p, "opt": adamw_init(p),
-              "step": torch.zeros((), dtype=torch.int32, device=device)}
-        t0 = time.perf_counter()
-        rows = []
-        for s_ in range(TRAIN_CPU_STEPS):
-            st, m = step_fn(st, batch_on(data, s_, device))
-            rows.append((float(m["loss"]), float(m["grad_norm"])))
-        runs[name] = (rows, [t.cpu() for t in leaves(st["params"])],
-                      time.perf_counter() - t0)
-        del st, p
-        clear()
-    base_leaves = leaves(p0)
-    worst_metric = max(abs(a - b) / abs(b) for ra, rb in zip(
-        runs["card"][0], runs["cpu"][0]) for a, b in zip(ra, rb))
-    upd = []
-    for a, b, z in zip(runs["card"][1], runs["cpu"][1], base_leaves):
-        da, db = a - z, b - z
-        upd.append(float((da - db).norm() / max(float(db.norm()), 1e-30)))
-    out["card_vs_cpu"] = {"layers": TRAIN_CUT_LAYERS,
-                          "grad_accum": TRAIN_CPU_ACCUM,
-                          "card": runs["card"][0], "cpu": runs["cpu"][0],
-                          "max_rel_loss_or_norm": worst_metric,
-                          "max_rel_update_l2": max(upd),
-                          "card_s": runs["card"][2],
-                          "cpu_s": runs["cpu"][2]}
-    print(f"  card vs CPU ({TRAIN_CUT_LAYERS} layers, fp32, batch "
-          f"{TRAIN_CPU_BATCH}x{TRAIN_CPU_SEQ}, grad_accum {TRAIN_CPU_ACCUM},"
-          f" {TRAIN_CPU_STEPS} steps): (loss, grad_norm) card "
-          f"{runs['card'][0]}, cpu {runs['cpu'][0]}; max relative "
-          f"difference {worst_metric:.2e} (bound {TRAIN_CPU_TOL}); max "
-          f"relative L2 of a leaf's update difference {max(upd):.2e} over "
-          f"{len(upd)} leaves (bound {TRAIN_UPDATE_TOL}); card "
-          f"{runs['card'][2]:.1f} s, cpu {runs['cpu'][2]:.1f} s")
-    if not worst_metric <= TRAIN_CPU_TOL:
-        fail(f"training card vs CPU: loss/grad_norm differ by "
-             f"{worst_metric:.2e} relative")
-    if not max(upd) <= TRAIN_UPDATE_TOL:
-        fail(f"training card vs CPU: a leaf's update differs by "
-             f"{max(upd):.2e} relative in L2")
-    del runs, p0, base_leaves
-    clear()
+    out["card_vs_cpu"] = train_card_vs_cpu(
+        TRAIN_ARCH, cut, lambda s_, device: batch_on(data, s_, device),
+        (TRAIN_CPU_BATCH, TRAIN_CPU_SEQ), dev)
+    _clear(dev)
 
+    lap("card vs CPU")
     # -- the trainer: async checkpoints, resume, serving the checkpoint ---
     cut = dataclasses.replace(base, num_layers=TRAIN_CUT_LAYERS)
     root = ROOT / "build" / "chip_smoke_ckpt"
@@ -856,7 +952,7 @@ def training_phase(dev, report, launches, profiled, get_config) -> None:
         fail(f"resumed step 3: loss {resumed} vs {whole}, checkpoints "
              f"{ckpt.latest_steps(run_dir)}")
     del first
-    clear()
+    _clear(dev)
     tree = ckpt.load_numpy(run_dir, 3, prefix="params")
     served = lm.params_from_numpy(tree["params"], cut, device=dev)
     del tree
@@ -898,8 +994,9 @@ def training_phase(dev, report, launches, profiled, get_config) -> None:
                       "uninterrupted_loss": whole, "relative": rel,
                       "served_launches": counts, "served_tokens_equal": True}
     del second, served
-    clear()
+    _clear(dev)
 
+    lap("the trainer, checkpoints, the checkpoint served")
     # -- the launcher on the card (no --device) ----------------------------
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
            TRAIN_ARCH, "--smoke", "--steps", "6", "--ckpt-every", "3",
@@ -920,6 +1017,228 @@ def training_phase(dev, report, launches, profiled, get_config) -> None:
     out["launcher"] = {"exit": res.returncode, "s": cli_s,
                        "checkpoints": steps_written}
     shutil.rmtree(root, ignore_errors=True)
+
+
+def embeds_train_batch(cfg, rows, seq, seed, grid=LM_GRID) -> dict:
+    """A training batch of an arch fed embeddings, made with numpy from
+    ``seed``: ``embeds`` (rows, seq, d_model) standard normal float32 (the
+    caller casts them), ``labels`` (rows, seq) int32 below the vocab, and
+    for an M-RoPE arch ``positions`` (3, rows, seq) int32, every row the
+    image grid ``mrope_grid(*grid)``, which must span ``seq``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {"embeds": rng.standard_normal((rows, seq, cfg.d_model),
+                                         dtype=np.float32),
+           "labels": rng.integers(0, cfg.vocab_size, (rows, seq)).astype(
+               np.int32)}
+    if cfg.mrope_sections:
+        pos, _ = mrope_grid(*grid)
+        if pos.shape[1] != seq:
+            raise ValueError(f"the grid {grid} spans {pos.shape[1]} "
+                             f"positions, not the batch's {seq}")
+        out["positions"] = np.ascontiguousarray(
+            np.broadcast_to(pos[:, None], (3, rows, seq)))
+    return out
+
+
+def embeds_training_phase(dev, report, profiled, get_config) -> None:
+    """Training of the archs fed embeddings (both packages' train steps
+    take precomputed embeddings and (3, B, S) M-RoPE positions; neither
+    ``Trainer`` does): ``EMBED_TRAIN_ARCH`` at full width and depth in
+    bf16 through ``make_train_step`` (``train_full_size``: no
+    hand-written kernel may run, the peak under the card's memory) on
+    one seeded batch of embeddings taken again each step, whose loss
+    must fall; then each of ``EMBED_TRAIN_CPU_ARCHS`` cut to 2 layers at
+    full width in fp32 against the CPU (``train_card_vs_cpu``), over
+    rows of LM_PROMPT positions, qwen2-vl's the LM_GRID image grid, so
+    that the dim-1 split of M-RoPE positions into micro-batches and
+    their gather in the backward pass run on the card."""
+    import torch
+    out = report["embeds_train"] = {}
+
+    def batch_on(host, device, dtype):
+        return {k: torch.from_numpy(v).to(
+            device, dtype if k == "embeds" else None)
+            for k, v in host.items()}
+
+    cfg = dataclasses.replace(get_config(EMBED_TRAIN_ARCH), remat="full")
+    host = embeds_train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, EMBED_TRAIN_SEED)
+    _clear(dev)
+    row, state = train_full_size(
+        EMBED_TRAIN_ARCH, cfg,
+        lambda s_: batch_on(host, dev, torch.bfloat16), dev, profiled)
+    del state, host
+    _clear(dev)
+    out["full"] = row
+    losses = row["losses"][:TRAIN_STEPS]
+    print(f"  {EMBED_TRAIN_ARCH}: loss on its seeded batch over "
+          f"{TRAIN_STEPS} steps {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not losses[-1] < losses[0]:
+        fail(f"{EMBED_TRAIN_ARCH} training: the loss did not fall over "
+             f"{TRAIN_STEPS} steps on one batch: {losses}")
+
+    out["card_vs_cpu"] = {}
+    for arch in EMBED_TRAIN_CPU_ARCHS:
+        cut = dataclasses.replace(get_config(arch),
+                                  num_layers=TRAIN_CUT_LAYERS,
+                                  grad_accum=TRAIN_CPU_ACCUM)
+        batches = [embeds_train_batch(cut, TRAIN_CPU_BATCH, LM_PROMPT,
+                                      EMBED_TRAIN_SEED + s_)
+                   for s_ in range(TRAIN_CPU_STEPS)]
+        out["card_vs_cpu"][arch] = train_card_vs_cpu(
+            arch, cut,
+            lambda s_, device: batch_on(batches[s_], device, torch.float32),
+            (TRAIN_CPU_BATCH, LM_PROMPT), dev)
+        if cut.mrope_sections:
+            out["card_vs_cpu"][arch]["grid"] = list(LM_GRID)
+        _clear(dev)
+
+
+def examples_phase(dev, report, launches) -> None:
+    """The examples' twins (``examples_torch/``) on the card, each run
+    in this process through ``runpy`` with ``sys.argv`` set (one import
+    of the port, one load of the kernels) and its ``main()`` called; the
+    plan stores under ``build/chip_smoke_cache/examples``, restored
+    after.  Each twin's launch counters are read around its run.  Gates:
+    quickstart's executors within EXAMPLES_TOL of ``F.conv2d``, its
+    Winograd launch-config replay ``measured``, the conv kernels of the
+    executors it ran launched; cnn_inference's logits within
+    EXAMPLES_TOL, zero plan() resolutions while warm, bf16 within
+    EXAMPLES_BF16_TOL of fp32; serve_lm's requests all answered with
+    ``flash_attention`` (qwen2-1.5b) and ``conv1d_tap`` (mamba2-1.3b)
+    launched as planned; train_lm's 100M config writing a checkpoint at
+    step 100 of EXAMPLES_TRAIN_STEPS, its last-10 mean loss under its
+    first-10 mean, and no kernel of ours launched."""
+    import io
+    import runpy
+    import shutil
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.core import autotune, executors
+    from repro_torch.core import graph as tgraph
+    from repro_torch.kernels import _build
+    from repro_torch.train import checkpoint as ckpt
+
+    out = report["examples"] = {}
+    root = ROOT / "build" / "chip_smoke_cache" / "examples"
+    shutil.rmtree(root, ignore_errors=True)
+    saved = os.environ["REPRO_CACHE_DIR"], list(sys.argv)
+
+    def use(path):
+        os.environ["REPRO_CACHE_DIR"] = str(path)
+        autotune.clear_cache()
+        tgraph.clear_cache()
+
+    def run(name, *args, key=None):
+        """``examples_torch/<name>.py *args`` in this process: its
+        ``main()``'s result and the launches it made; its seconds and
+        launches go to the report under ``key`` (default ``name``)."""
+        path = ROOT / "examples_torch" / f"{name}.py"
+        ns = runpy.run_path(str(path), run_name=f"examples_torch.{name}")
+        sys.argv = [str(path), *args] + (
+            ["--device", dev.type] if dev.type != "cuda" else [])
+        text = io.StringIO()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            res = ns["main"]()
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        for k, v in counts.items():
+            launches[k] += v
+        lines = text.getvalue().splitlines()
+        # the explain tables' rows (indented node lines) left out
+        shown = [ln for ln in lines if not ln.startswith("  ")
+                 or "max_err" in ln or ln.startswith("  req 0")]
+        print(f"  examples_torch/{name}.py {' '.join(args)}: {secs:.1f} s, "
+              f"launches {counts}")
+        for ln in shown:
+            print(f"    | {ln}")
+        out[key or name] = {"s": secs, "launches": counts, "stdout_lines": len(lines)}
+        return res, counts
+
+    use(root)
+    try:
+        # -- quickstart -------------------------------------------------------
+        res, counts = run("quickstart")
+        bound = EXAMPLES_TOL * max(1.0, res["ref_abs_max"])
+        bad = {n: r for n, r in res["executors"].items()
+               if not r["max_err"] <= bound}
+        ran = sorted({r["ran"] for r in res["executors"].values()})
+        want = sorted({k for a in ran for k in executors.get(a).kernels})
+        missing = [k for k in want if not counts.get(k)]
+        out["quickstart"].update(
+            executors=res["executors"], bound=bound, ran=ran, kernels=want,
+            tuned=res["tuned"], replay_source=res["replay_source"])
+        print(f"  quickstart: every executor within {bound:.3e} of F.conv2d "
+              f"(bound {EXAMPLES_TOL} x max(1, max|ref|)): {not bad}; ran "
+              f"{ran}, whose kernels {want} launched: {not missing}; tuned "
+              f"replay {res['replay_source']}")
+        if bad or missing or res["replay_source"] != "measured":
+            fail(f"examples_torch/quickstart.py: executors off the library "
+                 f"{bad}, kernels not launched {missing}, replay "
+                 f"{res['replay_source']}")
+
+        # -- cnn_inference ------------------------------------------------------
+        res, counts = run("cnn_inference")
+        lg = res["squeezenet_logits"]
+        bound = EXAMPLES_TOL * max(1.0, lg["ref_abs_max"])
+        out["cnn_inference"].update(res, logits_bound=bound)
+        print(f"  cnn_inference: logits {lg['max_err']:.2e} (bound "
+              f"{bound:.2e}); warm plan() resolutions fp32 "
+              f"{res['resnet_resolutions']}, bf16 {res['bf16_resolutions']};"
+              f" bf16 vs fp32 {res['bf16_err']:.2e} (bound "
+              f"{EXAMPLES_BF16_TOL}); ms {res['ms']}")
+        if not (lg["max_err"] <= bound and res["resnet_resolutions"] == 0
+                and res["bf16_resolutions"] == 0
+                and res["bf16_err"] < EXAMPLES_BF16_TOL and counts):
+            fail(f"examples_torch/cnn_inference.py: {res}, launches "
+                 f"{counts}")
+
+        # -- serve_lm -------------------------------------------------------------
+        for arch in EXAMPLES_LM_ARCHS:
+            res, counts = run("serve_lm", "--arch", arch,
+                              key=f"serve_lm {arch}")
+            cfg = smoke_variant(get_config(arch))
+            waves = -(-res["requests"] // EXAMPLES_LM_WAVE[0])
+            n_attn = sum(mx == "attn" for mx, _ in cfg.layer_kinds())
+            planned = {k: v for k, v in {
+                "flash_attention": n_attn * waves,
+                "conv1d_tap": 3 * (cfg.num_layers - n_attn) * waves}.items()
+                if v}
+            answered = (res["requests"] == 10 and all(
+                len(t) == 12 for t in res["out_tokens"].values()))
+            print(f"  serve_lm --arch {arch}: launches {counts}, planned "
+                  f"{planned}; every request answered with 12 tokens: "
+                  f"{answered}")
+            if counts != planned or not answered:
+                fail(f"examples_torch/serve_lm.py --arch {arch}: launches "
+                     f"{counts} != {planned} or requests unanswered")
+
+        # -- train_lm -------------------------------------------------------------
+        ck = root / "train_lm"
+        res, counts = run("train_lm", "--steps", str(EXAMPLES_TRAIN_STEPS),
+                          "--ckpt-dir", str(ck))
+        written = ckpt.latest_steps(ck)
+        step_ms = 1e3 * float(sorted(res["step_s"])[len(res["step_s"]) // 2])
+        out["train_lm"].update(
+            first10=res["first10"], last10=res["last10"],
+            params=res["params"], checkpoints=written,
+            step_ms_median=step_ms)
+        print(f"  train_lm: {res['params'] / 1e6:.1f} M params, "
+              f"{EXAMPLES_TRAIN_STEPS} steps, median {step_ms:.1f} ms a step; "
+              f"loss first10 {res['first10']:.3f} last10 "
+              f"{res['last10']:.3f}; checkpoints {written}; launches "
+              f"{counts}")
+        if (100 not in written or not res["last10"] < res["first10"]
+                or counts):
+            fail(f"examples_torch/train_lm.py: checkpoints {written}, "
+                 f"losses {res['first10']} -> {res['last10']}, launches "
+                 f"{counts}")
+        shutil.rmtree(ck, ignore_errors=True)
+    finally:
+        os.environ["REPRO_CACHE_DIR"], sys.argv[:] = saved[0], saved[1]
+        autotune.clear_cache()
+        tgraph.clear_cache()
 
 
 def mesh_training_phase(dev, report, launches, profiled, get_config) -> None:
@@ -1020,6 +1339,7 @@ def mesh_training_phase(dev, report, launches, profiled, get_config) -> None:
         del runs, p0m, p1m, p0o, p1o
         clear()
 
+        lap("the 2-layer cut on the mesh")
         # -- full size, bf16: Trainer on the mesh vs unsharded --------------
         cfg = dataclasses.replace(base, remat="full")
         data = SyntheticLMData(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
@@ -1097,6 +1417,7 @@ def mesh_training_phase(dev, report, launches, profiled, get_config) -> None:
             fail(f"training on the mesh launched hand-written kernels: "
                  f"{mrow['traced_kernels']} {mrow['launches']}")
 
+        lap("the mesh trainer beside the unsharded one")
         # -- compressed_psum over the one-rank group ---------------------------
         g = torch.Generator(device=dev).manual_seed(0)
         x = torch.randn(MESH_PSUM_SHAPE, generator=g, device=dev)
@@ -1120,6 +1441,7 @@ def mesh_training_phase(dev, report, launches, profiled, get_config) -> None:
         del x, zero, got, err, q, sc, want_err
         clear()
 
+        lap("compressed_psum")
         # -- the mesh trainer's checkpoint: restored, served ----------------
         cut = dataclasses.replace(base, num_layers=TRAIN_CUT_LAYERS)
         data = SyntheticLMData(cut.vocab_size, TRAIN_BATCH, TRAIN_SERVE_PROMPT)
@@ -1182,6 +1504,7 @@ def mesh_training_phase(dev, report, launches, profiled, get_config) -> None:
         del served, in_memory
         clear()
 
+        lap("the mesh checkpoint restored and served")
         # -- the launcher: --mesh debug, --mesh pod -----------------------------
         cli = {}
         for kind in ("debug", "pod"):
@@ -1332,6 +1655,7 @@ def analysis_phase(dev, report, launches, get_config) -> None:
             fail("the dry-run's count of the training step differs from "
                  "the card's")
 
+        lap("the training step on meta and on the card")
         # -- its roofline with HW ----------------------------------------
         rec = dict(meta, status="OK", arch=TRAIN_ARCH, shape=shape.name,
                    mesh="1x1", devices=1, kind="train",
@@ -1363,6 +1687,7 @@ def analysis_phase(dev, report, launches, get_config) -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
+        lap("its roofline")
         # -- one prefill wave: meta and the card ---------------------------
         lcfg = get_config(TRAIN_ARCH)
         wave = {}
@@ -1406,6 +1731,7 @@ def analysis_phase(dev, report, launches, get_config) -> None:
     finally:
         dist.destroy_process_group()
 
+    lap("the prefill wave on meta and on the card")
     # -- the CLI's cells, under this machine's torch ------------------------
     cli = {}
     for cell, proc in procs.items():
@@ -1449,7 +1775,7 @@ def main() -> None:
     import numpy as np
     import repro_torch as rt
     import torch.nn.functional as F
-    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.configs.base import SHAPES, get_config, smoke_variant
     from repro_torch.configs.cnn_paper import PROFILED
     from repro_torch.configs.serve import (DEFAULT_SLO_MS, DIST_SMOKE,
                                            SMOKE_FRONTEND)
@@ -1773,16 +2099,22 @@ def main() -> None:
         """The LM kernels' calls at the served models' shapes: prefill
         attention of 4 slots x 512 (and TRAIN_ARCH's train_4k sequence
         and the 4 x 128 prompts that serve its trained checkpoint), the
-        three Mamba2 streams' conv.  The served bf16 calls make the
+        three Mamba2 streams' conv; and at the examples' serve_lm twin's
+        smoke configs and 4 x 16 wave (head dim 16, a sequence shorter
+        than one thread's positions).  The served bf16 calls make the
         line."""
         out = []
         bf16 = dtype == torch.bfloat16
         tol = BF16_TOL if bf16 else FP32_TOL
-        for arch, cfg in lm_cfgs.items():
+        twins = {f"{arch}-smoke": smoke_variant(get_config(arch))
+                 for arch in EXAMPLES_LM_ARCHS}
+        for arch, cfg in {**lm_cfgs, **twins}.items():
             mixers = {mx for mx, _ in cfg.layer_kinds()}
+            slots, prompt = (EXAMPLES_LM_WAVE if arch in twins
+                             else (LM_SLOTS, LM_PROMPT))
             if "attn" in mixers and not cfg.mla:    # MLA runs no kernel
                 H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-                shapes = [(LM_SLOTS, LM_PROMPT)]
+                shapes = [(slots, prompt)]
                 if arch == TRAIN_ARCH:      # its training and checkpoint
                     shapes += [(1, SHAPES["train_4k"].seq_len),
                                (LM_SLOTS, TRAIN_SERVE_PROMPT)]
@@ -1797,12 +2129,12 @@ def main() -> None:
                         {"causal": True}, {"causal": True},
                         4 * D * b * H * s * (s + 1) // 2, tol,
                         peak=BF16_FLOP_PER_S if bf16 else TF32X3_FLOP_PER_S,
-                        in_line=bf16 and s == LM_PROMPT))
+                        in_line=bf16 and s == LM_PROMPT and arch not in twins))
             if "ssm" in mixers:
                 dims = {cfg.d_inner: "x", cfg.ssm_groups * cfg.ssm_state:
                         "B,C"}
                 for dim, streams in dims.items():
-                    shape = (LM_SLOTS, LM_PROMPT, dim)
+                    shape = (slots, prompt, dim)
                     args = (randn(shape, dtype), randn((cfg.d_conv, dim),
                                                        dtype),
                             randn((dim,), dtype))
@@ -1811,7 +2143,7 @@ def main() -> None:
                         f"{arch}:{streams}:{'x'.join(map(str, shape))}",
                         conv1d_tap.conv1d_tap, conv1d_tap.conv1d_tap_plain,
                         args, {}, {}, 2 * cfg.d_conv * args[0].numel(), tol,
-                        in_line=bf16))
+                        in_line=bf16 and arch not in twins))
         return out
 
     # -- 3. kernel vs plain --------------------------------------------------
@@ -2613,6 +2945,7 @@ def main() -> None:
         del params
         gc.collect()                # the engines and their graph pools
         torch.cuda.empty_cache()
+        lap(arch)
     for k, v in launches.items():
         if v < 1:
             fail(f"{k} was not launched on the main path")
@@ -2799,6 +3132,7 @@ def main() -> None:
         del params, progs, cache, calls, prefill, decode
         gc.collect()
         torch.cuda.empty_cache()
+        lap(arch)
 
     # -- 4e. the LM path, card against CPU, fp32 -------------------------------
     phase(f"LM card vs CPU (fp32, full width, {LM_CPU_LAYERS} layers or "
@@ -2925,11 +3259,23 @@ def main() -> None:
         del params, got, want, routes
         gc.collect()
         torch.cuda.empty_cache()
+        lap(arch)
 
     # -- 4f. training: full size, card vs CPU, trainer, checkpoint served ---
     phase(f"training: {TRAIN_ARCH} at full size in bf16, card vs CPU, the "
           f"trainer, checkpoints, the checkpoint served, the launcher")
     training_phase(dev, report, launches, profiled, get_config)
+
+    # -- 4f'. training the archs fed embeddings: musicgen-large full size ---
+    phase(f"training the archs fed embeddings: {EMBED_TRAIN_ARCH} at full "
+          f"size in bf16 on seeded embeddings, "
+          f"{', '.join(EMBED_TRAIN_CPU_ARCHS)} card vs CPU")
+    embeds_training_phase(dev, report, profiled, get_config)
+
+    # -- 4f''. the examples' twins, in this process ------------------------
+    phase("the examples' twins (examples_torch/: quickstart, cnn_inference, "
+          "serve_lm for qwen2-1.5b and mamba2-1.3b, train_lm at 100M)")
+    examples_phase(dev, report, launches)
 
     # -- 4g. training on a mesh: a world-size-1 NCCL group, a (1, 1) mesh --
     phase(f"training on a mesh: make_debug_mesh() (1, 1) over a one-rank "

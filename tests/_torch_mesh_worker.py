@@ -14,6 +14,7 @@ ranks and waits for them.  On four cards, one process a card (NCCL):
 
 (``full`` in place of ``cards``: qwen2-1.5b at full size on the mesh.)
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -486,6 +487,155 @@ def case_repairs(d: Path, mesh):
         (d / "repairs.json").write_text(json.dumps(out))
 
 
+def case_pin(d: Path, mesh):
+    """The residual pinned after the mixer, on the (2, 2) mesh: a layer
+    forward that redistributes a ``Partial`` residual (``x + out``, the
+    mixer's row-parallel output added) to ``Replicate`` before the MLP,
+    against the same step without the pin and unsharded, fp32, per arch
+    of ``STEP_ARCHS``.  Gradients are tapped at the mixer's output, the
+    residual before the pin, the MLP's output and the layer's output
+    (relative L2 against the unsharded step's, with each tap's
+    placements), and at every param; then one train step at grad_accum
+    2 (the config's remat).  The forward is a tapped copy of
+    ``models/lm.py::_layer_fwd``; its unsharded loss and gradients are
+    checked bit for bit against the real function's.  Results to
+    ``pin.json``."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import steps as St
+    from repro_torch.models import lm
+    from repro_torch.nn import attention as A, layers as L, mamba as S
+    from repro_torch.nn import moe as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves, map_tree, unflatten
+    rules = sh.make_rules("train")
+    act = sh.named(mesh, sh.P(rules["batch"], None, None))
+    pin, taps = {"on": False}, {"on": False, "rows": []}
+
+    def tap(name, t):
+        if taps["on"] and t.requires_grad:
+            row = [name, str(getattr(t, "placements", None)), None]
+            taps["rows"].append(row)
+            t.register_hook(lambda g, row=row: row.__setitem__(2, g))
+
+    def layer_fwd(p, cfg, mixer, mlp, x, positions, cache, offset, mode,
+                  moe_groups=1):
+        # models/lm.py::_layer_fwd, tapped, with the pin
+        h = L.rmsnorm_fwd(p["ln1"], x, cfg.rms_norm_eps, cfg.norm_impl)
+        aux = {}
+        if mixer == lm.ATTN:
+            fwd = A.mla_fwd if cfg.mla else A.gqa_fwd
+            out, cache = fwd(p["attn"], cfg, h, positions, cache, offset,
+                             mode)
+        else:
+            out, cache = S.mamba_fwd(p["ssm"], cfg, h, cache, mode)
+        tap("mixer_out", out)
+        x = x + out
+        tap("before_pin", x)
+        if pin["on"] and isinstance(x, DTensor) and any(
+                q.is_partial() for q in x.placements):
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if q.is_partial() else q for q in x.placements])
+        if mlp != "none":
+            h2 = L.rmsnorm_fwd(p["ln2"], x, cfg.rms_norm_eps, cfg.norm_impl)
+            if mlp == lm.MOE:
+                mo, aux = M.moe_fwd(p["moe"], cfg, h2,
+                                    dropless=(mode == "decode"),
+                                    n_groups=moe_groups)
+            else:
+                mo = L.mlp_fwd(p["mlp"], h2)
+            tap("mlp_out", mo)
+            x = x + mo
+        tap("layer_out", x)
+        return x, cache, aux
+
+    def paths(tree, pre=""):
+        if isinstance(tree, dict):
+            return [q for k, v in tree.items() for q in paths(v, f"{pre}/{k}")]
+        if isinstance(tree, list):
+            return [q for i, v in enumerate(tree)
+                    for q in paths(v, f"{pre}/{i}")]
+        return [pre]
+
+    def rel(a, b):
+        return float((a - b).double().norm()
+                     / b.double().norm().clamp_min(1e-30))
+
+    lm._layer_fwd, plain_fwd = layer_fwd, lm._layer_fwd
+    out = {"torch": torch.__version__}
+    try:
+        for arch in STEP_ARCHS:
+            base = _cfg(arch, grad_accum=STEP_ACCUM)
+            params = lm.init_lm(base, seed=0, device="cpu",
+                                dtype=torch.float32)
+            names = paths(params)
+            host = {k: torch.from_numpy(v) for k, v in _grad_batch(
+                base, np.random.default_rng(5)).items()}
+            pspec = sh.named(mesh, sh.param_specs(params, rules))
+            bspec = sh.named(mesh, sh.batch_specs(host, rules))
+            runs = {}
+            for variant in ("unsharded", "unpinned", "pinned"):
+                pin["on"] = variant == "pinned"
+                p, b, a = map_tree(torch.clone, params), host, None
+                if variant != "unsharded":
+                    p = sh.place_tree(p, pspec)
+                    b = {k: sh.place(v, bspec[k]) for k, v in b.items()}
+                    a = act
+                # the loss's gradients, no remat (a tap needs the forward
+                # that autograd differentiates), grad_accum 1
+                cfg = dataclasses.replace(base, remat="none", grad_accum=1)
+                req = [x.detach().requires_grad_(True) for x in leaves(p)]
+                taps["on"], taps["rows"] = True, []
+                loss, _ = lm.train_loss(unflatten(p, req), cfg, b,
+                                        act_spec=a)
+                grads = torch.autograd.grad(loss, req)
+                taps["on"] = False
+                rows = [(n, pl, sh.whole(g)) for n, pl, g in taps["rows"]]
+                grads = [sh.whole(g) for g in grads]
+                st = {"params": map_tree(torch.clone, p),
+                      "opt": adamw_init(p),
+                      "step": torch.zeros((), dtype=torch.int32)}
+                _, m = St.make_train_step(base, peak_lr=STEP_LR,
+                                          act_spec=a)(st, b)
+                runs[variant] = (float(sh.whole(loss)), grads, rows,
+                                 {k: float(v) for k, v in m.items()})
+            lo, go, to, mo = runs["unsharded"]
+            # the copy above against models/lm.py::_layer_fwd itself,
+            # unsharded, bit for bit: a drift of either fails the test
+            lm._layer_fwd = plain_fwd
+            try:
+                cfg = dataclasses.replace(base, remat="none", grad_accum=1)
+                req = [x.detach().requires_grad_(True)
+                       for x in leaves(params)]
+                loss, _ = lm.train_loss(unflatten(params, req), cfg, host)
+                grads = torch.autograd.grad(loss, req)
+            finally:
+                lm._layer_fwd = layer_fwd
+            row = {"copy_is_real": float(loss) == lo and all(
+                torch.equal(g, g0) for g, g0 in zip(grads, go))}
+            for variant in ("unpinned", "pinned"):
+                ls, gs, ts, ms = runs[variant]
+                assert [t[0] for t in ts] == [t[0] for t in to]
+                by_tap = {}
+                for (n, pl, g), (_, _, g0) in zip(ts, to):
+                    worst, places = by_tap.get(n, (0.0, []))
+                    by_tap[n] = (max(worst, rel(g, g0)),
+                                 sorted(set(places) | {pl}))
+                leaf = max((rel(x, y), n) for x, y, n in zip(gs, go, names))
+                row[variant] = {
+                    "loss_rel": abs(ls - lo) / abs(lo),
+                    "taps": by_tap, "worst_param_grad": list(leaf),
+                    "step_rel": {k: abs(ms[k] - mo[k]) / abs(mo[k])
+                                 for k in ("loss", "grad_norm")}}
+            out[arch] = row
+    finally:
+        lm._layer_fwd = plain_fwd
+    if torch.distributed.get_rank() == 0:
+        (d / "pin.json").write_text(json.dumps(out))
+
+
 def leaves_of(tree):
     import torch
     return [t for t in torch.utils._pytree.tree_leaves(tree)
@@ -588,7 +738,7 @@ def main(case, d, rank=None, world=None):
             case_grads(d, mesh)
         else:
             {"ckpt": case_ckpt, "trainer": case_trainer,
-             "repairs": case_repairs,
+             "repairs": case_repairs, "pin": case_pin,
              "cards": case_cards, "full": case_full}[case](d, mesh)
     finally:
         dist.destroy_process_group()

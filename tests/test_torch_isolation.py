@@ -290,3 +290,38 @@ def test_the_port_has_every_public_name_of_the_reference(rel):
     assert absent | partial <= want, rel
     assert not (absent | partial) & have, rel
     assert want - have == absent | partial, rel
+
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples_torch"
+TWINS = ["quickstart", "cnn_inference", "serve_lm", "train_lm"]
+
+
+def test_the_examples_twins_import_no_jax_nor_the_jax_package():
+    files = sorted(EXAMPLES.glob("*.py"))
+    assert sorted(f.stem for f in files) == sorted(TWINS)
+    for f in files:
+        for mod in _imports(f):
+            root = mod.split(".")[0]
+            assert root not in ("jax", "jaxlib", "repro", "flax"), (f, mod)
+
+
+@pytest.mark.parametrize("twin", TWINS)
+def test_an_examples_twin_raises_without_cuda_unless_asked_for_the_cpu(
+        twin, tmp_path):
+    """Run as a user runs it, with no ``--device``: the twin defaults to
+    the card, so with none it exits non-zero with the missing-CUDA error
+    before any work (no silent CPU run)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is available")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent),
+               REPRO_CACHE_DIR=str(tmp_path), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, str(EXAMPLES / f"{twin}.py")]
+                         + (["--ckpt-dir", str(tmp_path / "ck")]
+                            if twin == "train_lm" else []),
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr, out.stderr[-2000:]
+    assert "RuntimeError" in out.stderr
+    assert out.stdout.strip() == "", out.stdout
+    assert not (tmp_path / "ck").exists()

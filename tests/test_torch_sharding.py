@@ -488,3 +488,43 @@ def test_sharded_prefill_and_decode_match_unsharded(arch, repairs):
     # the SSM state (Mamba2)
     assert got["cache_leaves"] == {"deepseek-v2-lite-16b": 2,
                                    "mamba2-1.3b": 8}.get(arch, 4)
+
+
+# ---------------------------------------------------------------------------
+# the residual pinned after the mixer, on four gloo ranks
+
+@pytest.fixture(scope="module")
+def pinned(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mesh_pin")
+    run_ranks("pin", d, timeout=400)
+    return json.loads((d / "pin.json").read_text())
+
+
+@pytest.mark.parametrize("arch", STEP_ARCHS)
+def test_the_residual_pinned_after_the_mixer_matches_unsharded(arch, pinned):
+    """On the (2, 2) mesh, fp32: a layer forward that reduces the
+    residual's ``Partial`` placement (the mixer's row-parallel output
+    added) right after the mixer, and the same forward without that pin,
+    each against the unsharded step.  The gradients at the mixer's
+    output, the residual before the pin, the MLP's output and the
+    layer's output within 1e-5 relative in L2 of the unsharded ones,
+    every param's gradient within 1e-4 (the CE's mean over ranks), the
+    loss and one train step's loss and grad_norm within 1e-5 relative:
+    no partial sum is reduced twice or in the wrong place, whichever
+    layer reduces it (DTensor's version decides that).  The tapped
+    forward is a copy of ``models/lm.py::_layer_fwd``: unsharded, its
+    loss and gradients equal the real function's bit for bit."""
+    got = pinned[arch]
+    assert got["copy_is_real"]
+    (_, places), = [v for k, v in got["pinned"]["taps"].items()
+                    if k == "mixer_out"]
+    assert any("Partial" in pl for pl in places), places
+    for variant in ("unpinned", "pinned"):
+        row = got[variant]
+        assert row["loss_rel"] <= 1e-5, (variant, row)
+        assert set(row["taps"]) >= {"mixer_out", "before_pin", "layer_out"}
+        for name, (worst, _) in row["taps"].items():
+            assert worst <= 1e-5, (variant, name, worst)
+        assert row["worst_param_grad"][0] <= 1e-4, (variant, row)
+        for k in ("loss", "grad_norm"):
+            assert row["step_rel"][k] <= 1e-5, (variant, k, row)

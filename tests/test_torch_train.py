@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import _clear_port_caches, np32  # noqa: F401
+from _torch_parity import _clear_port_caches, chip_smoke, np32  # noqa: F401
 from repro.configs import base as jbase
 from repro.data import FileLMData as JFileLMData
 from repro.data import SyntheticLMData as JSyntheticLMData
@@ -30,10 +30,11 @@ from repro_torch.models import lm
 from repro_torch.optim import adamw_init
 from repro_torch.train.trainer import TrainConfig, Trainer
 
-#: dense, SSM, MoE and hybrid families, and M-RoPE (whose
-#: positions split along dim 1 under gradient accumulation)
+#: dense, SSM, MoE and hybrid families, M-RoPE (whose positions split
+#: along dim 1 under gradient accumulation), and MHA fed embeddings with
+#: an untied head (musicgen)
 TRAIN_ARCHS = ["qwen2-1.5b", "mamba2-1.3b", "deepseek-moe-16b",
-               "jamba-v0.1-52b", "qwen2-vl-2b"]
+               "jamba-v0.1-52b", "qwen2-vl-2b", "musicgen-large"]
 
 
 def both_configs(arch, **kw):
@@ -148,6 +149,46 @@ def test_train_step_matches_reference(arch, rng):
                                  p0, rtol=1e-2)
     assert int(tstate["step"]) == 3
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "qwen2-vl-2b"])
+def test_chip_smokes_embeds_batch_gives_the_reference_loss(arch):
+    """The batch function of chip_smoke's embeddings training phase
+    (``embeds_train_batch``, loaded from the script) at smoke size, 8
+    rows of 64, qwen2-vl's rows each the M-RoPE image grid
+    ``LM_CPU_GRID``: three fp32 steps of each package's make_train_step
+    on that numpy batch (the smoke config's grad_accum 4, so the grid's
+    positions split on dim 1) give the same loss and grad_norm within
+    1e-5 relative."""
+    cs = chip_smoke()
+    jcfg, tcfg = both_configs(arch)
+    batch = cs.embeds_train_batch(tcfg, 8, 64, 0, grid=cs.LM_CPU_GRID)
+    assert batch["embeds"].shape == (8, 64, tcfg.d_model)
+    assert batch["embeds"].dtype == np.float32
+    assert 0 <= batch["labels"].min() and batch["labels"].max() < \
+        tcfg.vocab_size
+    if tcfg.mrope_sections:
+        grid, _ = cs.mrope_grid(*cs.LM_CPU_GRID)
+        assert batch["positions"].shape == (3, 8, 64)
+        assert (batch["positions"] == grid[:, None]).all()
+        assert (grid[1] != grid[0]).any()       # the image's rows move
+    else:
+        assert "positions" not in batch
+    assert jcfg.grad_accum == 4
+    jp = fp32_tree(jcfg)
+    tp = port_params(jp, tcfg)
+    jstate = {"params": jp, "opt": jadamw_init(jp),
+              "step": jnp.zeros((), jnp.int32)}
+    tstate = {"params": tp, "opt": adamw_init(tp),
+              "step": torch.zeros((), dtype=torch.int32)}
+    jstep = jax.jit(jsteps.make_train_step(jcfg, peak_lr=PARITY_LR))
+    tstep = tsteps.make_train_step(tcfg, peak_lr=PARITY_LR)
+    for _ in range(3):
+        jstate, jm = jstep(jstate, to_j(batch))
+        tstate, tm = tstep(tstate, to_t(batch))
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                       rtol=1e-5)
 
 
 def test_train_step_with_grad_compression_matches_reference(rng):
