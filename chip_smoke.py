@@ -46,9 +46,14 @@ calls:
   every stage's percentiles per geometry printed, and the same stream
   through ``CnnServeEngine.run()``), the int8 frontend at 32x32 must
   serve int8 and equal the int8 engine within its bound, the
-  ``ShardedServeDispatcher`` over ``make_serve_mesh()`` (one card,
-  ``DIST_SMOKE``, ``tiny_cnn``) must report one device and equal a plain
-  ``AsyncServeFrontend`` bit for bit, and ``python -m
+  ``ShardedServeDispatcher`` over ``make_serve_mesh()`` (every card of
+  the host, ``DIST_SMOKE``, ``tiny_cnn``) must report one device a card
+  and equal a plain ``AsyncServeFrontend`` bit for bit; ``resnet_like``
+  (224x224 and 32x32, one bucket a geometry per card) through the
+  dispatcher over 1, 2, 4, ... cards up to the card count
+  (``dispatcher_scaling``): every request bit-equal to the one-card
+  frontend's, each card's traced kernels equal to its per-shard plans,
+  images/s and each card's utilization printed; and ``python -m
   repro_torch.launch.serve --cnn-dist --requests 16`` must exit 0 and
   print its stats;
 - ``qwen2-1.5b``, ``qwen3-14b``, ``mamba2-1.3b``,
@@ -142,7 +147,16 @@ calls:
   FLOPs equal on both); and ``python -m repro_torch.launch.dryrun`` on
   three cells of the pod mesh (qwen2-1.5b train_4k, deepseek-moe-16b
   decode_32k, mamba2-1.3b long_500k) under this machine's torch, each
-  exiting 0 with status ``OK``.
+  exiting 0 with status ``OK``;
+- serving on a mesh (``mesh_serving_phase``): on a world-size-1 NCCL
+  group's (1, 1) mesh, ``jamba-v0.1-52b`` at full width and 8 layers in
+  bf16 through ``launch/steps.py``'s sharded prefill and decode steps
+  (``serve_loop`` of ``tests/_torch_mesh_worker.py``, the loop of the
+  four-card serving cases: a 4x512 prompt, 16 greedy decode steps,
+  DTensor params and a cache whose placements are checked after every
+  step), against the same loop unsharded: tokens and logits equal bit
+  for bit, ``flash_attention`` and ``conv1d_tap`` launched on the
+  DTensor path once an attention layer and three times a Mamba layer.
 
 It prints the launch geometry of the seven tensor-core kernels
 (``conv1x1_gemm``, ``cuconv_fused``, ``winograd_fused``,
@@ -394,6 +408,19 @@ ANALYSIS_SHARE_MAX = 1.05            # largest roofline term / measured step
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("deepseek-moe-16b",
                                              "decode_32k"),
                 ("mamba2-1.3b", "long_500k"))
+# serving on a mesh: a world-size-1 NCCL group, make_debug_mesh() (1, 1);
+# jamba at LM_SERVED_LAYERS' cut, LM_SLOTS x LM_PROMPT prompt tokens and
+# this many greedy decode steps, through tests/_torch_mesh_worker.py's
+# serve_loop (the loop of the gloo and four-card serving cases)
+MESH_SERVE_ARCH, MESH_SERVE_STEPS = "jamba-v0.1-52b", 16
+# the dispatcher over 1, 2, 4, ... cards (up to the card count): one
+# bucket a geometry per card, so every image is computed at the batch
+# shape the one-card frontend computes it at
+SCALING_GEOMETRIES = {(224, 224, 3): (1,), (32, 32, 3): (4,)}
+SCALING_REQUESTS = 64
+# the untraced rates: the stream this many times over, in this many
+# rounds (their order alternating) over the one-card frontend and every n
+SCALING_REPEATS, SCALING_ROUNDS = 4, 3
 
 _PHASE = {"name": None, "t0": 0.0, "lap": 0.0, "times": {}}
 
@@ -424,6 +451,38 @@ def lap(label) -> None:
     _PHASE["lap"] = now
 
 
+@contextlib.contextmanager
+def card_profiled(dev, host: bool = True):
+    """``torch.profiler`` (CPU and CUDA; the card alone where not
+    ``host``, which leaves the host's side of the region unslowed)
+    around a region, after a warm-up step of TRACE_WARM_LAUNCHES small
+    launches on ``dev`` (a device, or a tuple of them: each warmed)
+    whose records are dropped, and held open TRACE_PAD_S before and
+    after it.  Kernel records are lost at both
+    ends otherwise: a trace closed right after a replayed qwen2 prefill
+    once held 24 of the 28 flash kernels it ran, and traces opened right
+    before a served run missed its first batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=([ProfilerActivity.CPU] if host else [])
+                 + [ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        devs = dev if isinstance(dev, tuple) else (dev,)
+        for d in devs:
+            warm = torch.zeros(256, device=d)
+            for _ in range(TRACE_WARM_LAUNCHES):
+                warm.add_(1)
+        for d in devs:
+            torch.cuda.synchronize(d)
+        prof.step()
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        for d in devs:
+            torch.cuda.synchronize(d)
+        time.sleep(TRACE_PAD_S)
+
+
 def traced_launches(prof) -> dict:
     """The launch counters' kernels that ran in a ``torch.profiler``
     trace, by counter name (kernels in graph replays too); zeros left
@@ -437,6 +496,21 @@ def traced_launches(prof) -> dict:
         for k, sym in KERNEL_SYMBOLS.items():
             if re.search(rf"\b{sym}\b", e.key):
                 counts[k] = counts.get(k, 0) + e.count
+    return counts
+
+
+def traced_launches_by_device(prof) -> dict:
+    """``traced_launches`` per CUDA device index."""
+    import re
+    import torch
+    counts = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k, sym in KERNEL_SYMBOLS.items():
+            if re.search(rf"\b{sym}\b", e.name):
+                d = counts.setdefault(int(e.device_index), {})
+                d[k] = d.get(k, 0) + 1
     return counts
 
 
@@ -497,6 +571,58 @@ def ptxas_entries(log: str) -> list:
     return out
 
 
+def make_frontend(m, p, geoms, precision=None, cfg=None):
+    """A warm ``AsyncServeFrontend`` of model ``m`` (params ``p``) over
+    ``geoms`` with ``cfg``'s wait and pipeline depth (SMOKE_FRONTEND's
+    by default)."""
+    from repro_torch.configs.serve import DEFAULT_SLO_MS, SMOKE_FRONTEND
+    from repro_torch.serve import AsyncServeFrontend
+    cfg = cfg or SMOKE_FRONTEND
+    f = AsyncServeFrontend(m, p, geoms, max_wait_ms=cfg.max_wait_ms,
+                           default_deadline_ms=DEFAULT_SLO_MS,
+                           pipeline_depth=cfg.pipeline_depth,
+                           precision=precision)
+    f.warmup()
+    return f
+
+
+def serve_stream(server, images):
+    """Bursts of FRONTEND_BURST submits, each followed by a poll(), then
+    run(); the requests in submit order."""
+    from repro_torch.serve import ServeRequest
+    reqs = []
+    for i, x in enumerate(images):
+        reqs.append(ServeRequest(rid=i, images=x))
+        server.submit(reqs[-1])
+        if (i + 1) % FRONTEND_BURST == 0:
+            server.poll()
+    server.run()
+    return reqs
+
+
+def check_served(server, reqs, label):
+    """Every request served, no miss, and each trace's telemetry
+    consistent: compute and queue within the total, p50 <= p95 <= p99
+    for every stage."""
+    import numpy as np
+    st = server.stats()
+    if (st["served"] != len(reqs) or st["deadline_misses"]
+            or st["late_served"] or not all(
+                r.status == "served" and r.out is not None
+                and np.isfinite(r.out).all() for r in reqs)):
+        fail(f"{label}: served {st['served']} of {len(reqs)}, misses "
+             f"{st['deadline_misses']}, late {st['late_served']}")
+    frontend_ = getattr(server, "frontend", server)
+    for t in frontend_.telemetry.requests:
+        if not (t.compute_ms <= t.total_ms and t.queue_ms <= t.total_ms):
+            fail(f"{label}: request {t.rid} compute {t.compute_ms} / "
+                 f"queue {t.queue_ms} ms over its total {t.total_ms}")
+    for stage, ps in st["latency_ms"].items():
+        if not ps["p50"] <= ps["p95"] <= ps["p99"]:
+            fail(f"{label}: {stage} percentiles {ps} not monotone")
+    return st
+
+
 def mrope_grid(text: int, side: int, after: int):
     """Qwen2-VL's M-RoPE positions (arXiv:2409.12191 §2.1) of a prompt of
     ``text`` text tokens, a ``side`` x ``side`` image, then ``after``
@@ -517,8 +643,9 @@ class RoutingLog:
     """While entered, a stand-in for ``moe.moe_fwd`` that records each
     call's routing under the key (k, step): the router's probs, the
     top-K expert set of every token and the tokens each expert keeps
-    (``moe.dispatch``, the routing ``moe_fwd`` itself runs).  The caller
-    sets ``step`` before each call of a step.  The k-th MoE call of a
+    (``moe.dispatch``, the routing ``moe_fwd`` itself runs; on a mesh,
+    of the whole tokens, gathered on every rank).  The caller sets
+    ``step`` before each call of a step.  The k-th MoE call of a
     step is the k-th MoE layer, whether the steps run layer by layer or
     the layers step by step, so two callers' records line up by key."""
 
@@ -536,9 +663,13 @@ class RoutingLog:
 
     def _record(self, p, cfg, x, dropless=False, n_groups=1):
         import torch
+        from repro_torch.dist.sharding import whole
         k = sum(s == self.step for _, s in self.calls)
-        xg = x.reshape(1, -1, x.shape[-1])
-        probs, eidx, _, vals, tok = self._moe.dispatch(p, cfg, xg, dropless)
+        # on a mesh, the routing of the whole tokens (every rank records)
+        xg = whole(x).reshape(1, -1, x.shape[-1])
+        router = {"router": {"w": whole(p["router"]["w"])}}
+        probs, eidx, _, vals, tok = self._moe.dispatch(router, cfg, xg,
+                                                       dropless)
         kept = torch.zeros_like(probs, dtype=torch.bool).transpose(1, 2)
         kept.scatter_(-1, tok, vals > 0)
         self.calls[(k, self.step)] = {
@@ -546,6 +677,38 @@ class RoutingLog:
             "experts": eidx[0].sort(-1).values.cpu(),
             "kept": kept[0].cpu()}
         return self._fwd(p, cfg, x, dropless, n_groups)
+
+
+def compare_routing(arch, card, cpu):
+    """Each MoE call's top-K expert sets and kept tokens, card against
+    CPU, by (MoE layer, step).  A token whose expert set differs must
+    have its K-th and (K+1)-th CPU probabilities within
+    ROUTE_FLIP_GAP."""
+    if sorted(card) != sorted(cpu):
+        fail(f"{arch}: MoE calls (layer, step) {sorted(card)} on the "
+             f"card, {sorted(cpu)} on the CPU")
+    flips, kept_diff, gaps = 0, 0, []
+    for key, b in sorted(cpu.items()):
+        a = card[key]
+        diff = (a["experts"] != b["experts"]).any(-1)
+        flips += int(diff.sum())
+        top = b["probs"].sort(-1, descending=True).values
+        K = a["experts"].shape[-1]
+        gap = top[:, K - 1] - top[:, K]
+        gaps += gap[diff].tolist()
+        kept_diff += int((a["kept"] != b["kept"]).any(0).sum())
+    n_experts = next(iter(cpu.values()))["probs"].shape[-1]
+    print(f"  {arch}: routing over {len(cpu)} MoE calls of "
+          f"{n_experts} experts: {flips} token(s) with another top-K "
+          f"expert set on the card (CPU gaps between the K-th and "
+          f"(K+1)-th probabilities {gaps}); {kept_diff} token(s) kept "
+          f"by another expert set")
+    if any(g > ROUTE_FLIP_GAP for g in gaps):
+        fail(f"{arch}: a token routed differently on the card with a "
+             f"probability gap above {ROUTE_FLIP_GAP}: {gaps}")
+    return {"moe_calls": len(cpu), "experts": n_experts,
+            "topk_flips": flips, "flip_gaps": gaps,
+            "kept_differs": kept_diff}
 
 
 def _batch_dims(batch) -> tuple:
@@ -587,14 +750,18 @@ def layerwise_cpu_logits(params, cfg, inputs, max_len, routes=None):
     the head.  The host holds about one layer, not the model (jamba's
     fp32 period: 49.4 GiB, its largest layer 10.5 GiB).  Built of
     ``lm_forward``'s own pieces (``stack_input``, ``_layer_fwd``,
-    ``stack_output``), so on the CPU it gives the same bits."""
+    ``stack_output``), so on the CPU it gives the same bits.  Params
+    placed on a mesh are brought whole a layer at a time on every rank,
+    each of which then runs the layer on its CPU."""
     import torch
+    from repro_torch.dist.sharding import whole
     from repro_torch.models import lm
     from repro_torch.tree import map_tree
     cpu = torch.device("cpu")
 
     def host(node):
-        return map_tree(lambda t: t.to(cpu), node)
+        # DTensor params are gathered whole: a collective every rank joins
+        return map_tree(lambda t: whole(t).to(cpu), node)
     B, S = _batch_dims(inputs[0])
     # decode_step's offset: a 0-d int64 tensor
     offsets = [0] + [torch.tensor(S + i) for i in range(len(inputs) - 1)]
@@ -1539,6 +1706,291 @@ def mesh_training_phase(dev, report, launches, profiled, get_config) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def mesh_worker():
+    """``tests/_torch_mesh_worker.py`` as a module (its ``serve_loop``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "_torch_mesh_worker", ROOT / "tests" / "_torch_mesh_worker.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def mesh_serving_phase(dev, report, launches, get_config) -> None:
+    """Serving on a mesh: ``serve_loop`` of ``tests/_torch_mesh_worker.py``
+    (the loop the gloo and four-card serving cases run) on a world-size-1
+    NCCL group's ``make_debug_mesh()``, (1, 1): MESH_SERVE_ARCH at full
+    width and LM_SERVED_LAYERS' depth in bf16, a prompt of LM_SLOTS x
+    LM_PROMPT tokens and MESH_SERVE_STEPS greedy decode steps through
+    ``launch/steps.py``'s prefill and decode steps on DTensor params and
+    a DTensor cache placed by ``cache_specs`` (each leaf's placements
+    checked after every step), then the same loop unsharded.  The tokens
+    and every step's logits must be equal bit for bit: on a (1, 1) mesh
+    every placement is ``Replicate``, so each op runs on the whole local
+    tensors as it does unsharded.  The DTensor run must launch
+    ``flash_attention`` once an attention layer and ``conv1d_tap`` three
+    times a Mamba layer (its prefill; decode launches neither).  The
+    group is destroyed at the end."""
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import ATTN
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    W = mesh_worker()
+    arch = MESH_SERVE_ARCH
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=LM_SERVED_LAYERS[arch])
+    out = report["mesh_serve"] = {"arch": arch, "layers": cfg.num_layers}
+    root = ROOT / "build" / "chip_smoke_mesh_serve"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(
+        str(root / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh()
+        if tuple(mesh.shape) != (1, 1) or mesh.device_type != dev.type:
+            fail(f"make_debug_mesh() on one card: {mesh}")
+        params = lm.init_lm(cfg, seed=0, device=dev)
+        rng = np.random.default_rng(0)
+        prompt = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (LM_SLOTS, LM_PROMPT)).astype(
+                np.int32)).to(dev)
+        kinds = cfg.layer_kinds()
+        n_attn = sum(1 for mixer, _ in kinds if mixer == ATTN)
+        planned = {"flash_attention": n_attn,
+                   "conv1d_tap": 3 * (len(kinds) - n_attn)}
+        runs = {}
+        for name in ("mesh", "one"):
+            m = mesh if name == "mesh" else None
+            p = W.place_params(params, mesh) if m is not None else params
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            r = W.serve_loop(cfg, p, prompt, MESH_SERVE_STEPS,
+                             LM_PROMPT + MESH_SERVE_STEPS, m,
+                             kv_dtype=torch.bfloat16)
+            secs = time.perf_counter() - t0
+            counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+            runs[name] = (r, counts)
+            out[name] = {"s": secs, "launches": counts,
+                         "prefill_ms": r["ms"][0],
+                         "decode_ms_median": float(np.median(r["ms"][1:])),
+                         "tokens": r["tokens"].tolist()}
+            if name == "mesh":
+                for k, v in counts.items():
+                    launches[k] += v
+            del p, r
+            _clear(dev)
+        (got, gl), (want, wl) = runs["mesh"], runs["one"]
+        same_tokens = bool(torch.equal(got["tokens"], want["tokens"]))
+        same_logits = all(torch.equal(a, b) for a, b in
+                          zip(got["logits"], want["logits"]))
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(got["logits"], want["logits"]))
+        finite = all(bool(torch.isfinite(a).all()) for a in got["logits"])
+        out.update({"tokens_equal": same_tokens,
+                    "logits_bit_equal": same_logits,
+                    "max_abs_logits_diff": diff, "planned": planned})
+        mrow, orow = out["mesh"], out["one"]
+        print(f"  {arch} at {cfg.num_layers} layers, bf16, {LM_SLOTS}x"
+              f"{LM_PROMPT} prompt + {MESH_SERVE_STEPS} greedy steps on "
+              f"the (1, 1) mesh: prefill {mrow['prefill_ms']:.1f} ms, "
+              f"decode {mrow['decode_ms_median']:.1f} ms a step (median), "
+              f"{mrow['s']:.1f} s; unsharded prefill "
+              f"{orow['prefill_ms']:.1f} ms, decode "
+              f"{orow['decode_ms_median']:.1f} ms, {orow['s']:.1f} s; "
+              f"tokens equal {same_tokens}, logits bit-equal "
+              f"{same_logits} (max diff {diff:.3e}); launches on the mesh "
+              f"{gl} (planned {planned}), unsharded {wl}; every cache leaf "
+              f"placed by cache_specs after every step")
+        if not (same_tokens and same_logits and finite):
+            fail(f"serving on the (1, 1) mesh differs from unsharded: "
+                 f"tokens equal {same_tokens}, logits bit-equal "
+                 f"{same_logits} (max diff {diff:.3e}), finite {finite}")
+        if gl != planned:
+            fail(f"serving on the (1, 1) mesh launched {gl}, planned "
+                 f"{planned}")
+        del params, runs, got, want
+        _clear(dev)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_dispatcher(stats, same) -> None:
+    """The dispatcher over ``make_serve_mesh()``: one device for each card
+    of this host (``stats()["devices"]``), and every request equal to
+    the plain frontend's bit for bit (``same``); fails otherwise."""
+    import torch
+    cards = torch.cuda.device_count()
+    if stats["devices"] != cards or not same:
+        fail(f"sharded dispatcher: devices {stats['devices']} of {cards} "
+             f"cards, bit-equal to the plain frontend {same}")
+
+
+def scaling_counts(cards: int) -> list:
+    """The card counts the dispatcher is scaled over: 1, 2, 4, ... up to
+    ``cards``, and ``cards``."""
+    return sorted({1 << i for i in range(cards.bit_length())
+                   if 1 << i <= cards} | {cards})
+
+
+def dispatcher_scaling(card, report, launches) -> None:
+    """``resnet_like`` (seed-0 params, fp32) through
+    ``ShardedServeDispatcher`` over ``make_serve_mesh(n)`` for n = 1, 2,
+    4, ... up to the card count: SCALING_REQUESTS requests of 1-4 images
+    at SCALING_GEOMETRIES, one bucket a geometry per card.  Every request
+    must equal the one-card ``AsyncServeFrontend``'s output bit for bit,
+    no conv node may plan onto a library executor, and in a
+    ``torch.profiler`` trace (the cards alone, each warmed) each card
+    must launch the kernels of its per-shard plan for every batch.  Then
+    the stream SCALING_REPEATS times over, untraced, through the
+    one-card frontend and a fresh dispatcher per n, in SCALING_ROUNDS
+    rounds of alternating order (each output bit-equal again): images/s
+    per round and ``partitions()``' utilization per card at each n."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.serve import DEFAULT_SLO_MS, SMOKE_FRONTEND
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models.cnn import resnet_like
+    from repro_torch.serve import ShardedServeDispatcher
+    count = torch.cuda.device_count()
+    ns = scaling_counts(count)
+    model = resnet_like()
+    params = model.init(0, device=torch.device("cuda", 0))
+    rng = np.random.default_rng(2)
+    shapes = list(SCALING_GEOMETRIES)
+    images = [rng.standard_normal((int(rng.integers(1, 5)),)
+                                  + shapes[i % len(shapes)],
+                                  dtype=np.float32)
+              for i in range(SCALING_REQUESTS)]
+    n_images = sum(x.shape[0] for x in images)
+
+    def sync():
+        for i in range(count):
+            torch.cuda.synchronize(i)
+
+    def dispatcher(n):
+        d = ShardedServeDispatcher(
+            model, params, SCALING_GEOMETRIES, mesh=make_serve_mesh(n),
+            max_wait_ms=SMOKE_FRONTEND.max_wait_ms,
+            default_deadline_ms=DEFAULT_SLO_MS,
+            pipeline_depth=SMOKE_FRONTEND.pipeline_depth)
+        d.warmup()
+        return d
+
+    def rows_rate(secs):
+        return SCALING_REPEATS * n_images / secs
+
+    plain = make_frontend(model, params, SCALING_GEOMETRIES)
+    p_reqs = serve_stream(plain, images)
+    check_served(plain, p_reqs, "one-card resnet_like frontend")
+    rows = {}
+    for n in ns:
+        disp = dispatcher(n)
+        plans = {}
+        for shape, progs in disp.frontend.programs.items():
+            for b in progs.buckets:
+                gp = progs.plan(b)
+                lib = {k: q.algorithm for k, q in gp.conv_plans.items()
+                       if not q.executor.kernels}
+                if lib:
+                    fail(f"dispatcher over {n} cards, {shape} bucket {b}: "
+                         f"conv nodes on a library executor: {lib}")
+                per = {}
+                for q in gp.conv_plans.values():
+                    for k in q.executor.kernels:
+                        per[k] = per.get(k, 0) + 1
+                plans[("x".join(map(str, shape)), b)] = per
+        sync()
+        _build.reset_launches()
+        with card_profiled(disp.mesh, host=False) as prof:
+            reqs = serve_stream(disp, images)
+            sync()
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        by_dev = traced_launches_by_device(prof)
+        del prof
+        for k, v in counts.items():
+            launches[k] += v
+        label = f"resnet_like dispatcher over {n} card(s)"
+        st = check_served(disp, reqs, label)
+        want = {}
+        for b in disp.frontend.telemetry.batches:
+            for k, v in plans[(b.geometry, b.bucket)].items():
+                want[k] = want.get(k, 0) + v
+        for i in range(n):
+            if by_dev.get(i, {}) != want:
+                fail(f"{label}: card {i} ran {by_dev.get(i)} != its plans' "
+                     f"{want}")
+        if counts != {k: n * v for k, v in want.items()}:
+            fail(f"{label}: launch counters {counts} != {n} x {want}")
+        same = all(np.array_equal(a.out, b.out)
+                   for a, b in zip(reqs, p_reqs))
+        if not same:
+            fail(f"{label}: a request differs from the one-card frontend")
+        rows[n] = {"devices": st["devices"],
+                   "traced_per_card": {str(i): by_dev.get(i, {})
+                                       for i in range(n)},
+                   "plans_per_card": want, "bit_equal": True}
+        del disp
+    # the untraced rates: the one-card frontend (key 0) and a fresh
+    # dispatcher per n, each serving the stream SCALING_REPEATS times
+    # over, in SCALING_ROUNDS rounds whose order alternates
+    servers = {0: make_frontend(model, params, SCALING_GEOMETRIES),
+               **{n: dispatcher(n) for n in ns}}
+    rates = {k: [] for k in servers}
+    for r in range(SCALING_ROUNDS):
+        for k in (list(servers) if r % 2 == 0 else list(servers)[::-1]):
+            sync()
+            t0 = time.perf_counter()
+            reqs2 = serve_stream(servers[k], images * SCALING_REPEATS)
+            sync()
+            rates[k].append(rows_rate(time.perf_counter() - t0))
+            who = (f"the dispatcher over {k} card(s)" if k
+                   else "the one-card frontend")
+            if r == 0:
+                check_served(servers[k], reqs2, f"{who}, untraced")
+            if not all(np.array_equal(a.out, b.out)
+                       for a, b in zip(reqs2, p_reqs * SCALING_REPEATS)):
+                fail(f"{who}, untraced: a request differs from the "
+                     f"one-card frontend's first run")
+    for n in ns:
+        st2 = servers[n].stats()
+        parts = servers[n].partitions()
+        rows[n].update({
+            "batches": st2["batches"],
+            "global_buckets": st2["global_buckets"],
+            "images_per_s": rates[n],
+            "images_per_s_median": float(np.median(rates[n])),
+            "utilization": [x["utilization"] for x in parts],
+            "units": [x["units"] for x in parts]})
+        print(f"  {card}: resnet_like dispatcher over {n} card(s) "
+              f"(global buckets {st2['global_buckets']}): "
+              f"{SCALING_REPEATS * n_images} images in "
+              f"{SCALING_REPEATS * SCALING_REQUESTS} requests a round, "
+              f"images/s {[round(x, 1) for x in rates[n]]} over "
+              f"{SCALING_ROUNDS} rounds; utilization per card "
+              f"{[round(x, 3) for x in rows[n]['utilization']]}; each "
+              f"card's traced kernels equal its plans "
+              f"({rows[n]['plans_per_card']}); every request bit-equal to "
+              f"the one-card frontend")
+    del servers, plain
+    report["frontend"]["scaling"] = {
+        "cards": count, "ns": ns, "requests": SCALING_REQUESTS,
+        "images": n_images, "repeats": SCALING_REPEATS,
+        "rounds": SCALING_ROUNDS,
+        "one_card_frontend_images_per_s": rates[0],
+        "by_n": {str(n): r for n, r in rows.items()}}
+    print(f"  {card}: images/s, medians of {SCALING_ROUNDS} rounds: the "
+          f"one-card frontend {np.median(rates[0]):.1f}; the dispatcher "
+          f"over {ns} card(s) "
+          f"{[round(rows[n]['images_per_s_median'], 1) for n in ns]}")
+
+
 def analysis_phase(dev, report, launches, get_config) -> None:
     """The analysis (``launch/dryrun.py``, ``roofline/``) held to the
     card: on a world-size-1 NCCL group's (1, 1) mesh, qwen2-1.5b's
@@ -2334,31 +2786,8 @@ def main() -> None:
                        for n in sizes]
                for shape, sizes in (((32, 32, 3), [1, 3, 2, 4, 1]),
                                     ((224, 224, 3), [1, 2]))}
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    @contextlib.contextmanager
     def profiled(host: bool = True):
-        """``torch.profiler`` (CPU and CUDA; the card alone where not
-        ``host``, which leaves the host's side of the region unslowed)
-        around a region, after a warm-up step of TRACE_WARM_LAUNCHES
-        small launches whose records are dropped, and held open
-        TRACE_PAD_S before and after it.  Kernel records are lost at
-        both ends otherwise: a trace closed right after a replayed qwen2
-        prefill once held 24 of the 28 flash kernels it ran, and traces
-        opened right before a served run missed its first batch."""
-        with profile(activities=([ProfilerActivity.CPU] if host else [])
-                     + [ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            warm = torch.zeros(256, device=dev)
-            for _ in range(TRACE_WARM_LAUNCHES):
-                warm.add_(1)
-            torch.cuda.synchronize()
-            prof.step()
-            time.sleep(TRACE_PAD_S)
-            yield prof
-            torch.cuda.synchronize()
-            time.sleep(TRACE_PAD_S)
+        return card_profiled(dev, host)
 
     engines = {}
     served = {}
@@ -3182,37 +3611,6 @@ def main() -> None:
                                                  dtype=torch.int32)
         return out
 
-    def compare_routing(arch, card, cpu):
-        """Each MoE call's top-K expert sets and kept tokens, card against
-        CPU, by (MoE layer, step).  A token whose expert set differs must
-        have its K-th and (K+1)-th CPU probabilities within
-        ROUTE_FLIP_GAP."""
-        if sorted(card) != sorted(cpu):
-            fail(f"{arch}: MoE calls (layer, step) {sorted(card)} on the "
-                 f"card, {sorted(cpu)} on the CPU")
-        flips, kept_diff, gaps = 0, 0, []
-        for key, b in sorted(cpu.items()):
-            a = card[key]
-            diff = (a["experts"] != b["experts"]).any(-1)
-            flips += int(diff.sum())
-            top = b["probs"].sort(-1, descending=True).values
-            K = a["experts"].shape[-1]
-            gap = top[:, K - 1] - top[:, K]
-            gaps += gap[diff].tolist()
-            kept_diff += int((a["kept"] != b["kept"]).any(0).sum())
-        n_experts = next(iter(cpu.values()))["probs"].shape[-1]
-        print(f"  {arch}: routing over {len(cpu)} MoE calls of "
-              f"{n_experts} experts: {flips} token(s) with another top-K "
-              f"expert set on the card (CPU gaps between the K-th and "
-              f"(K+1)-th probabilities {gaps}); {kept_diff} token(s) kept "
-              f"by another expert set")
-        if any(g > ROUTE_FLIP_GAP for g in gaps):
-            fail(f"{arch}: a token routed differently on the card with a "
-                 f"probability gap above {ROUTE_FLIP_GAP}: {gaps}")
-        return {"moe_calls": len(cpu), "experts": n_experts,
-                "topk_flips": flips, "flip_gaps": gaps,
-                "kept_differs": kept_diff}
-
     for arch in LM_ARCHS + LM_EMBED_ARCHS:
         cut, why = cpu_cut(arch, lm_cfgs[arch])
         # drawn on the card; the CPU side copies it a layer at a time
@@ -3288,6 +3686,13 @@ def main() -> None:
           f"counted on meta and on the card, the roofline with the H100's "
           f"published peaks, the dry-run CLI on the pod mesh")
     analysis_phase(dev, report, launches, get_config)
+
+    # -- 4i. serving on a mesh: the sharded prefill and decode steps ---------
+    phase(f"serving on a mesh: {MESH_SERVE_ARCH} at "
+          f"{LM_SERVED_LAYERS[MESH_SERVE_ARCH]} layers through the sharded "
+          f"prefill and {MESH_SERVE_STEPS} greedy decode steps on a (1, 1) "
+          f"mesh over a one-rank NCCL group, against unsharded")
+    mesh_serving_phase(dev, report, launches, get_config)
 
     # -- 5. timing -------------------------------------------------------------
     phase("timing (CUDA graph replays between CUDA events)")
@@ -4034,12 +4439,15 @@ def main() -> None:
     # request served with no miss, telemetry consistent, outputs against
     # the CPU engine, the trace's kernels equal to the plans, every input
     # copy from pinned memory, and the copies overlapping an earlier
-    # batch's kernels on the card.  Then the int8 frontend, the one-card
-    # sharded dispatcher against the plain frontend, and the launcher.
+    # batch's kernels on the card.  Then the int8 frontend, the sharded
+    # dispatcher over every card against the plain frontend, resnet_like
+    # through the dispatcher over 1, 2, 4, ... cards, and the launcher.
     phase(f"main path: resnet_like served by AsyncServeFrontend "
           f"({FRONTEND_REQUESTS} requests in bursts of {FRONTEND_BURST}, "
           f"pipeline depth {SMOKE_FRONTEND.pipeline_depth}), the int8 "
-          f"frontend, the one-card sharded dispatcher and the launcher")
+          f"frontend, the sharded dispatcher over "
+          f"{torch.cuda.device_count()} card(s) and over 1..n cards, and "
+          f"the launcher")
     report["frontend"] = {"card": card}
     fe_geoms = dict(SMOKE_FRONTEND.geometry_map())
     fe_geoms[(224, 224, 3)] = (1, 4)
@@ -4053,47 +4461,6 @@ def main() -> None:
 
     def geom(shape):
         return "x".join(map(str, shape))
-
-    def make_frontend(m, p, geoms, precision=None, cfg=SMOKE_FRONTEND):
-        f = AsyncServeFrontend(m, p, geoms, max_wait_ms=cfg.max_wait_ms,
-                               default_deadline_ms=DEFAULT_SLO_MS,
-                               pipeline_depth=cfg.pipeline_depth,
-                               precision=precision)
-        f.warmup()
-        return f
-
-    def serve_stream(server, images):
-        """Bursts of FRONTEND_BURST submits, each followed by a poll(),
-        then run(); the requests in submit order."""
-        reqs = []
-        for i, x in enumerate(images):
-            reqs.append(ServeRequest(rid=i, images=x))
-            server.submit(reqs[-1])
-            if (i + 1) % FRONTEND_BURST == 0:
-                server.poll()
-        server.run()
-        return reqs
-
-    def check_served(server, reqs, label):
-        """Every request served, no miss, and each trace's telemetry
-        consistent: compute and queue within the total, p50 <= p95 <=
-        p99 for every stage."""
-        st = server.stats()
-        if (st["served"] != len(reqs) or st["deadline_misses"]
-                or st["late_served"] or not all(
-                    r.status == "served" and r.out is not None
-                    and np.isfinite(r.out).all() for r in reqs)):
-            fail(f"{label}: served {st['served']} of {len(reqs)}, misses "
-                 f"{st['deadline_misses']}, late {st['late_served']}")
-        frontend_ = getattr(server, "frontend", server)
-        for t in frontend_.telemetry.requests:
-            if not (t.compute_ms <= t.total_ms and t.queue_ms <= t.total_ms):
-                fail(f"{label}: request {t.rid} compute {t.compute_ms} / "
-                     f"queue {t.queue_ms} ms over its total {t.total_ms}")
-        for stage, ps in st["latency_ms"].items():
-            if not ps["p50"] <= ps["p95"] <= ps["p99"]:
-                fail(f"{label}: {stage} percentiles {ps} not monotone")
-        return st
 
     def stage_rollups(f):
         """p50/p95/p99 of every stage, per geometry (served requests)."""
@@ -4416,13 +4783,13 @@ def main() -> None:
           f"global buckets {dst['global_buckets']}, plans {tiny_algos}; "
           f"{len(d_reqs)} requests bit-equal to the plain frontend: "
           f"{same_d}")
-    if dst["devices"] != 1 or not same_d:
-        fail(f"sharded dispatcher: devices {dst['devices']}, bit-equal to "
-             f"the plain frontend {same_d}")
+    check_dispatcher(dst, same_d)
     report["frontend"]["sharded"] = {"devices": dst["devices"],
                                      "equal_to_frontend": same_d,
                                      "plans": tiny_algos}
     del disp, plain
+    # resnet_like through the dispatcher over 1, 2, 4, ... cards
+    dispatcher_scaling(card, report, launches)
     # the launcher, as a user runs it
     t0 = time.perf_counter()
     out = subprocess.run(

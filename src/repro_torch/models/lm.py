@@ -120,26 +120,35 @@ def _layer_fwd(p, cfg, mixer, mlp, x, positions, cache, offset, mode,
 # Model init
 
 def init_lm(cfg: ModelConfig, seed: int = 0, device=None,
-            dtype=L.DEFAULT_DTYPE) -> Dict[str, Any]:
+            dtype=L.DEFAULT_DTYPE, place=None) -> Dict[str, Any]:
     """Random params from ``seed`` on ``device`` (default: the card;
     ``"meta"`` gives the shapes and dtypes alone); dense weights in
     ``dtype``; norm scales, the SSM's A_log, D and dt_bias and the MoE
-    router in fp32, as the reference."""
+    router in fp32, as the reference.
+
+    ``place(path, piece)``, where given, is called on each piece as soon
+    as it is drawn (the embedding, each layer, the final norm, the head;
+    ``path`` its keys in the tree) and what it returns takes the piece's
+    place: a caller can shard a model that no device holds whole, one
+    layer at a time, with the values drawn here."""
     dev = resolve_device(device)
     gen = (types.SimpleNamespace(device=dev) if dev.type == "meta"
            else torch.Generator(device=dev).manual_seed(seed))
+    put = place or (lambda path, piece: piece)
     params: Dict[str, Any] = {}
     if cfg.input_mode == "tokens":
-        params["embed"] = L.embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                       dtype)
+        params["embed"] = put(("embed",), L.embed_init(
+            gen, cfg.padded_vocab, cfg.d_model, dtype))
     params["segments"] = [
-        [{f"pos{i}": _layer_init(gen, cfg, mx, ml, dtype)
-          for i, (mx, ml) in enumerate(kinds)} for _ in range(repeats)]
-        for repeats, kinds in stack_plan(cfg)]
-    params["final_norm"] = L.rmsnorm_init(cfg.d_model, dev)
+        [{f"pos{i}": put(("segments", si, r, f"pos{i}"),
+                         _layer_init(gen, cfg, mx, ml, dtype))
+          for i, (mx, ml) in enumerate(kinds)} for r in range(repeats)]
+        for si, (repeats, kinds) in enumerate(stack_plan(cfg))]
+    params["final_norm"] = put(("final_norm",),
+                               L.rmsnorm_init(cfg.d_model, dev))
     if not cfg.tie_embeddings:
-        params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
-                                         dtype)
+        params["lm_head"] = put(("lm_head",), L.dense_init(
+            gen, cfg.d_model, cfg.padded_vocab, dtype))
     return params
 
 

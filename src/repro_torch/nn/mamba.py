@@ -200,19 +200,26 @@ def mamba_fwd(p, cfg, u, cache=None, mode="train"):
         dt = F.softplus(dt_raw.float() + p["dt_bias"])
         chunk = min(cfg.ssm_chunk or CHUNK, max(16, S))
         pad = (-S) % chunk
-        if pad:
-            x, Bc, Cc, dt = (F.pad(t, (0, 0, 0, pad)) for t in (x, Bc, Cc, dt))
+
+        def scan(x, dt, A, B, C):
+            # the sequence zero-padded to whole chunks and cut back, on
+            # the local tensors: torch 2.11's DTensor gives ``F.pad`` and
+            # a slice on a 2-D mesh a spec of one placement
+            if pad:
+                x, dt, B, C = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                               for t in (x, dt, B, C))
+            y, state = ssd_chunked(x, dt, A, B, C, chunk=chunk)
+            return y[:, :S], state
         # on a mesh the scan runs on each rank's batch rows, its channels
         # whole (``layers.shard_local``): DTensor has no rule for the
         # ``flip`` of its cumsum's backward, and its einsum breaks on a
         # channel-sharded SSD
         y, final_state = L.shard_local(
-            functools.partial(ssd_chunked, chunk=chunk),
-            x.reshape(Bsz, -1, H, P), dt, A,
-            Bc.reshape(Bsz, -1, G, N), Cc.reshape(Bsz, -1, G, N),
+            scan, x.reshape(Bsz, S, H, P), dt, A,
+            Bc.reshape(Bsz, S, G, N), Cc.reshape(Bsz, S, G, N),
             whole=(2,))
-        y = y.reshape(Bsz, -1, d_in)[:, :S]
-        y = y + x[:, :S].float() * D_rep
+        y = y.reshape(Bsz, S, d_in)
+        y = y + x.float() * D_rep
         if mode == "prefill":
             K1 = cfg.d_conv - 1
             (bx, bB, bC), bs = cache

@@ -34,7 +34,12 @@ capture (``_build.keep_for_graph``: the int8 executor's filter codes
 and scales) are held by the program as long as its graph.  Graphs are for CUDA tensors only; callers run their
 programs eagerly on the CPU.  A capture or replay that fails raises.
 The garbage collector is run before a capture and held off during it:
-a CUDA graph freed during a capture invalidates the capture.
+a CUDA graph freed during a capture invalidates the capture.  A program
+is captured on a side stream of its static inputs' device (one per
+device, ``capture_stream``): ``torch.cuda.graph``'s default is one
+stream made on whichever device captured first, and a capture of
+another device's kernels on it records nothing (they run eagerly, and
+every replay hands back the capture call's output).
 """
 from __future__ import annotations
 
@@ -49,6 +54,20 @@ def used_on(device) -> bool:
     """Whether the served programs on ``device`` run as CUDA graphs: on
     the card; the CPU runs them eagerly."""
     return torch.device(device).type == "cuda"
+
+
+_CAPTURE_STREAMS = {}
+
+
+def capture_stream(device) -> "torch.cuda.Stream":
+    """The side stream graphs of ``device``'s programs are captured on."""
+    device = torch.device(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    stream = _CAPTURE_STREAMS.get(index)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[index] = torch.cuda.Stream(device=index)
+    return stream
 
 
 def tensor_leaves(tree) -> List[torch.Tensor]:
@@ -128,8 +147,11 @@ class GraphedProgram:
         self.graph = self.outputs = self._bound = None
         self._keep = []
         graph = torch.cuda.CUDAGraph()
+        device = (self.inputs[0].device if self.inputs
+                  else torch.device("cuda"))
         with _build.graph_capture() as rec:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  stream=capture_stream(device)):
                 outputs = self.fn(params, buffers, *self.inputs)
         self.graph, self.outputs = graph, outputs
         self.launches, self._keep = rec["launches"], rec["keep"]

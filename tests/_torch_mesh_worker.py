@@ -12,7 +12,15 @@ ranks and waits for them.  On four cards, one process a card (NCCL):
     PYTHONPATH=src python -m torch.distributed.run --standalone \\
         --nproc-per-node 4 tests/_torch_mesh_worker.py cards <dir>
 
-(``full`` in place of ``cards``: qwen2-1.5b at full size on the mesh.)
+(``full`` in place of ``cards``: qwen2-1.5b at full size on the mesh;
+``serve_cards``: every arch of ``SERVE_ARCHS`` through the sharded
+prefill and decode steps on (2, 2) and (1, 4); ``serve_full``:
+jamba-v0.1-52b whole on both meshes, to ``serve_full.json``;
+``serve_period``: its one-period bf16 check alone.)  The
+collectives of these serving steps, counted on meta over a ``fake``
+group of four ranks (no card, no group needed):
+
+    PYTHONPATH=src python tests/_torch_mesh_worker.py serve_counts <dir>
 """
 import dataclasses
 import json
@@ -375,10 +383,38 @@ def case_trainer(d: Path, mesh):
 
 #: the repairs' archs: heads that a model axis of 4 does not divide (the
 #: smoke qwen2's 2 kv heads; 6 query heads), and the prefill/decode
-#: parity's dense, MoE (GQA and MLA) and SSM smoke variants
+#: parity's dense, MoE (GQA and MLA), SSM and hybrid (attention + Mamba +
+#: MoE) smoke variants
 HEAD_ARCHS = {"qwen2-1.5b": {}, "qwen2-1.5b-h6": {"num_heads": 6}}
 SERVE_ARCHS = ["qwen2-1.5b", "deepseek-moe-16b", "deepseek-v2-lite-16b",
-               "mamba2-1.3b"]
+               "mamba2-1.3b", "jamba-v0.1-52b"]
+#: the archs the gloo repairs serve for SERVE_STEPS decode steps on every
+#: mesh of SERVE_MESHES (the others: one decode step on (2, 2))
+SERVE_LOOP_ARCHS = ["jamba-v0.1-52b"]
+#: the serve parity's rows, prompt and decode steps; the meshes by name,
+#: each make_debug_mesh's 'model' axis over four ranks
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 16, 8
+#: a prompt that the SSD scan's chunk (16 at this length) does not divide
+SERVE_PAD_PROMPT = 12
+SERVE_MESHES = {"2x2": 2, "1x4": 4}
+#: sharded against unsharded serving, fp32: the logits and every cache
+#: leaf (fp32 rounding of the partial sums the ranks add)
+SERVE_LOGITS_TOL, SERVE_CACHE_TOL = 2e-4, 1e-5
+#: jamba-v0.1-52b whole on four cards (case_serve_full): the timed run's
+#: rows, prompt and greedy decode steps, in bf16; its runs (the first
+#: warms, the others are timed)
+FULL_ARCH = "jamba-v0.1-52b"
+FULL_BATCH, FULL_PROMPT, FULL_STEPS, FULL_RUNS = 4, 512, 16, 3
+#: one 8-layer period sharded against the same layers unsharded on one
+#: card, bf16, teacher-forced: every step's logits within this much of
+#: the unsharded run's max |logits|.  Each layer's row-parallel products
+#: (the mixer's wo or out_proj, the MLP's or experts' wo) are summed over
+#: the ranks from per-rank partial sums, each rounded to bf16 (a relative
+#: 2**-8 = 3.9e-3 each), against one sum on one card: 16 such products
+#: in a period, their errors adding as a random walk (4 x 3.9e-3 =
+#: 1.6e-2), with a factor of three for a router that picks another
+#: expert on a near tie
+FULL_PERIOD_TOL = 5e-2
 
 
 def _metrics(step, state, batch):
@@ -386,12 +422,153 @@ def _metrics(step, state, batch):
     return {k: float(v) for k, v in m.items()}
 
 
+def _tree_leaves(tree):
+    import torch
+    return torch.utils._pytree.tree_leaves(tree)
+
+
+def check_cache(cache, shardings):
+    """Every cache leaf is a DTensor placed as its ``cache_specs``
+    sharding says for its shape, holding its share of the elements and
+    no more (a step that handed back a ``Replicate`` or ``Partial`` cache
+    would grow each rank's memory without failing)."""
+    from torch.distributed.tensor import DTensor
+    ts, ss = leaves_of(cache), _tree_leaves(shardings)
+    assert len(ts) == len(ss), (len(ts), len(ss))
+    for t, s in zip(ts, ss):
+        assert isinstance(t, DTensor), type(t)
+        want = tuple(s.placements_for(t.shape))
+        if tuple(t.placements) != want:
+            raise AssertionError(f"cache leaf {tuple(t.shape)} placed "
+                                 f"{t.placements}, not {want}")
+        if t.to_local().numel() != _shard_numel(t):
+            raise AssertionError(f"cache leaf {tuple(t.shape)}: "
+                                 f"{t.to_local().numel()} local elements, "
+                                 f"its share is {_shard_numel(t)}")
+
+
+def place_params(params, mesh, mode="prefill"):
+    """``params`` (whole on every rank) placed by ``param_specs`` under
+    ``make_rules(mode)``."""
+    from repro_torch.dist import sharding as sh
+    return sh.place_tree(params, sh.named(mesh, sh.param_specs(
+        params, sh.make_rules(mode))))
+
+
+def serve_loop(cfg, params, prompt, steps, max_len, mesh=None, *,
+               moe_groups=1, kv_dtype=None, feed=None, step_ctx=None):
+    """Greedy serving through ``launch/steps.py``'s prefill and decode
+    steps, as the reference's serve cells place them: a prefill of
+    ``prompt`` ((B, S) int32 tokens, whole on every rank), then
+    ``steps`` decode steps, step ``i`` (from 0) fed at offset ``S + i``
+    the argmax over ``[:vocab_size]`` of the logits before it, or
+    ``feed[:, i]`` where ``feed`` ((B, steps) tokens) is given: a run
+    teacher-forced with another run's tokens is held to it step by step.
+
+    On ``mesh`` the params are DTensors already (``place_params``); the
+    cache (``kv_dtype``, fp32 by default) is placed by ``cache_specs``
+    under ``make_rules("prefill")``, the activations by ``P(batch, None,
+    None)`` and the tokens by ``P(batch, None)`` under each step's rules
+    (``"prefill"``, ``"decode"``), and after every step each cache leaf
+    must still be placed so (``check_cache``).  ``step_ctx(i)`` is a
+    context entered around step ``i`` (0: the prefill).
+
+    Returns ``{"logits": [(B, Vpad)] per step, whole on every rank;
+    "tokens": (B, steps + 1) argmaxes; "ms": host ms per step between
+    synchronizes; "cache": the cache}``."""
+    import contextlib
+    import torch
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import steps as St
+    from repro_torch.models import lm
+    dev = prompt.device
+    B, S = prompt.shape
+    cache = lm.init_cache(cfg, B, max_len, device=dev,
+                          kv_dtype=kv_dtype or torch.float32)
+    placed = {}
+    if mesh is not None:
+        for mode in ("prefill", "decode"):
+            rules = sh.make_rules(mode)
+            placed[mode] = (
+                sh.named(mesh, sh.cache_specs(cache, cfg, rules)),
+                sh.named(mesh, sh.P(rules["batch"], None, None)),
+                sh.named(mesh, sh.P(rules["batch"], None)))
+        cache = sh.place_tree(cache, placed["prefill"][0])
+
+    def act(mode):
+        return placed[mode][1] if placed else None
+
+    def tokens(mode, t):
+        return {"tokens": sh.place(t, placed[mode][2]) if placed else t}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    prefill = St.make_prefill_step(cfg, max_len, act_spec=act("prefill"),
+                                   moe_groups=moe_groups)
+    decode = St.make_decode_step(cfg, act_spec=act("decode"))
+    out = {"logits": [], "tokens": [], "ms": []}
+    batch = tokens("prefill", prompt)
+    for i in range(steps + 1):
+        mode = "prefill" if i == 0 else "decode"
+        with (step_ctx(i) if step_ctx else contextlib.nullcontext()):
+            sync()
+            t0 = time.perf_counter()
+            if i == 0:
+                logits, cache = prefill(params, batch, cache)
+            else:
+                logits, cache = decode(params, batch, cache, S + i - 1)
+            logits = sh.whole(logits).detach()
+            nxt = logits[:, :cfg.vocab_size].float().argmax(-1)
+            sync()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if placed:
+            check_cache(cache, placed[mode][0])
+        out["logits"].append(logits)
+        out["tokens"].append(nxt)
+        if i < steps:
+            fed = nxt if feed is None else feed[:, i].to(dev)
+            batch = tokens("decode", fed[:, None].to(torch.int32))
+    out["tokens"] = torch.stack(out["tokens"], 1)
+    out["cache"] = cache
+    return out
+
+
+def serve_parity(cfg, params, prompt, steps, mesh, moe_groups=1):
+    """``serve_loop`` unsharded (greedy), then on ``mesh`` teacher-forced
+    with its tokens: the worst logits and cache differences over the
+    steps, and whether the sharded run's own argmaxes equal them."""
+    import torch
+    from repro_torch.dist import sharding as sh
+    max_len = prompt.shape[1] + steps + 1
+    plain = serve_loop(cfg, params, prompt, steps, max_len,
+                       moe_groups=moe_groups)
+    got = serve_loop(cfg, place_params(params, mesh), prompt, steps,
+                     max_len, mesh, moe_groups=moe_groups,
+                     feed=plain["tokens"][:, :steps])
+    cache = [sh.whole(t) for t in leaves_of(got["cache"])]
+    logits = [float((a - b).abs().max())
+              for a, b in zip(got["logits"], plain["logits"])]
+    return {
+        "logits": logits, "prefill_logits": logits[0],
+        "decode_logits": max(logits[1:]),
+        "cache": max(float((x - y).abs().max()) for x, y in
+                     zip(cache, leaves_of(plain["cache"]))),
+        "cache_leaves": len(cache), "steps": steps,
+        "tokens_equal": bool(torch.equal(got["tokens"], plain["tokens"])),
+        "mesh": list(mesh.shape)}
+
+
 def case_repairs(d: Path, mesh):
     """The sharded step's repairs, each against the unsharded function:
     a train step on a (1, 4) mesh whose 'model' axis does not divide the
     heads; ``shard_local`` with a first argument placed (Shard(0),
-    Shard(0)) and a second (Shard(0), Replicate()); prefill and one
-    decode step on the (2, 2) mesh.  Results to ``repairs.json``."""
+    Shard(0)) and a second (Shard(0), Replicate()); ``serve_parity`` of
+    every arch of ``SERVE_ARCHS``, a prefill and one decode step on the
+    (2, 2) mesh, and for ``SERVE_LOOP_ARCHS`` SERVE_STEPS decode steps on
+    (2, 2) and (1, 4); jamba's prefill of SERVE_PAD_PROMPT tokens and
+    one decode step on (2, 2).  Results to ``repairs.json``."""
     import numpy as np
     import torch
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
@@ -446,45 +623,61 @@ def case_repairs(d: Path, mesh):
         "grad_b": float((db.grad.full_tensor() - b_.grad).abs().max()),
         "placements": [str(da.grad.placements), str(db.grad.placements)]}
 
-    # prefill, then one decode step, on (2, 2) against unsharded
+    # prefill and decode steps against unsharded: one step on (2, 2), and
+    # SERVE_STEPS steps on every mesh of SERVE_MESHES for SERVE_LOOP_ARCHS
+    out["serve_loop"] = {}
     for arch in SERVE_ARCHS:
         cfg = _cfg(arch, capacity_factor=8.0)
-        B, S, Lmax = 4, 16, 32
         params = lm.init_lm(cfg, seed=0, device="cpu", dtype=torch.float32)
-        rng = np.random.default_rng(4)
-        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1),
-                                             dtype=np.int64).astype(np.int32))
-        runs = []
-        for m in (None, mesh):
-            cache = lm.init_cache(cfg, B, Lmax, kv_dtype=torch.float32,
-                                  device="cpu")
-            p, act = params, None
-            pre, dec = {"tokens": toks[:, :S]}, {"tokens": toks[:, S:]}
-            if m is not None:
-                rp = sh.make_rules("prefill")
-                p = sh.place_tree(params, sh.named(m, sh.param_specs(params,
-                                                                     rp)))
-                cache = sh.place_tree(cache, sh.named(m, sh.cache_specs(
-                    cache, cfg, rp)))
-                act = sh.named(m, sh.P(rp["batch"], None, None))
-                pre, dec = ({k: sh.place(v, sh.named(m, sh.P(
-                    rp["batch"], None))) for k, v in t.items()}
-                    for t in (pre, dec))
-            lp, cache = St.make_prefill_step(cfg, Lmax, act_spec=act)(
-                p, pre, cache)
-            ld, cache = St.make_decode_step(cfg, act_spec=act)(
-                p, dec, cache, S)
-            runs.append([sh.whole(t).detach() for t in
-                         [lp, ld] + leaves_of(cache)])
-        (plain, sharded) = runs
-        out["serve"][arch] = {
-            "prefill_logits": float((sharded[0] - plain[0]).abs().max()),
-            "decode_logits": float((sharded[1] - plain[1]).abs().max()),
-            "cache": max(float((x - y).abs().max())
-                         for x, y in zip(sharded[2:], plain[2:])),
-            "cache_leaves": len(plain) - 2}
+        prompt = _serve_prompt(cfg)
+        if arch not in SERVE_LOOP_ARCHS:
+            out["serve"][arch] = serve_parity(cfg, params, prompt, 1, mesh)
+            continue
+        for name, model in SERVE_MESHES.items():
+            m = make_debug_mesh(model=model)
+            out["serve_loop"].setdefault(arch, {})[name] = serve_parity(
+                cfg, params, prompt, SERVE_STEPS, m,
+                moe_groups=m.shape[0])
+        out["serve"][arch] = out["serve_loop"][arch]["2x2"]
+    # a prompt the SSD scan's chunk does not divide (12 tokens, chunk
+    # 16): the scan pads the sequence and cuts it back on (2, 2)
+    cfg = _cfg("jamba-v0.1-52b", capacity_factor=8.0)
+    out["serve_pad"] = serve_parity(
+        cfg, lm.init_lm(cfg, seed=0, device="cpu", dtype=torch.float32),
+        _serve_prompt(cfg)[:, :SERVE_PAD_PROMPT].contiguous(), 1, mesh,
+        moe_groups=mesh.shape[0])
     if torch.distributed.get_rank() == 0:
         (d / "repairs.json").write_text(json.dumps(out))
+
+
+def _serve_prompt(cfg, dev="cpu"):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(4)
+    return torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)).astype(
+            np.int32)).to(dev)
+
+
+def case_serve_one(d: Path, mesh):
+    """On one rank's (1, 1) mesh: ``serve_loop`` for SERVE_STEPS greedy
+    steps of the smoke jamba, fp32, on the mesh and unsharded, each
+    greedy on its own argmaxes; tokens and worst logits difference to
+    ``serve_one.json``."""
+    import torch
+    from repro_torch.models import lm
+    assert tuple(mesh.shape) == (1, 1), mesh
+    cfg = _cfg("jamba-v0.1-52b", capacity_factor=8.0)
+    params = lm.init_lm(cfg, seed=0, device="cpu", dtype=torch.float32)
+    prompt = _serve_prompt(cfg)
+    max_len = SERVE_PROMPT + SERVE_STEPS + 1
+    plain = serve_loop(cfg, params, prompt, SERVE_STEPS, max_len)
+    got = serve_loop(cfg, place_params(params, mesh), prompt, SERVE_STEPS,
+                     max_len, mesh)
+    (d / "serve_one.json").write_text(json.dumps({
+        "tokens": [got["tokens"].tolist(), plain["tokens"].tolist()],
+        "logits": max(float((a - b).abs().max()) for a, b in
+                      zip(got["logits"], plain["logits"]))}))
 
 
 def case_pin(d: Path, mesh):
@@ -716,16 +909,537 @@ def case_full(d: Path, mesh):
             "device": torch.cuda.get_device_name(0)}))
 
 
+def case_serve_cards(d: Path, mesh):
+    """On four cards under ``torchrun`` (NCCL; four gloo ranks run it
+    too): every arch of ``SERVE_ARCHS``, smoke fp32 at capacity factor
+    8, through ``serve_parity`` (a prefill of SERVE_PROMPT tokens and
+    SERVE_STEPS decode steps) on every mesh of SERVE_MESHES against the
+    unsharded loop on the same device, MoE routed in the 'data' axis's
+    groups; each run's worst differences and the kernels it launched to
+    ``serve_cards.json``.  Fails where a difference breaks its bound."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import sharding as sh
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    dev = sh.device_of(mesh)
+    meshes = {name: make_debug_mesh(model=model)
+              for name, model in SERVE_MESHES.items()}
+    out = {"torch": torch.__version__, "device": _device_name(dev),
+           "archs": {}}
+    bad = []
+    for arch in SERVE_ARCHS:
+        cfg = _cfg(arch, capacity_factor=8.0)
+        params = lm.init_lm(cfg, seed=0, device=dev, dtype=torch.float32)
+        prompt = _serve_prompt(cfg, dev)
+        for name, m in meshes.items():
+            t0 = time.perf_counter()
+            _build.reset_launches()
+            r = serve_parity(cfg, params, prompt, SERVE_STEPS, m,
+                             moe_groups=m.shape[0])
+            r["launches"] = {k: v for k, v in _build.LAUNCHES.items() if v}
+            r["s"] = time.perf_counter() - t0
+            out["archs"].setdefault(arch, {})[name] = r
+            if not (max(r["logits"]) <= SERVE_LOGITS_TOL
+                    and r["cache"] <= SERVE_CACHE_TOL):
+                bad.append((arch, name, max(r["logits"]), r["cache"]))
+    out["bad"] = bad
+    if dist.get_rank() == 0:
+        (d / "serve_cards.json").write_text(json.dumps(out, indent=1))
+    if bad:
+        raise AssertionError(f"sharded serving off unsharded: {bad}")
+
+
+def _device_name(dev):
+    import torch
+    return (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else dev.type)
+
+
+def _chip_smoke():
+    """The repository's ``chip_smoke.py`` as a module (its helpers and
+    bounds; its ``main`` is not run)."""
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _own(t):
+    """A placed DTensor whose local shard owns its storage: a dim-0 shard
+    is a view of the whole tensor it was cut from, which would otherwise
+    stay alive beside it."""
+    from torch.distributed.tensor import DTensor
+    loc = t.to_local()
+    if loc.untyped_storage().nbytes() == loc.numel() * loc.element_size():
+        return t
+    return DTensor.from_local(loc.clone(), t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def placed_init(cfg, mesh, dtype=None, mode="prefill"):
+    """``lm.init_lm(cfg, seed=0)``'s params on ``mesh``, placed by
+    ``param_specs`` under ``make_rules(mode)`` one piece at a time as
+    they are drawn on this rank's device: each rank keeps its shards
+    only, and no device holds more than the model's largest layer
+    beside them."""
+    import torch
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import lm
+    from repro_torch.tree import map_tree
+    specs = sh.named(mesh, sh.param_specs(lm.init_lm(cfg, device="meta"),
+                                          sh.make_rules(mode)))
+
+    def place(path, piece):
+        node = specs
+        for k in path:
+            node = node[k]
+        return map_tree(lambda t, s: _own(sh.place(t, s)), piece, node)
+    return lm.init_lm(cfg, seed=0, device=sh.device_of(mesh),
+                      dtype=dtype or torch.bfloat16, place=place)
+
+
+def _gib(n):
+    return n / 2 ** 30
+
+
+def _local_gib(tree):
+    from repro_torch.dist import sharding as sh
+    return _gib(sum(sh.local_shard(t).numel() * t.element_size()
+                    for t in leaves_of(tree)))
+
+
+class _MoeAux:
+    """While entered, records the aux statistics (``dropped_frac``,
+    ``load_balance_loss``) of every prefill MoE call, whole."""
+
+    def __enter__(self):
+        from repro_torch.nn import moe
+        self._moe, self._fwd, self.calls = moe, moe.moe_fwd, []
+        moe.moe_fwd = self._record
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.moe_fwd = self._fwd
+
+    def _record(self, p, cfg, x, dropless=False, n_groups=1):
+        from repro_torch.dist import sharding as sh
+        out, aux = self._fwd(p, cfg, x, dropless, n_groups)
+        if not dropless:
+            self.calls.append({k: sh.whole(v) for k, v in aux.items()})
+        return out, aux
+
+
+_DTYPE_BYTES = {"Float": 4, "BFloat16": 2, "Half": 2, "Double": 8,
+                "Long": 8, "Int": 4, "Short": 2, "Char": 1, "Byte": 1,
+                "Bool": 1}
+
+
+def nccl_records(trace: Path) -> dict:
+    """The collectives of a ``torch.profiler`` chrome trace: the NCCL
+    kernels by name (count, device us), and the c10d calls by their
+    ``Collective name`` (count, output bytes: ``Out msg nelems`` times
+    the dtype's size)."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels, calls = {}, {}
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("cat") == "kernel" and "nccl" in e.get("name", "").lower():
+            k = kernels.setdefault(e["name"].split("(")[0],
+                                   {"count": 0, "us": 0.0})
+            k["count"] += 1
+            k["us"] += float(e.get("dur", 0.0))
+        if e.get("cat") == "cpu_op" and "Collective name" in args:
+            c = calls.setdefault(args["Collective name"],
+                                 {"count": 0, "bytes": 0, "group": set()})
+            c["count"] += 1
+            c["bytes"] += int(args.get("Out msg nelems", 0)) * \
+                _DTYPE_BYTES.get(args.get("dtype"), 0)
+            c["group"].add(args.get("Group size"))
+    for c in calls.values():
+        c["group"] = sorted(map(str, c["group"]))
+    return {"nccl_kernels": kernels, "nccl_calls": calls}
+
+
+def _traced(cs, dev, box, trace: Path):
+    """A ``torch.profiler`` context (CPU and CUDA, shapes recorded) as
+    chip_smoke's ``profiled`` opens one: a warm-up step whose records are
+    dropped, the region held open TRACE_PAD_S on both sides.  On exit
+    ``box`` holds the profile and ``trace`` its chrome trace."""
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    @contextlib.contextmanager
+    def ctx():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True,
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            warm = torch.zeros(256, device=dev)
+            for _ in range(cs.TRACE_WARM_LAUNCHES):
+                warm.add_(1)
+            torch.cuda.synchronize(dev)
+            prof.step()
+            time.sleep(cs.TRACE_PAD_S)
+            yield
+            torch.cuda.synchronize(dev)
+            time.sleep(cs.TRACE_PAD_S)
+        prof.export_chrome_trace(str(trace))
+        box["prof"] = prof
+    return ctx()
+
+
+def _serve_full_timed(d, cs, mesh, name):
+    """jamba-v0.1-52b whole in bf16 on ``mesh``: FULL_RUNS runs of
+    ``serve_loop`` (FULL_BATCH x FULL_PROMPT, FULL_STEPS greedy decode
+    steps, the config's capacity factor, MoE groups the 'data' axis's
+    size as the reference's dry-run passes them), the first warming, then
+    one more with its last decode step traced on rank 0."""
+    import contextlib
+    import statistics
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist import sharding as sh
+    from repro_torch.kernels import _build
+    rank, dev = dist.get_rank(), sh.device_of(mesh)
+    cfg = get_config(FULL_ARCH)
+    dp = mesh.shape[mesh.mesh_dim_names.index("data")]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = placed_init(cfg, mesh)
+    torch.cuda.synchronize(dev)
+    row = {"mesh": list(mesh.shape), "cards": dist.get_world_size(),
+           "init_s": time.perf_counter() - t0,
+           "init_peak_gib": _gib(torch.cuda.max_memory_allocated(dev)),
+           "moe_groups": dp, "capacity_factor": cfg.capacity_factor}
+    param_gib = _local_gib(params)
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (FULL_BATCH, FULL_PROMPT)).astype(
+            np.int32)).to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs, aux, launches, box = [], None, [], {}
+    trace = d / f"serve_full_{name}_decode_rank0.json"
+    for run in range(FULL_RUNS + 1):
+        last = run == FULL_RUNS
+
+        def step_ctx(i, last=last):
+            if last and rank == 0 and i == FULL_STEPS:
+                return _traced(cs, dev, box, trace)
+            return contextlib.nullcontext()
+        _build.reset_launches()
+        with (_MoeAux() if run == 0 else contextlib.nullcontext()) as log:
+            r = serve_loop(cfg, params, prompt, FULL_STEPS,
+                           FULL_PROMPT + FULL_STEPS, mesh, moe_groups=dp,
+                           kv_dtype=torch.bfloat16, step_ctx=step_ctx)
+        launches.append({k: v for k, v in _build.LAUNCHES.items() if v})
+        if run == 0:
+            aux = [{k: float(v) for k, v in c.items()} for c in log.calls]
+        runs.append({"ms": r["ms"], "tokens": r["tokens"].tolist()})
+        del r
+    timed = runs[1:FULL_RUNS]
+    pre = statistics.median(x["ms"][0] for x in timed)
+    dec = statistics.median(m for x in timed for m in x["ms"][1:])
+    peak = _gib(torch.cuda.max_memory_allocated(dev))
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, {"rank": rank, "param_gib": param_gib,
+                                   "peak_gib": peak,
+                                   "launches": launches[1]})
+    row.update({
+        "prefill_ms": pre, "decode_ms": dec,
+        "prefill_tokens_per_s": FULL_BATCH * FULL_PROMPT / pre * 1e3,
+        "decode_tokens_per_s": FULL_BATCH / dec * 1e3,
+        "tokens_per_s": FULL_BATCH * (FULL_PROMPT + FULL_STEPS) / (
+            pre + FULL_STEPS * dec) * 1e3,
+        "runs_ms": [x["ms"] for x in runs],
+        "tokens_equal_over_runs": all(x["tokens"] == runs[0]["tokens"]
+                                      for x in runs),
+        "tokens": runs[0]["tokens"], "ranks": ranks,
+        "max_param_gib": max(x["param_gib"] for x in ranks),
+        "max_peak_gib": max(x["peak_gib"] for x in ranks),
+        "prefill_moe": {
+            "calls": len(aux),
+            "dropped_frac": [a["dropped_frac"] for a in aux],
+            "load_balance_loss": [a["load_balance_loss"] for a in aux]}})
+    # the kernels each rank launched in one run: flash_attention once an
+    # attention layer of the prefill, conv1d_tap three times (x, B, C) a
+    # Mamba layer of the prefill; decode launches neither
+    from repro_torch.configs.base import ATTN
+    kinds = cfg.layer_kinds()
+    n_attn = sum(1 for mixer, _ in kinds if mixer == ATTN)
+    row["planned_launches"] = {"flash_attention": n_attn,
+                               "conv1d_tap": 3 * (len(kinds) - n_attn)}
+    if rank == 0:
+        prof = box.pop("prof")
+        records = cs.device_records(prof)
+        busy = cs.busy_ms(records)
+        step_ms = runs[-1]["ms"][-1]
+        row["traced_decode"] = {
+            "step_ms": step_ms, "kernels": sum(
+                1 for rec in records if cs.is_kernel(rec[0])),
+            "busy_ms": busy, "busy_share": busy / step_ms,
+            "idle_share": 1 - busy / step_ms,
+            "idle_share_untraced": 1 - busy / dec,
+            "ours": cs.traced_launches(prof), **nccl_records(trace)}
+        del prof
+    del params
+    cs._clear(dev)
+    return row
+
+
+def _serve_full_period(cs, mesh):
+    """One period (8 layers) of jamba in bf16: on rank 0's card alone,
+    greedy, then on ``mesh`` teacher-forced with its tokens; every
+    step's worst logits difference against FULL_PERIOD_TOL x the
+    unsharded max |logits|.  Beside it, the same layers in fp32 on rank
+    0's card, fed the same tokens: each bf16 run's distance from it."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models import lm
+    rank, dev = dist.get_rank(), sh.device_of(mesh)
+    base = get_config(FULL_ARCH)
+    cfg = dataclasses.replace(base, num_layers=base.pattern_period)
+    dp = mesh.shape[mesh.mesh_dim_names.index("data")]
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (FULL_BATCH, FULL_PROMPT)).astype(
+            np.int32)).to(dev)
+    max_len = FULL_PROMPT + FULL_STEPS
+    feed = torch.zeros((FULL_BATCH, FULL_STEPS + 1), dtype=torch.int64,
+                       device=dev)
+    plain = ref = None
+    if rank == 0:
+        params = lm.init_lm(cfg, seed=0, device=dev)
+        plain = serve_loop(cfg, params, prompt, FULL_STEPS, max_len,
+                           moe_groups=dp, kv_dtype=torch.bfloat16)
+        feed.copy_(plain["tokens"])
+        del params, plain["cache"]
+        cs._clear(dev)
+        # the same layers in fp32, fed the same tokens: how far bf16
+        # alone moves the logits
+        params = lm.init_lm(cfg, seed=0, device=dev, dtype=torch.float32)
+        ref = serve_loop(cfg, params, prompt, FULL_STEPS, max_len,
+                         moe_groups=dp, feed=feed[:, :FULL_STEPS])
+        del params, ref["cache"]
+        cs._clear(dev)
+    dist.broadcast(feed, 0)
+    params = placed_init(cfg, mesh)
+    got = serve_loop(cfg, params, prompt, FULL_STEPS, max_len, mesh,
+                     moe_groups=dp, kv_dtype=torch.bfloat16,
+                     feed=feed[:, :FULL_STEPS])
+    row = None
+    if rank == 0:
+        def errs(run, to):
+            return [float((a.float() - b.float()).abs().max())
+                    for a, b in zip(run["logits"], to["logits"])]
+        scale = max(float(b.float().abs().max()) for b in plain["logits"])
+        row = {"layers": cfg.num_layers, "max_abs_err": errs(got, plain),
+               "bound": FULL_PERIOD_TOL * scale,
+               "tokens_agree": float((got["tokens"] == feed).float().mean()),
+               "bf16_vs_fp32": errs(plain, ref),
+               "sharded_vs_fp32": errs(got, ref),
+               "fp32_tokens_agree": float(
+                   (ref["tokens"] == feed).float().mean())}
+        row["ok"] = max(row["max_abs_err"]) <= row["bound"]
+    del params, got
+    cs._clear(dev)
+    return row
+
+
+def _serve_full_cpu_check(cs, mesh):
+    """jamba-v0.1-52b whole in fp32 on ``mesh`` at capacity factor 8:
+    LM_CPU_BATCH x LM_CPU_PROMPT tokens and LM_CPU_STEPS teacher-forced
+    decode steps through ``serve_loop``, against chip_smoke's
+    ``layerwise_cpu_logits`` (the CPU one layer at a time, each layer
+    brought whole with ``sharding.whole``, a collective every rank
+    joins, so every rank computes the CPU side); the MoE routing of both
+    sides by (MoE layer, step)."""
+    import contextlib
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist import sharding as sh
+    dev = sh.device_of(mesh)
+    cfg = dataclasses.replace(get_config(FULL_ARCH), capacity_factor=8.0)
+    t0 = time.perf_counter()
+    params = placed_init(cfg, mesh, dtype=torch.float32)
+    init_s = time.perf_counter() - t0
+    param_gib = _local_gib(params)
+    n, B, S = cs.LM_CPU_STEPS + 1, cs.LM_CPU_BATCH, cs.LM_CPU_PROMPT
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (n, B, S)).astype(np.int32))
+    inputs = [{"tokens": toks[0]}] + [{"tokens": toks[t, :, :1]}
+                                      for t in range(1, n)]
+    max_len = S + cs.LM_CPU_STEPS
+    routes = cs.RoutingLog(), cs.RoutingLog()
+
+    def step(i):
+        routes[0].step = i
+        return contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with routes[0]:
+        card = serve_loop(cfg, params, toks[0].to(dev), cs.LM_CPU_STEPS,
+                          max_len, mesh, feed=toks[1:, :, 0].T,
+                          step_ctx=step)
+    card_s = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    t0 = time.perf_counter()
+    try:
+        with routes[1]:
+            want = cs.layerwise_cpu_logits(params, cfg, inputs, max_len,
+                                           routes[1])
+    finally:
+        torch.set_num_threads(threads)
+    cpu_s = time.perf_counter() - t0
+    errs = []
+    for a, b in zip(card["logits"], want):
+        b = b[:, -1, :]
+        errs.append({"max_abs_err": float((a.cpu() - b).abs().max()),
+                     "bound": cs.LM_CPU_TOL * float(b.abs().max()),
+                     "finite": bool(torch.isfinite(a).all())})
+    try:
+        routing = cs.compare_routing(FULL_ARCH, routes[0].calls,
+                                     routes[1].calls)
+        routing["ok"] = True
+    except SystemExit:
+        routing = {"ok": False}
+    del params
+    cs._clear(dev)
+    return {"mesh": list(mesh.shape), "param_gib": param_gib,
+            "init_s": init_s, "card_s": card_s, "cpu_s": cpu_s,
+            "logits": errs, "routing": routing,
+            "ok": routing["ok"] and all(
+                e["max_abs_err"] <= e["bound"] and e["finite"]
+                for e in errs)}
+
+
+def case_serve_full(d: Path, mesh):
+    """Under ``torchrun`` on four cards: jamba-v0.1-52b at full width and
+    all 32 layers.  On (1, 4) and (2, 2): the timed bf16 run
+    (``_serve_full_timed``) and the one-period check
+    (``_serve_full_period``); on (1, 4), the fp32 whole-model check
+    against the CPU (``_serve_full_cpu_check``).  Everything to
+    ``serve_full.json`` on rank 0; fails after writing it where a check
+    failed."""
+    import subprocess as sp
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.mesh import make_debug_mesh
+    cs = _chip_smoke()
+    rank, dev = dist.get_rank(), sh.device_of(mesh)
+    try:
+        smi = sp.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                      "--format=csv,noheader"], capture_output=True,
+                     text=True, timeout=60).stdout.strip().splitlines()
+    except FileNotFoundError:            # gloo ranks on a host with no card
+        smi = []
+    out = {"card": smi[0].strip() if smi else None,
+           "device": _device_name(dev), "torch": torch.__version__,
+           "cards": dist.get_world_size()}
+    bad = []
+
+    def save():
+        if rank == 0:
+            (d / "serve_full.json").write_text(json.dumps(out, indent=1))
+    for name, model in (("1x4", 4), ("2x2", 2)):
+        m = make_debug_mesh(model=model)
+        t0 = time.perf_counter()
+        row = out[name] = _serve_full_timed(d, cs, m, name)
+        got = [r["launches"] for r in row["ranks"]]
+        if any(g != row["planned_launches"] for g in got):
+            bad.append((name, "launches", got))
+        save()
+        row["period"] = _serve_full_period(cs, m)
+        if rank == 0 and not row["period"]["ok"]:
+            bad.append((name, "period"))
+        if name == "1x4":
+            row["cpu_check"] = _serve_full_cpu_check(cs, m)
+            if not row["cpu_check"]["ok"]:
+                bad.append((name, "cpu_check"))
+        row["s"] = time.perf_counter() - t0
+        save()
+    out["bad"] = bad
+    save()
+    if bad:
+        raise AssertionError(f"serve_full: {bad}")
+
+
+def case_serve_period(d: Path, mesh):
+    """``_serve_full_period`` alone on (1, 4) and (2, 2), to
+    ``serve_period.json`` on rank 0; fails where a period is out of its
+    bound."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    cs = _chip_smoke()
+    out = {name: _serve_full_period(cs, make_debug_mesh(model=model))
+           for name, model in (("1x4", 4), ("2x2", 2))}
+    if dist.get_rank() == 0:
+        (d / "serve_period.json").write_text(json.dumps(out, indent=1))
+        bad = [name for name, row in out.items() if not row["ok"]]
+        if bad:
+            raise AssertionError(f"serve_period out of bound: {bad}")
+
+
+def serve_counts(d: Path) -> None:
+    """The collectives of jamba-v0.1-52b's decode step at the timed
+    run's shapes (FULL_BATCH rows, a cache of FULL_PROMPT + FULL_STEPS,
+    bf16) on (1, 4) and (2, 2), counted by ``launch/dryrun.py``'s
+    ``CostCounter`` on meta over a ``fake`` group of four ranks, to
+    ``serve_counts.json``."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_debug_mesh
+    D.fake_world(4)
+    shape = ShapeConfig("serve_full", FULL_PROMPT + FULL_STEPS, FULL_BATCH,
+                        "decode")
+    out = {"torch": torch.__version__}
+    for name, model in SERVE_MESHES.items():
+        t0 = time.perf_counter()
+        *_, rec = D.lower_cell(FULL_ARCH, shape, False,
+                               mesh=make_debug_mesh(model=model))
+        out[name] = {"collectives": rec["collectives"],
+                     "collective_bytes_per_device":
+                         rec["collective_bytes_per_device"],
+                     "flops_per_device": rec["flops_per_device"],
+                     "bytes_accessed_per_device":
+                         rec["bytes_accessed_per_device"],
+                     "memory": rec["memory"], "s": time.perf_counter() - t0}
+        print(name, json.dumps(out[name]), flush=True)
+    (Path(d) / "serve_counts.json").write_text(json.dumps(out, indent=1))
+
+
 def main(case, d, rank=None, world=None):
     """``rank``/``world`` given: a gloo rank on a FileStore in ``d``;
     else a ``torchrun`` rank on its card (NCCL)."""
+    import datetime
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
     d = Path(d)
+    if case == "serve_counts":
+        return serve_counts(d)
     if rank is None:
         torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
-        dist.init_process_group("nccl")
+        # the whole-model check holds every rank at a collective while
+        # each runs its CPU side, minutes at a time
+        dist.init_process_group("nccl", timeout=datetime.timedelta(
+            minutes=60))
     else:
         dist.init_process_group(
             "gloo", init_method=f"file://{d}/store-{case}", rank=int(rank),
@@ -739,7 +1453,10 @@ def main(case, d, rank=None, world=None):
         else:
             {"ckpt": case_ckpt, "trainer": case_trainer,
              "repairs": case_repairs, "pin": case_pin,
-             "cards": case_cards, "full": case_full}[case](d, mesh)
+             "serve_one": case_serve_one, "cards": case_cards,
+             "full": case_full, "serve_cards": case_serve_cards,
+             "serve_full": case_serve_full,
+             "serve_period": case_serve_period}[case](d, mesh)
     finally:
         dist.destroy_process_group()
 

@@ -248,3 +248,22 @@ def test_launcher_lm_exits_zero_on_the_cpu():
                   "--max-len", "16")
     assert out.returncode == 0, out.stderr[-3000:]
     assert "[serve] 2 requests, 8 tokens" in out.stdout
+
+
+def test_chip_smoke_dispatcher_gate_expects_every_card(monkeypatch):
+    """chip_smoke's frontend phase holds the dispatcher over
+    ``make_serve_mesh()`` to one device for each card of the host: with
+    four cards (``torch.cuda.device_count`` mocked) a dispatcher that
+    reports 4 devices passes and one that reports 1 fails, as does one
+    whose requests differ from the plain frontend's; the dispatcher is
+    scaled over 1, 2 and 4 cards there, and over 1 on one card."""
+    from _torch_parity import chip_smoke
+    cs = chip_smoke()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cs.check_dispatcher({"devices": 4}, True)
+    for stats, same in (({"devices": 1}, True), ({"devices": 4}, False)):
+        with pytest.raises(SystemExit):
+            cs.check_dispatcher(stats, same)
+    assert cs.scaling_counts(torch.cuda.device_count()) == [1, 2, 4]
+    assert cs.scaling_counts(1) == [1]
+    assert cs.scaling_counts(3) == [1, 2, 3]

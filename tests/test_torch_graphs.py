@@ -176,16 +176,28 @@ class _FakeGraph:
         self.replays += 1
 
 
+class _Pools(list):
+    """The ``pool`` each capture was given; ``streams``, its stream."""
+
+    def __init__(self):
+        super().__init__()
+        self.streams = []
+
+
 @pytest.fixture
 def fake_graphs(monkeypatch):
-    """Fake CUDA graphs; yields the ``pool`` each capture was given."""
-    pools = []
+    """Fake CUDA graphs; yields the ``pool`` each capture was given (and
+    its capture stream, a stand-in naming the device)."""
+    pools = _Pools()
 
-    def graph(g, pool=None):
+    def graph(g, pool=None, stream=None):
         pools.append(pool)
+        pools.streams.append(stream)
         return contextlib.nullcontext()
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(graphs, "capture_stream",
+                        lambda device: f"side stream of {device}")
     yield pools
 
 
@@ -284,6 +296,32 @@ def test_graphed_program_recaptures_on_a_tensor_swapped_into_the_dict(
     prog(params, None, torch.ones(3))
     assert (prog.captures, prog.replays) == (2, 2)
     assert fake_graphs == ["shared", "shared"]
+
+
+def test_graphed_program_captures_on_a_stream_of_its_inputs_device(
+        fake_graphs, monkeypatch):
+    """A program is captured on ``capture_stream`` of its static inputs'
+    device, one side stream a device, and not on ``torch.cuda.graph``'s
+    default: one stream made on whichever device captured first, on
+    which a capture of another card's program records nothing (every
+    replay then hands back the capture call's output, as the dispatcher
+    over four cards did)."""
+    fn, _ = _program()
+    prog = graphs.GraphedProgram(fn, [torch.zeros(3)])
+    prog({"w": torch.ones(3)}, None, torch.ones(3))
+    assert fake_graphs.streams == ["side stream of cpu"]
+    monkeypatch.undo()
+    made = []
+
+    class Stream:
+        def __init__(self, device=None):
+            made.append(device)
+    monkeypatch.setattr(torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(graphs, "_CAPTURE_STREAMS", {})
+    one = graphs.capture_stream("cuda:1")
+    assert graphs.capture_stream(torch.device("cuda", 1)) is one
+    assert graphs.capture_stream("cuda:2") is not one
+    assert made == [1, 2]
 
 
 def test_graph_capture_keeps_cached_tensors_and_restores_counts():

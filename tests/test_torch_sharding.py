@@ -17,6 +17,8 @@ import torch
 import torch.distributed as dist
 
 from _torch_mesh_worker import (GRAD_ARCHS, HEAD_ARCHS, SERVE_ARCHS,
+                                SERVE_CACHE_TOL, SERVE_LOGITS_TOL,
+                                SERVE_LOOP_ARCHS, SERVE_MESHES, SERVE_STEPS,
                                 SMALL_ARCHS, SMALL_BATCH, STEP_ACCUM,
                                 STEP_ARCHS, STEP_BATCH, STEP_LR, STEP_SEQ,
                                 run_ranks, step_runs)
@@ -474,20 +476,75 @@ def test_shard_local_brings_arguments_to_the_first_ones_shards(repairs):
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_sharded_prefill_and_decode_match_unsharded(arch, repairs):
-    """Dense, MoE (under GQA and MLA) and SSM smoke variants in fp32: a
-    prefill of 16 tokens
-    and one decode step on DTensor params and caches placed by
-    ``cache_specs`` (the per-repeat layout ``lm_forward`` reads) on the
-    (2, 2) mesh: the logits within 2e-4 of the unsharded steps', every
-    cache leaf within 1e-5 (fp32 rounding of the partial sums the ranks
-    add)."""
+    """Dense, MoE (under GQA and MLA), SSM and hybrid smoke variants in
+    fp32: a prefill of 16 tokens
+    and one decode step (jamba: SERVE_STEPS) on DTensor params and caches
+    placed by ``cache_specs`` (the per-repeat layout ``lm_forward``
+    reads) on the (2, 2) mesh: the logits within 2e-4 of the unsharded
+    steps', every cache leaf within 1e-5 (fp32 rounding of the partial
+    sums the ranks add)."""
     got = repairs["serve"][arch]
     assert got["prefill_logits"] <= 2e-4 and got["decode_logits"] <= 2e-4
     assert got["cache"] <= 1e-5
     # two layers: k and v (GQA), one latent (MLA), three conv tails and
-    # the SSM state (Mamba2)
+    # the SSM state (Mamba2); jamba's period: one attention layer and
+    # seven Mamba layers
     assert got["cache_leaves"] == {"deepseek-v2-lite-16b": 2,
-                                   "mamba2-1.3b": 8}.get(arch, 4)
+                                   "mamba2-1.3b": 8,
+                                   "jamba-v0.1-52b": 30}.get(arch, 4)
+
+
+@pytest.mark.parametrize("mesh", sorted(SERVE_MESHES))
+@pytest.mark.parametrize("arch", SERVE_LOOP_ARCHS)
+def test_sharded_serve_loop_matches_unsharded(arch, mesh, repairs):
+    """The hybrid (attention + Mamba + MoE) smoke variant in fp32 through
+    the worker's ``serve_loop``: a prefill of 16 tokens and SERVE_STEPS
+    decode steps on (2, 2) and on (1, 4) (2 kv heads over a 'model'
+    axis of 4: padded heads in prefill; the Mamba tails and SSM state
+    through ``shard_local``), teacher-forced with the unsharded greedy
+    run's tokens.  Every step's logits within 2e-4 of the unsharded
+    loop's, every cache leaf within 1e-5 after the last step, the
+    sharded run's own argmaxes equal to the unsharded tokens, and after
+    every step each cache leaf still placed as ``cache_specs`` says and
+    holding only its share (checked on the ranks: a rank that found one
+    otherwise failed the run)."""
+    got = repairs["serve_loop"][arch][mesh]
+    assert got["mesh"] == [4 // SERVE_MESHES[mesh], SERVE_MESHES[mesh]]
+    assert got["steps"] == SERVE_STEPS
+    assert len(got["logits"]) == SERVE_STEPS + 1
+    assert max(got["logits"]) <= SERVE_LOGITS_TOL, got["logits"]
+    assert got["cache"] <= SERVE_CACHE_TOL
+    assert got["tokens_equal"]
+
+
+def test_sharded_prefill_pads_the_ssd_chunks_on_local_tensors(repairs):
+    """A prompt of SERVE_PAD_PROMPT tokens, which the Mamba2 scan's chunk
+    does not divide, through the smoke jamba's sharded prefill and one
+    decode step on (2, 2), fp32: the logits within 2e-4 and the cache
+    within 1e-5 of unsharded (the scan pads the sequence to whole chunks
+    and cuts it back on each rank's local tensors; torch 2.11's DTensor
+    failed ``F.pad`` on the 2-D mesh)."""
+    got = repairs["serve_pad"]
+    assert got["steps"] == 1 and got["cache_leaves"] == 30
+    assert max(got["logits"]) <= SERVE_LOGITS_TOL, got["logits"]
+    assert got["cache"] <= SERVE_CACHE_TOL
+    assert got["tokens_equal"]
+
+
+def test_serve_loop_on_one_rank_gives_the_unsharded_tokens(
+        tmp_path_factory):
+    """``serve_loop`` on one gloo rank's (1, 1) mesh (what chip_smoke's
+    mesh serving phase runs on one card): the smoke jamba's SERVE_STEPS
+    greedy tokens, each run fed its own argmaxes, equal to the unsharded
+    loop's, and the logits bit-equal (every placement is ``Replicate``,
+    so every op runs on the whole tensors)."""
+    d = tmp_path_factory.mktemp("mesh_serve_one")
+    run_ranks("serve_one", d, world=1, timeout=300)
+    got = json.loads((d / "serve_one.json").read_text())
+    sharded, plain = got["tokens"]
+    assert np.array(plain).shape == (4, SERVE_STEPS + 1)
+    assert sharded == plain
+    assert got["logits"] == 0.0
 
 
 # ---------------------------------------------------------------------------
