@@ -1415,7 +1415,9 @@ def mesh_training_phase(dev, report, launches, profiled, get_config) -> None:
     at full size in bf16, three steps through ``Trainer(mesh=...)``
     beside three unsharded ones (no hand-written kernel in a traced mesh
     step); ``compressed_psum`` over the one-rank group; the mesh
-    trainer's checkpoint restored with and without the mesh and served
+    trainer (placed as it is drawn) checkpointed, streamed, and restored
+    with and without the mesh (the card's peak during the restore onto
+    it: the shards plus at most the largest leaf) and served
     (``flash_attention`` launched); the launcher with ``--mesh debug``
     (exit 0) and ``--mesh pod`` (the 256-rank error).  The group is
     destroyed at the end."""
@@ -1620,16 +1622,33 @@ def mesh_training_phase(dev, report, launches, profiled, get_config) -> None:
         saved = leaves(whole(t.state))
         like = t.init_state(device="meta")
         plain = ckpt.restore_checkpoint(run_dir, 2, like, device=dev)
+        # the streamed restore onto the mesh: the shards, and at most one
+        # leaf whole beside them, on the card at once
+        clear()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         onto = ckpt.restore_checkpoint(run_dir, 2, like,
                                        shardings=t.shardings)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        local = sum(x.to_local().numel() * x.element_size()
+                    for x in leaves(onto))
+        largest = max(x.numel() * x.element_size() for x in leaves(like))
         same = (all(torch.equal(a, b) for a, b in zip(saved, leaves(plain)))
                 and all(torch.equal(a, b.full_tensor())
                         for a, b in zip(saved, leaves(onto))))
         print(f"  the mesh trainer ({TRAIN_CUT_LAYERS} layers, bf16): 2 steps, "
               f"checkpoint {ckpt.latest_steps(run_dir)}; restored without "
-              f"the mesh and onto it, bit-equal to the saved state: {same}")
+              f"the mesh and onto it, bit-equal to the saved state: {same}; "
+              f"the card's peak during the restore onto the mesh "
+              f"{peak / 2 ** 20:.1f} MiB (bound: local state "
+              f"{local / 2 ** 20:.1f} + largest leaf "
+              f"{largest / 2 ** 20:.1f} MiB)")
         if not same or ckpt.latest_steps(run_dir) != [2]:
             fail("the mesh trainer's checkpoint does not restore bit-equal")
+        if peak > local + largest:
+            fail(f"the restore onto the mesh held {peak} bytes on the card "
+                 f"at its peak, over {local} local + {largest} whole")
         del plain, onto, saved
         tree = ckpt.load_numpy(run_dir, 2, prefix="params")
         served = lm.params_from_numpy(tree["params"], cut, device=dev)
@@ -1666,6 +1685,9 @@ def mesh_training_phase(dev, report, launches, profiled, get_config) -> None:
         if toks != want or len(toks) != TRAIN_SERVE_REQUESTS:
             fail("serving the mesh checkpoint: tokens differ")
         out["trainer"] = {"restored_bit_equal": same,
+                          "restore_peak_bytes": peak,
+                          "restore_local_bytes": local,
+                          "largest_leaf_bytes": largest,
                           "served_launches": counts,
                           "served_tokens_equal": True}
         del served, in_memory

@@ -378,6 +378,32 @@ def place_tree(tree, shardings):
     return map_tree(place, tree, shardings)
 
 
+def own(t):
+    """A placed DTensor whose local shard owns its storage: a dim-0 shard
+    is a view of the whole tensor it was cut from, which would otherwise
+    stay alive beside it."""
+    from torch.distributed.tensor import DTensor
+    loc = t.to_local()
+    if loc.untyped_storage().nbytes() == loc.numel() * loc.element_size():
+        return t
+    return DTensor.from_local(loc.clone(), t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def placer(shardings):
+    """A ``place(path, piece)`` callback for ``lm.init_lm``: each piece
+    placed by its ``NamedSharding``s in ``shardings`` (a tree of the
+    params' structure) as soon as it is drawn, every shard owning its
+    storage, so a rank holds its shards and at most one piece whole."""
+    def place_piece(path, piece):
+        node = shardings
+        for k in path:
+            node = node[k]
+        return map_tree(lambda t, s: own(place(t, s)), piece, node)
+    return place_piece
+
+
 def place_like(t: torch.Tensor, like):
     """``t`` (the whole value, equal on every rank) placed as the DTensor
     ``like`` is, fitted to ``t``'s shape (``fit_placements``: a

@@ -9,7 +9,9 @@ fp32, optional int8 + error-feedback compression, then AdamW.
 
 On a mesh the state and the batch are DTensors (``dist/sharding.py``)
 and the same step runs on them: each gradient is brought back to its
-param's placements, the accumulation and AdamW run on the local shards,
+param's placements as soon as the backward makes it (a hook on the
+param, so no rank holds the model's gradients partial or whole at
+once), the accumulation and AdamW run on the local shards,
 and the metrics come back as plain replicated values.  Micro-batch ``i``
 holds rows ``[i*b, (i+1)*b)`` of the *global* batch, as the reference's
 reshape does, not each rank's ``i``-th local slice: the MoE aux losses
@@ -82,6 +84,18 @@ def _split_batch(batch, accum):
 
 
 
+def _placed_as(p: DTensor):
+    """A gradient hook: a DTensor's gradient may come back partial or
+    otherwise placed, and is brought to its param's placements as soon
+    as the backward makes it, so the gradients of a whole model are never
+    all held whole (or partial) at once."""
+    def hook(g):
+        if isinstance(g, DTensor) and g.placements != p.placements:
+            return g.redistribute(p.device_mesh, p.placements)
+        return g
+    return hook
+
+
 def make_train_step(cfg: ModelConfig, peak_lr=3e-4, total_steps=10_000,
                     act_spec=None, moe_groups=1, grad_compression=False,
                     donate=False):
@@ -94,16 +108,15 @@ def make_train_step(cfg: ModelConfig, peak_lr=3e-4, total_steps=10_000,
 
     def loss_and_grads(params, micro):
         req = [p.detach().requires_grad_(True) for p in leaves(params)]
+        for r in req:
+            if isinstance(r, DTensor):
+                r.register_hook(_placed_as(r))
         with torch.enable_grad():
             loss, _ = lm.train_loss(unflatten(params, req), cfg, micro,
                                     act_spec=act_spec, moe_groups=moe_groups)
             grads = torch.autograd.grad(loss, req, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(req, grads)]
-        # a DTensor's gradient may come back partial or otherwise placed
-        grads = [g.redistribute(p.device_mesh, p.placements)
-                 if isinstance(g, DTensor) and g.placements != p.placements
-                 else g for p, g in zip(req, grads)]
         return whole(loss.detach()), grads
 
     def train_step(state, batch):

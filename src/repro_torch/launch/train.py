@@ -26,6 +26,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import datetime
 import os
 import signal
 import time
@@ -36,6 +37,10 @@ import torch.distributed as dist
 from repro_torch.configs.base import get_config, list_archs, smoke_variant
 from repro_torch.data import SyntheticLMData
 from repro_torch.train.trainer import Trainer, TrainConfig
+
+#: how long a rank waits at a collective: a sync checkpoint holds the
+#: other ranks at a barrier while rank 0 writes (minutes at full size)
+GROUP_TIMEOUT = datetime.timedelta(minutes=30)
 
 
 @contextlib.contextmanager
@@ -57,7 +62,7 @@ def process_group(device=None):
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         if not cpu:
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-        dist.init_process_group(backend)
+        dist.init_process_group(backend, timeout=GROUP_TIMEOUT)
     else:
         from repro_torch.kernels._build import build_dir
         root = build_dir().parent / "process_groups"
@@ -65,7 +70,7 @@ def process_group(device=None):
         store_path = root / f"store-{os.getpid()}-{time.time_ns()}"
         dist.init_process_group(
             backend, store=dist.FileStore(str(store_path), 1), rank=0,
-            world_size=1)
+            world_size=1, timeout=GROUP_TIMEOUT)
     try:
         yield
     finally:

@@ -95,16 +95,24 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def init_state(self, device=None):
-        """The state from ``tcfg.seed`` (on "meta": its shapes alone)."""
+        """The state from ``tcfg.seed`` (on "meta": its shapes alone).  On
+        a mesh each piece of the params is placed as it is drawn
+        (``lm.init_lm(place=...)``) and the optimizer state is built from
+        the placed params, so every rank holds its shards and at most one
+        layer whole; the values are those of the state drawn whole and
+        placed."""
         dev = self.device if device is None else torch.device(device)
-        params = lm.init_lm(self.cfg, seed=self.tcfg.seed, device=dev)
+        on_mesh = self.mesh is not None and dev.type != "meta"
+        params = lm.init_lm(
+            self.cfg, seed=self.tcfg.seed, device=dev,
+            place=shd.placer(self.shardings["params"]) if on_mesh else None)
+        step = torch.zeros((), dtype=torch.int32, device=dev)
         state = {"params": params, "opt": adamw_init(params),
-                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+                 "step": (shd.place(step, self.shardings["step"]) if on_mesh
+                          else step)}
         if self.tcfg.grad_compression:
             from repro_torch.dist import compress as C
             state["ef"] = C.init_feedback(params)
-        if self.mesh is not None and dev.type != "meta":
-            state = shd.place_tree(state, self.shardings)
         return state
 
     def resume_or_init(self):
@@ -146,9 +154,13 @@ class Trainer:
                     step + 1 == self.tcfg.steps:
                 if pending is not None and hasattr(pending, "join"):
                     pending.join()                      # one in flight max
+                # the last save is joined at once: written sync, it
+                # streams, where an async one copies the whole state to
+                # the host first
                 pending = ckpt.save_checkpoint(
                     self.tcfg.ckpt_dir, step + 1, self.state,
-                    async_=self.tcfg.ckpt_async)
+                    async_=self.tcfg.ckpt_async and
+                    step + 1 != self.tcfg.steps)
         if pending is not None and hasattr(pending, "join"):
             pending.join()
         if self.mesh is not None:

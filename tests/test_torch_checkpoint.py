@@ -388,8 +388,16 @@ def mesh_ckpt(tmp_path_factory):
                                      ckpt_async=False, log_every=100),
                   JSyntheticLMData(jcfg.vocab_size, 4, 16))
     jt.run()
+    # the JAX package's own init_state, saved by it (step 0)
+    init = JTrainer(jcfg, JTrainConfig(ckpt_dir=str(d / "jinit")),
+                    JSyntheticLMData(jcfg.vocab_size, 4, 16))
+    jckpt.save_checkpoint(d / "jinit", 0, init.init_state())
     run_ranks("ckpt", d, timeout=300)
     return d, x, err
+
+
+def _rows(d):
+    return json.loads((d / "ckpt_rows.json").read_text())
 
 
 def test_compressed_psum_matches_the_reference_codec_sum(mesh_ckpt):
@@ -447,3 +455,85 @@ def test_elastic_restore_onto_another_mesh_and_none(mesh_ckpt):
     tree = ckpt.load_numpy(d / "elastic", 1)
     assert int(tree["step"]) == 1
     assert sorted(tree) == ["opt", "params", "step"]
+    for row in _rows(d):
+        for name in ("4x1", "none"):
+            assert row[name]["equal"] and row[name]["on_mesh"], (name, row)
+
+
+@pytest.mark.parametrize("onto", ["4x1", "1x4", "none"])
+def test_streamed_restore_is_bit_equal_and_holds_one_key_and_one_leaf(
+        mesh_ckpt, onto):
+    """The (2, 2) checkpoint restored onto (4, 1), (1, 4) and no mesh:
+    bit-equal to the saved state on every rank, each shard owning its
+    storage, and no rank ever held more than the largest key read to
+    the host or more than the largest leaf whole on the device beside
+    the placed shards (the whole tree, before the restore was
+    streamed)."""
+    d, _, _ = mesh_ckpt
+    for row in _rows(d):
+        got = row[onto]
+        assert got["equal"] and got["on_mesh"] and got["owned"], (onto, row)
+        assert 0 < got["host_peak"] <= row["largest_key"], (onto, row)
+        assert got["device_peak"] <= row["largest_leaf"], (onto, row)
+        if onto != "none":
+            assert got["device_peak"] > 0, (onto, row)
+
+
+@pytest.mark.parametrize("onto", ["4x1", "1x4"])
+def test_a_mesh_restore_reads_each_key_on_one_rank(mesh_ckpt, onto):
+    """Restoring onto a mesh, the ranks share the reads: every key of the
+    checkpoint is read from disk by exactly one rank (key ``j`` by rank
+    ``j % world``), which sends its leaves to the others, where every
+    rank used to read the whole checkpoint."""
+    d, _, _ = mesh_ckpt
+    rows = _rows(d)
+    world, keys = len(rows), rows[0]["keys"]
+    names = sorted(_manifest(d / "elastic" / "step_1"))
+    read = [k for row in rows for k in row[onto]["reads"]]
+    assert sorted(read) == names, onto
+    for row in rows:
+        assert len(row[onto]["reads"]) <= -(-keys // world), (onto, row)
+    # without a mesh the one process reads every key
+    assert sorted(rows[0]["none"]["reads"]) == names
+
+
+def test_a_mesh_save_copies_to_the_host_on_rank_0_only(mesh_ckpt):
+    """Saving the (2, 2) state: ranks 1-3 join each leaf's gather and
+    copy no byte to the host; rank 0 copies every leaf once.  A sync
+    save holds at most the largest key on rank 0's host at once; an
+    async one copies the whole state before its writer starts, once."""
+    d, _, _ = mesh_ckpt
+    rows = _rows(d)
+    assert [r["rank"] for r in rows] == [0, 1, 2, 3]
+    for r in rows[1:]:
+        assert r["sync"]["copied"] == r["async"]["copied"] == 0, r
+    r0 = rows[0]
+    assert r0["sync"]["copied"] == r0["async"]["copied"] == r0["state"]
+    assert 0 < r0["sync"]["host_peak"] <= r0["largest_key"], r0
+    assert r0["async"]["host_peak"] == r0["state"], r0
+
+
+def test_a_mesh_save_of_the_placed_init_is_the_reference_checkpoint(
+        mesh_ckpt):
+    """The JAX package's init_state, its params handed piece by piece to
+    the mesh trainer's placed init (through ``params_from_numpy``) and
+    saved streamed from (2, 2): the same keys, files, shapes, dtypes and
+    hashes as the JAX package's own save of it, and the JAX package's
+    restore_checkpoint reads it back bit-equal."""
+    d, _, _ = mesh_ckpt
+    for r in _rows(d):
+        local, whole = r["jinit_local"]
+        assert 0 < local < whole
+    assert _manifest(d / "jinit_port" / "step_0") == _manifest(
+        d / "jinit" / "step_0")
+    jcfg, _ = _smoke()
+    init = JTrainer(jcfg, JTrainConfig(ckpt_dir=str(d / "unused")),
+                    JSyntheticLMData(jcfg.vocab_size, 4, 16))
+    want = init.init_state()
+    back = jckpt.restore_checkpoint(d / "jinit_port", 0,
+                                    jax.eval_shape(init.init_state))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(want),
+                    strict=True):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(np.asarray(a, np.float32),
+                                      np.asarray(b, np.float32))

@@ -559,6 +559,27 @@ def test_launcher_trains_and_resumes_on_the_cpu(tmp_path, capsys):
     assert not dist.is_initialized()
 
 
+def test_the_last_checkpoint_is_saved_sync(tmp_path, monkeypatch):
+    """The run's last checkpoint is written sync, the ones before it
+    async: the last is joined at once, so writing it async gains
+    nothing, and an async save first copies the whole state to the host
+    (which a state of hundreds of GiB does not fit) where a sync save
+    streams it one key at a time."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import checkpoint as ckpt
+    real, calls = ckpt.save_checkpoint, []
+
+    def save(*a, **kw):
+        calls.append(kw.get("async_", False))
+        return real(*a, **kw)
+    monkeypatch.setattr(ckpt, "save_checkpoint", save)
+    launcher.main(["--arch", "qwen2-1.5b", "--smoke", "--steps", "4",
+                   "--ckpt-every", "2", "--ckpt-dir", str(tmp_path),
+                   "--seq", "16", "--batch", "4", "--device", "cpu"])
+    assert calls == [True, False]
+    assert ckpt.latest_steps(tmp_path) == [2, 4]
+
+
 def test_sigterm_checkpoints_at_the_next_step_boundary(tmp_path,
                                                        monkeypatch):
     """A SIGTERM that lands inside the second step's optimizer update
@@ -611,6 +632,23 @@ def mesh_trainer(tmp_path_factory):
     d = tmp_path_factory.mktemp("mesh_trainer")
     run_ranks("trainer", d, timeout=300)
     return d
+
+
+@pytest.mark.parametrize("compression", [False, True])
+def test_mesh_init_places_each_piece_as_it_is_drawn(mesh_trainer,
+                                                    compression):
+    """Trainer(mesh=(2, 2)).init_state(), with and without the grad
+    compression residuals: every leaf bit-equal to the state drawn whole
+    and placed (the same placements and local shards), each shard owning
+    its storage, and no rank held more than the largest piece of the
+    model (a layer, the embedding) whole at once while placing; drawn
+    whole and placed, it held the whole state."""
+    rows = json.loads((mesh_trainer / "init.json").read_text())
+    assert len(rows) == 4
+    for r in rows:
+        got = r[f"ef={compression}"]
+        assert got["equal"] and got["owned"], r
+        assert 0 < got["peak"] <= r["largest_piece"] < got["whole"], r
 
 
 def test_mesh_trainer_resumes_to_the_unsharded_loss(mesh_trainer, tmp_path):
