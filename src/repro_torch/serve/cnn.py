@@ -181,13 +181,28 @@ class BucketPrograms:
     rows are gathered in order.  The per-shard program runs at the
     per-shard batch shape, so outputs are bit-equal to the single-device
     program at that bucket whatever the device count.
+
+    **Spans** (``telemetry``: a ``serve.telemetry.Telemetry`` made with
+    ``trace=True``, else None): ``dispatch`` records ``dispatch`` with
+    children ``dispatch.slot`` (on the card; its child
+    ``dispatch.slot.wait`` when an unread batch is read out first),
+    ``dispatch.pack``, ``dispatch.copy`` (the copy's issue; on the CPU the
+    synchronous ``put``), ``dispatch.copy_wait`` (on the card) and
+    ``dispatch.launch``, and the batch's counters; ``warmup`` records
+    ``warmup`` with ``warmup.plan`` for each bucket, then its
+    ``warmup.eager`` (on the CPU), or on the card ``warmup.eager`` and
+    ``warmup.capture`` for each mesh device whose graph is captured
+    anew, then ``warmup.slots`` (on the card).
+    Spans of the copy wait and the slot's wait cover every mesh device's
+    events.  ``wait`` is the harvest's blocking half, for the caller's
+    span of it.
     """
 
     def __init__(self, model, params, image_shape: Tuple[int, int, int], *,
                  buckets: Tuple[int, ...] = (1, 4, 8), algorithm="auto",
                  backend: Optional[str] = None, precision=None,
                  fuse: bool = True, input_dtype=None, device=None,
-                 mesh=None, pipeline_depth: int = 2):
+                 mesh=None, pipeline_depth: int = 2, telemetry=None):
         self.mesh = None if mesh is None else sharding.replicated(mesh)
         if self.mesh is not None:
             if not self.mesh:
@@ -232,6 +247,7 @@ class BucketPrograms:
                               else None for d in self.devices]
         self._slots: List[_Slot] = []
         self._next_slot = 0
+        self.telemetry = telemetry      # the span recorder, or None
 
     # ------------------------------------------------------------------
     @property
@@ -378,39 +394,75 @@ class BucketPrograms:
             for _ in range(self.pipeline_depth + 1)]
         self._next_slot = 0
 
-    def _take_slot(self) -> _Slot:
-        """The next slot of the ring, free: a batch still in it is read
-        to the host first (which waits on its done events)."""
+    def _take_slot(self, clock: Callable[[], float]
+                   ) -> Tuple[_Slot, bool]:
+        """The next slot of the ring, free, and whether a batch still in
+        it was read to the host first (which waits on its done
+        events)."""
         slot = self._slots[self._next_slot]
         self._next_slot = (self._next_slot + 1) % len(self._slots)
-        if slot.owner is not None:
-            self._read(slot.owner)
-        return slot
+        if slot.owner is None:
+            return slot, False
+        rec = self.telemetry
+        if rec is not None:
+            t0 = clock()
+            self.wait(slot.owner)
+            rec.add_span("dispatch.slot.wait", t0, clock(), wait=True)
+        self._read(slot.owner)
+        return slot, True
+
+    def wait(self, h: Dispatched) -> None:
+        """Block until batch ``h``'s output is in pinned host memory (at
+        once where it was read already, and on the CPU)."""
+        if h.slot is not None:
+            for e in h.slot.done:
+                e.synchronize()
 
     def _read(self, h: Dispatched) -> None:
+        self.wait(h)
         slot, h.slot = h.slot, None
-        for e in slot.done:
-            e.synchronize()
         h.y = slot.host_out[:h.bucket].float().numpy().copy()
         slot.owner = None
 
+    def _graph_counts(self, b: int) -> Tuple[int, int]:
+        """Replays and captures of bucket ``b``'s graphs, over devices."""
+        gs = [g[b] for g in self._graphs if b in g]
+        return (sum(g.replays for g in gs), sum(g.captures for g in gs))
+
     def dispatch(self, b: int, chunk: Sequence[Tuple[ImageRequest, int]],
-                 clock: Callable[[], float] = time.perf_counter
-                 ) -> Dispatched:
+                 clock: Callable[[], float] = time.perf_counter,
+                 seq: Optional[int] = None) -> Dispatched:
         """Put one batch of ``chunk``'s units, packed to global bucket
         ``b``, in flight without waiting for its compute (see the class
         docstring); ``clock`` is read before the copy is issued, after the
-        host waited on it, and after the launch."""
-        if not graphs.used_on(self.device):
+        host waited on it, and after the launch.  ``seq`` is the batch's
+        number in the spans (the span edges those reads share: the
+        start of ``dispatch.copy``, the end of ``dispatch.copy_wait``
+        and of ``dispatch.launch``)."""
+        on_card = graphs.used_on(self.device)
+        if on_card and not self._slots:
+            self.warmup(clock=clock)
+        rec = self.telemetry
+        if rec is not None:
+            ts = clock()
+            rec.open_span("dispatch", ts, batch=seq)
+            counts = self._graph_counts(b)
+        if not on_card:
             xb = self.pack(chunk, b)
             t0 = clock()
             xd = self.put(xb)
             t1 = clock()
             y = self.fn(b)(self.params, xd).float().numpy()
-            return Dispatched(b, len(chunk), t0, t1, clock(), y=y)
-        if not self._slots:
-            self.warmup()
-        slot = self._take_slot()
+            h = Dispatched(b, len(chunk), t0, t1, clock(), y=y)
+            if rec is not None:
+                self._dispatched(rec, h, seq, ts, None, counts, False)
+            return h
+        if rec is not None:
+            rec.open_span("dispatch.slot", ts)
+        slot, forced = self._take_slot(clock)
+        if rec is not None:
+            ts = clock()
+            rec.close_span(ts)
         self.pack(chunk, b, out=slot.host_in.numpy())
         per = b // self.n_shards
         t0 = clock()
@@ -421,6 +473,7 @@ class BucketPrograms:
                     slot.host_in[i * per:(i + 1) * per], non_blocking=True)
                 slot.copied[i].record(stream)
             torch.cuda.current_stream(d).wait_event(slot.copied[i])
+        tc = clock() if rec is not None else None
         for e in slot.copied:
             e.synchronize()
         t1 = clock()
@@ -432,7 +485,30 @@ class BucketPrograms:
                 slot.done[i].record()
         h = Dispatched(b, len(chunk), t0, t1, clock(), slot=slot)
         slot.owner = h
+        if rec is not None:
+            self._dispatched(rec, h, seq, ts, tc, counts, forced)
         return h
+
+    def _dispatched(self, rec, h: Dispatched, seq: Optional[int],
+                    packed_t: float, issued_t: Optional[float],
+                    counts: Tuple[int, int], forced: bool) -> None:
+        """Close batch ``h``'s ``dispatch`` span: its pack from
+        ``packed_t``, the copy's issue (to ``issued_t`` and then its wait,
+        on the card), the launch; and count what it did."""
+        rec.add_span("dispatch.pack", packed_t, h.transfer_t0)
+        if issued_t is None:
+            rec.add_span("dispatch.copy", h.transfer_t0, h.transfer_t1)
+        else:
+            rec.add_span("dispatch.copy", h.transfer_t0, issued_t)
+            rec.add_span("dispatch.copy_wait", issued_t, h.transfer_t1,
+                         wait=True)
+        rec.add_span("dispatch.launch", h.transfer_t1, h.dispatch_t)
+        rec.close_span(h.dispatch_t)
+        replays, captures = self._graph_counts(h.bucket)
+        rec.count(seq, packed_bytes=h.bucket * int(np.prod(self.image_shape))
+                  * self._input_dtype.itemsize,
+                  replays=replays - counts[0], captures=captures - counts[1],
+                  forced_reads=forced)
 
     def harvest(self, h: Dispatched) -> np.ndarray:
         """A dispatched batch's ``(b, classes)`` output as fp32 numpy,
@@ -447,11 +523,13 @@ class BucketPrograms:
                 torch.cuda.synchronize(d)
 
     def warmup(self, *, measure: bool = False,
-               tune: Optional[str] = None) -> Dict[int, float]:
+               tune: Optional[str] = None,
+               clock: Callable[[], float] = time.perf_counter
+               ) -> Dict[int, float]:
         """Resolve every bucket's plan and run it once on zeros (which
         builds the kernels on first use), then on the card capture its
         CUDA graph (one per mesh device) and allocate the dispatch
-        slots.
+        slots.  ``clock`` times the spans (see the class docstring).
 
         ``tune="algo"`` first measure-autotunes each bucket's per-shard
         GraphPlan on the engine's device (``GraphPlan.warmup``), and
@@ -464,9 +542,15 @@ class BucketPrograms:
         the first run (and capture), keyed by global bucket."""
         if measure and tune is None:
             tune = "algo"
+        rec = self.telemetry
+        on_card = graphs.used_on(self.device)
+        if rec is not None:
+            rec.open_span("warmup", clock())
         H, W, C = self.image_shape
         out = {}
         for b in self.buckets:
+            if rec is not None:
+                ts = clock()
             if tune is not None and self.algorithm == "auto":
                 self.model.graph_plan(
                     (b // self.n_shards, H, W, C), backend=self.backend,
@@ -477,13 +561,43 @@ class BucketPrograms:
                 for g in self._graphs:
                     g.pop(b, None)
             self.fn(b)
+            if rec is not None:
+                t1 = clock()
+                rec.add_span("warmup.plan", ts, t1)
             x = np.zeros((b, H, W, C), self.input_dtype())
             t0 = time.perf_counter()
-            self.serve_batch(b, x)
+            if not on_card:
+                self.serve_batch(b, x)
+                if rec is not None:
+                    rec.add_span("warmup.eager", t1, clock())
+            per = b // self.n_shards
+            for i, p in enumerate(self._shard_params if on_card else ()):
+                # serve_batch's first call of each graph, in its halves;
+                # the capture would sync the device before it anyway
+                g, d = self._graph(i, b), self.devices[i]
+                xi = torch.from_numpy(x[i * per:(i + 1) * per])
+                with torch.cuda.device(d):
+                    if g.fresh(p, None):
+                        g(p, None, xi)
+                        continue
+                    g.warm(p, None, xi)
+                    torch.cuda.synchronize(d)
+                    t2 = clock() if rec is not None else None
+                    g.capture(p, None)
+                    if rec is not None:
+                        rec.add_span("warmup.eager", t1, t2)
+                        t1 = clock()
+                        rec.add_span("warmup.capture", t2, t1)
             self.sync()
             out[b] = (time.perf_counter() - t0) * 1e3
-        if graphs.used_on(self.device):
+        if on_card:
+            if rec is not None:
+                ts = clock()
             self._alloc_slots()
+            if rec is not None:
+                rec.add_span("warmup.slots", ts, clock())
+        if rec is not None:
+            rec.close_span(clock())
         return out
 
 

@@ -53,7 +53,13 @@ the card, built by the shared ``BucketPrograms`` component
 
 * **Telemetry.**  Every request leaves queue/transfer/compute/total
   latency (serve/telemetry.py); ``stats()`` exposes p50/p95/p99
-  rollups, deadline misses, and overlap counters.
+  rollups, deadline misses, and overlap counters.  ``trace=True``
+  records the serving path's spans and counters in ``telemetry.spans``
+  and ``telemetry.counters``: ``batch.form`` when ``_form_batch``
+  closes a batch, ``BucketPrograms``' ``dispatch`` and ``warmup`` trees,
+  and ``harvest`` with children ``harvest.wait`` (the host blocked on
+  the output copy), ``harvest.read`` and ``harvest.scatter`` (outputs
+  scattered, requests completed).
 
 The scheduler is single-threaded and clock-injected (``clock=``): the
 card's streams provide the device-side concurrency, so behaviour is
@@ -126,6 +132,7 @@ class ServeRequest(ImageRequest):
     _compute_t1: float = 0.0
     _compute_gaps: float = 0.0
     _served_units: int = 0
+    _batches: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def _compute_ms(self) -> float:
@@ -167,7 +174,8 @@ class AsyncServeFrontend:
     ``BucketPrograms``.  Planning/precision/fusion knobs match
     ``CnnServeEngine`` and apply to every geometry.  ``device`` is the
     card unless the caller asks for the CPU; ``mesh`` (a device tuple)
-    replaces it with sharded programs.
+    replaces it with sharded programs.  ``trace=True`` records spans
+    and counters (see the module docstring); off, nothing is recorded.
     """
 
     def __init__(self, model, params,
@@ -180,7 +188,8 @@ class AsyncServeFrontend:
                  backend: Optional[str] = None, precision=None,
                  fuse: bool = True, input_dtype=None, mesh=None,
                  device=None,
-                 clock: Callable[[], float] = time.perf_counter):
+                 clock: Callable[[], float] = time.perf_counter,
+                 trace: bool = False):
         if not geometries:
             raise ValueError("geometries must map at least one "
                              "(H, W, C) shape to a bucket tuple")
@@ -191,6 +200,7 @@ class AsyncServeFrontend:
         # over a device tuple: configured buckets become per-shard
         # capacities, params are copied to each device once (see
         # BucketPrograms / serve/distributed.py)
+        self.telemetry = Telemetry(trace=trace)
         self.programs: Dict[Tuple[int, int, int], BucketPrograms] = {}
         for shape, buckets in dict(geometries).items():
             shape = tuple(map(int, shape))
@@ -198,14 +208,14 @@ class AsyncServeFrontend:
                 model, params, shape, buckets=buckets,
                 algorithm=algorithm, backend=backend, precision=precision,
                 fuse=fuse, input_dtype=input_dtype, mesh=mesh,
-                device=device, pipeline_depth=pipeline_depth)
+                device=device, pipeline_depth=pipeline_depth,
+                telemetry=self.telemetry if trace else None)
         self.model, self.params = model, params
         self.mesh = mesh
         self.max_wait_ms = float(max_wait_ms)
         self.default_deadline_ms = default_deadline_ms
         self.slo_close_margin_ms = float(slo_close_margin_ms)
         self.pipeline_depth = int(pipeline_depth)
-        self.telemetry = Telemetry()
         self._clock = clock
         self._pending: Dict[Tuple[int, int, int],
                             List[Tuple[ServeRequest, int]]] = {
@@ -213,6 +223,7 @@ class AsyncServeFrontend:
         self._inflight: collections.deque = collections.deque()
         self._completed: List[ServeRequest] = []
         self._seq = 0
+        self._batch_seq = 0             # the next batch's BatchTrace.seq
         self._max_inflight = 0
         self._slo_closes = 0
         self._batch_counts: Dict[str, int] = {}
@@ -226,7 +237,8 @@ class AsyncServeFrontend:
                ) -> Dict[str, Dict[int, float]]:
         """Compile every geometry's bucket programs; per-bucket compile
         milliseconds keyed by geometry string."""
-        return {_geom(shape): progs.warmup(measure=measure, tune=tune)
+        return {_geom(shape): progs.warmup(measure=measure, tune=tune,
+                                           clock=self._clock)
                 for shape, progs in self.programs.items()}
 
     # -- admission ------------------------------------------------------
@@ -315,6 +327,9 @@ class AsyncServeFrontend:
                 self._slo_closes += 1
         b = progs.pick_bucket(len(pend))
         chunk, self._pending[shape] = pend[:b], pend[b:]
+        if self.telemetry.spans is not None:
+            self.telemetry.add_span("batch.form", now, self._clock(),
+                                    batch=self._batch_seq)
         return chunk, b
 
     def _dispatch(self, shape, chunk, bucket: int) -> None:
@@ -324,14 +339,15 @@ class AsyncServeFrontend:
         # ride the program's own tree (copied to each mesh device once),
         # never re-transferred.
         overlapped = bool(self._inflight)
-        h = progs.dispatch(bucket, chunk, clock=self._clock)
+        seq, self._batch_seq = self._batch_seq, self._batch_seq + 1
+        h = progs.dispatch(bucket, chunk, clock=self._clock, seq=seq)
         trace = BatchTrace(
             geometry=_geom(shape), bucket=bucket, units=len(chunk),
             padded=bucket - len(chunk), transfer_t0=h.transfer_t0,
             transfer_t1=h.transfer_t1, dispatch_t=h.dispatch_t,
             overlapped=overlapped,
             shard_units=progs.shard_units(len(chunk), bucket),
-            dtype=progs.serve_dtype(bucket))
+            dtype=progs.serve_dtype(bucket), seq=seq)
         for r, _ in chunk:
             if r._first_dispatch_t is None:
                 r._first_dispatch_t = h.transfer_t0
@@ -342,12 +358,22 @@ class AsyncServeFrontend:
 
     def _harvest_one(self) -> None:
         fl = self._inflight.popleft()
+        progs, tel = self.programs[fl.shape], self.telemetry
+        tracing = tel.spans is not None
+        if tracing:
+            t0 = self._clock()
+            tel.open_span("harvest", t0, batch=fl.trace.seq)
+            progs.wait(fl.handle)
+            t1 = self._clock()
+            tel.add_span("harvest.wait", t0, t1, wait=True)
         # waits on the batch's output copy into pinned host memory (the
         # rows of every mesh device, gathered in order)
-        y = self.programs[fl.shape].harvest(fl.handle)
+        y = progs.harvest(fl.handle)
         now = self._clock()
+        if tracing:
+            tel.add_span("harvest.read", t1, now)
         fl.trace.harvest_t = now
-        self.telemetry.record_batch(fl.trace)
+        tel.record_batch(fl.trace)
         scatter_outputs(fl.chunk, y)
         seen: Dict[int, ServeRequest] = {}
         counts: Dict[int, int] = {}
@@ -358,8 +384,13 @@ class AsyncServeFrontend:
             r._transfer_ms += fl.trace.transfer_ms
             r._add_window(fl.trace.dispatch_t, now)
             r._served_units += counts[rid_]
+            r._batches.append(fl.trace.seq)
             if r._served_units == r.images.shape[0]:
                 self._complete(r, now)
+        if tracing:
+            t2 = self._clock()
+            tel.add_span("harvest.scatter", now, t2)
+            tel.close_span(t2)
 
     def _complete(self, req: ServeRequest, now: float) -> None:
         req.status = SERVED
@@ -372,7 +403,8 @@ class AsyncServeFrontend:
             deadline_ms=deadline_ms,
             queue_ms=(req._first_dispatch_t - req._submit_t) * 1e3,
             transfer_ms=req._transfer_ms, compute_ms=req._compute_ms,
-            total_ms=(now - req._submit_t) * 1e3))
+            total_ms=(now - req._submit_t) * 1e3,
+            batches=tuple(req._batches)))
         self._completed.append(req)
 
     # -- serving entry points -------------------------------------------

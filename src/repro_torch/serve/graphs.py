@@ -117,6 +117,17 @@ class GraphedProgram:
                 == self._stamp)
 
     def __call__(self, params, buffers, *args):
+        if not self.fresh(params, buffers):
+            out = self.warm(params, buffers, *args)
+            self.capture(params, buffers)
+            return out
+        self._load(args)
+        self.graph.replay()
+        _build.add_launches(self.launches)
+        self.replays += 1
+        return self.outputs
+
+    def _load(self, args) -> None:
         for static, a in zip(self.inputs, args):
             if not isinstance(a, torch.Tensor):
                 static.fill_(a)
@@ -126,14 +137,13 @@ class GraphedProgram:
                                      f"{tuple(a.shape)}, captured "
                                      f"{tuple(static.shape)}")
                 static.copy_(a)
-        if self.fresh(params, buffers):
-            self.graph.replay()
-            _build.add_launches(self.launches)
-            self.replays += 1
-            return self.outputs
-        out = self.fn(params, buffers, *self.inputs)
-        self.capture(params, buffers)
-        return out
+
+    def warm(self, params, buffers, *args):
+        """The eager half of a first call: ``args`` copied into the
+        static inputs and ``fn`` run on them (``capture`` is the other
+        half)."""
+        self._load(args)
+        return self.fn(params, buffers, *self.inputs)
 
     def capture(self, params, buffers) -> None:
         """Record ``fn`` on the static inputs (after an eager run of it:

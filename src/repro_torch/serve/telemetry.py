@@ -11,6 +11,18 @@ transfer overlapped an in-flight batch — the double-buffering signal).
 summary ``frontend.stats()`` exposes: p50/p95/p99 per stage,
 deadline-miss counts, overlap counters.
 
+**Spans and counters**, off unless the recorder is made with
+``trace=True`` (``AsyncServeFrontend(..., trace=True)``): then
+``spans`` lists one ``Span`` per host step of the serving path, in the
+order they opened, and ``counters`` holds per batch what its dispatch
+packed, replayed, captured and read out early (``COUNTERS``).  A span's
+``batch`` is the ``BatchTrace.seq`` of the batch it served, and each
+``RequestTrace`` names the batches that carried it, so spans, batches
+and requests share identifiers.  The serving code reads the clock for a
+span's edges only when tracing, and where a ``BatchTrace`` time and a
+span edge coincide they are the same read.  Off, ``spans`` and
+``counters`` are None and nothing is recorded.
+
 The module is deliberately model-free: it imports neither torch nor
 anything else of the port, so any serving layer can record into it.
 All times are seconds from one injected monotonic clock; rollups
@@ -25,10 +37,28 @@ reference's ``s[lo]*(1-frac) + s[hi]*frac`` is not when
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 #: the latency stages every request is accounted under (ms in rollups)
 STAGES = ("queue", "transfer", "compute", "total")
+#: what each traced batch's dispatch counts: bytes packed into its input
+#: (bucket x image bytes), CUDA graph replays and captures it ran, and
+#: unharvested batches it read out of its slot first
+COUNTERS = ("packed_bytes", "replays", "captures", "forced_reads")
+
+
+class Span(NamedTuple):
+    """One host step of the serving path, in seconds on the front end's
+    clock.  ``parent`` is the index in ``Telemetry.spans`` of the span
+    enclosing it (None at the top), ``batch`` the ``BatchTrace.seq`` of
+    the batch it served (None for set-up), and ``wait`` marks a span in
+    which the host blocked on the device."""
+    name: str
+    t0: float
+    t1: float
+    parent: Optional[int]
+    batch: Optional[int]
+    wait: bool
 
 
 def percentile(xs: Sequence[float], q: float) -> float:
@@ -80,6 +110,7 @@ class RequestTrace:
     transfer_ms: float
     compute_ms: float
     total_ms: float
+    batches: Tuple[int, ...] = ()       # seq of each batch that carried it
 
     def stage_ms(self, stage: str) -> float:
         return getattr(self, f"{stage}_ms")
@@ -111,6 +142,7 @@ class BatchTrace:
     overlapped: bool = False
     shard_units: Optional[Sequence[int]] = None    # per-device real images
     dtype: Optional[str] = None         # bucket program's serving dtype
+    seq: int = -1                       # the front end's batch number
 
     @property
     def transfer_ms(self) -> float:
@@ -122,12 +154,49 @@ class BatchTrace:
 
 
 class Telemetry:
-    """Accumulates request/batch traces and rolls them up."""
+    """Accumulates request/batch traces and rolls them up; with
+    ``trace=True`` also the serving path's spans and counters."""
 
-    def __init__(self):
+    def __init__(self, trace: bool = False):
         self.requests: List[RequestTrace] = []
         self.batches: List[BatchTrace] = []
         self.deadline_misses = 0
+        self.spans: Optional[List[Span]] = [] if trace else None
+        #: batch seq -> {counter: count} (``COUNTERS``), when tracing
+        self.counters: Optional[Dict[int, Dict[str, int]]] = (
+            {} if trace else None)
+        self._open: List[int] = []      # open spans, innermost last
+
+    def _inside(self, batch: Optional[int]) -> tuple:
+        """The innermost open span, and ``batch`` or else its batch."""
+        parent = self._open[-1] if self._open else None
+        if batch is None and parent is not None:
+            batch = self.spans[parent].batch
+        return parent, batch
+
+    def open_span(self, name: str, t0: float,
+                  batch: Optional[int] = None) -> None:
+        """Start a span inside the innermost open one (of its batch,
+        unless ``batch`` is given); ``close_span`` ends it."""
+        parent, batch = self._inside(batch)
+        self._open.append(len(self.spans))
+        self.spans.append(Span(name, t0, t0, parent, batch, False))
+
+    def close_span(self, t1: float) -> None:
+        i = self._open.pop()
+        self.spans[i] = self.spans[i]._replace(t1=t1)
+
+    def add_span(self, name: str, t0: float, t1: float, *,
+                 wait: bool = False, batch: Optional[int] = None) -> None:
+        """A finished span inside the innermost open one."""
+        parent, batch = self._inside(batch)
+        self.spans.append(Span(name, t0, t1, parent, batch, wait))
+
+    def count(self, batch: int, **counts: int) -> None:
+        """Add to batch ``batch``'s counters (names from ``COUNTERS``)."""
+        c = self.counters.setdefault(batch, dict.fromkeys(COUNTERS, 0))
+        for k, v in counts.items():
+            c[k] += int(v)
 
     def record_request(self, trace: RequestTrace) -> None:
         self.requests.append(trace)

@@ -871,13 +871,13 @@ def test_serving_warmup_tune_captures_the_tuned_programs_again():
         assert g.replays == 1 and torch.equal(got, want)
 
 
-def _dispatch_programs(depth=2):
+def _dispatch_programs(depth=2, telemetry=None):
     from repro_torch.models.cnn import resnet_like
     from repro_torch.serve.cnn import BucketPrograms
     model = resnet_like(num_classes=10)
     params = model.init(torch.Generator().manual_seed(0), device="cuda")
     progs = BucketPrograms(model, params, (32, 32, 3), buckets=(4,),
-                           pipeline_depth=depth)
+                           pipeline_depth=depth, telemetry=telemetry)
     progs.warmup()
     return progs
 
@@ -913,6 +913,80 @@ def test_dispatch_slots_keep_in_flight_batches_apart(in_flight):
         want = progs.fn(4)(progs.params, progs.put(x)).cpu().numpy()
         np.testing.assert_array_equal(y, want)
     assert not np.array_equal(outs[0], outs[1])
+
+
+@requires_cuda
+def test_traced_dispatch_records_slots_copies_and_captures():
+    """Spans on, on the card: warmup records its bucket's plan, eager run
+    and capture, then the slots; five batches dispatched before any
+    harvest (past the ring of 3 slots) each record the slot, pack, copy,
+    copy wait and launch, the fourth and fifth a forced read of an
+    unharvested slot, and count one replay and no capture; their
+    timelines are the spans' edges and their outputs the eager
+    program's."""
+    from repro_torch.serve.telemetry import Telemetry
+    tel = Telemetry(trace=True)
+    progs = _dispatch_programs(telemetry=tel)
+    assert [s.name for s in tel.spans] == [
+        "warmup", "warmup.plan", "warmup.eager", "warmup.capture",
+        "warmup.slots"]
+    assert progs.graphs[4].captures == 1
+    rng = np.random.default_rng(5)
+    xs = [rng.normal(size=(4, 32, 32, 3)).astype(np.float32)
+          for _ in range(5)]
+    handles = [progs.dispatch(4, _chunk(i, x), seq=i)
+               for i, x in enumerate(xs)]
+    outs = [progs.harvest(h) for h in handles]
+    for seq, (h, x, y) in enumerate(zip(handles, xs, outs)):
+        assert tel.counters[seq] == {
+            "packed_bytes": 4 * 32 * 32 * 3 * 4, "replays": 1,
+            "captures": 0, "forced_reads": int(seq >= 3)}
+        mine = {s.name: s for s in tel.spans if s.batch == seq}
+        assert list(mine) == (
+            ["dispatch", "dispatch.slot"]
+            + ["dispatch.slot.wait"] * (seq >= 3)
+            + ["dispatch.pack", "dispatch.copy", "dispatch.copy_wait",
+               "dispatch.launch"])
+        assert [s.name for s in mine.values() if s.wait] == [
+            n for n in ("dispatch.slot.wait", "dispatch.copy_wait")
+            if n in mine]
+        assert h.transfer_t0 == mine["dispatch.copy"].t0
+        assert h.transfer_t1 == mine["dispatch.copy_wait"].t1
+        assert h.dispatch_t == mine["dispatch.launch"].t1 \
+            == mine["dispatch"].t1
+        want = progs.fn(4)(progs.params, progs.put(x)).cpu().numpy()
+        np.testing.assert_array_equal(y, want)
+
+
+@requires_cuda
+def test_traced_frontend_on_card_waits_in_its_wait_spans():
+    """AsyncServeFrontend(trace=True) on the card: every batch has its
+    form, dispatch and harvest spans, with the copy wait and the output
+    wait marked; the sharded one-card mesh records the same names."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models.cnn import resnet_like
+    from repro_torch.serve import AsyncServeFrontend, ServeRequest
+    model = resnet_like(num_classes=10)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    rng = np.random.default_rng(1)
+    names = []
+    for mesh in (None, make_serve_mesh(1)):
+        fe = AsyncServeFrontend(model, params, {(32, 32, 3): (4,)},
+                                mesh=mesh, trace=True)
+        fe.warmup()
+        for i in range(5):
+            fe.submit(ServeRequest(rid=i, images=rng.normal(
+                size=(4, 32, 32, 3)).astype(np.float32)))
+        assert all(r.status == "served" for r in fe.run())
+        tel = fe.telemetry
+        assert [b.seq for b in tel.batches] == list(range(5))
+        for b in tel.batches:
+            mine = [s for s in tel.spans if s.batch == b.seq]
+            assert [s.name for s in mine if s.wait] == [
+                "dispatch.copy_wait", "harvest.wait"]
+            assert tel.counters[b.seq]["replays"] == 1
+        names.append([s.name for s in tel.spans])
+    assert names[0] == names[1]
 
 
 @requires_cuda
