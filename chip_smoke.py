@@ -309,6 +309,17 @@ DIRECT_ROWS = ("t3_A", "t4_B", "t5_B")
 DIRECT_STRIDED = ("b2c1@224", (1, 112, 112, 16), (3, 3, 16, 32), 2)
 # forced algorithm="cuconv_two_stage_pallas" rows
 TWO_STAGE_ROWS = ("t4_A", "t5_A")
+# placement_rows: GoogLeNet's (arXiv:1409.4842, Table 1) nine 5x5 convs,
+# name: (H=W, C, M), stride 1, pad 2, and the 3x3/2 max pool (padding 1)
+# after its conv3 and after the 7x7/2 stem of GoogLeNet and ResNet-50,
+# at the benchmark's batch
+PLACEMENT_BATCH = 64
+GOOGLENET_5X5 = {"i3ab3": (28, 16, 32), "i3bb3": (28, 32, 96),
+                 "i4ab3": (14, 16, 48), "i4bb3": (14, 24, 64),
+                 "i4cb3": (14, 24, 64), "i4db3": (14, 32, 64),
+                 "i4eb3": (14, 32, 128), "i5ab3": (7, 32, 128),
+                 "i5bb3": (7, 48, 128)}
+STEM_POOL = ("max", 3, 3, 2, 2, 1, 1)
 # stage 2's time over its two main-path shapes before its redesign (the
 # grid-stride pass, as this script timed it on an NVIDIA H100 80GB HBM3
 # at 700 W), printed beside the redesigned kernel's
@@ -2011,6 +2022,93 @@ def dispatcher_scaling(card, report, launches) -> None:
           f"one-card frontend {np.median(rates[0]):.1f}; the dispatcher "
           f"over {ns} card(s) "
           f"{[round(rows[n]['images_per_s_median'], 1) for n in ns]}")
+
+
+def placement_rows(dev, report) -> None:
+    """The conv nodes the planner moved onto the port's kernels, at the
+    benchmark's batch (PLACEMENT_BATCH), each timed as CUDA graph
+    replays beside what it ran on before: GoogLeNet's nine 5x5 convs on
+    ``cuconv_fused`` beside the plain cuConv executor and cuDNN
+    (``lax``); the 7x7/2 stem of GoogLeNet and ResNet-50 on
+    ``cuconv_fused``, then its 3x3/2 max pool, beside cuDNN with the
+    bias, ReLU and pool after it; GoogLeNet's ``conv3`` on
+    ``winograd_fused``, then its pool, beside the plain Winograd
+    executor with the pool folded.  Every conv has its bias and ReLU.
+    Each row's new output is held to the old one's within EXAMPLES_TOL
+    of ``max(1, max|old|)``; fails otherwise.  Rows go to
+    ``report["placement"]``."""
+    import torch
+    from repro_torch.core import autotune
+    from repro_torch.core.convspec import ConvSpec, plan
+    from repro_torch.kernels import ops
+    n = PLACEMENT_BATCH
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def planned(algo, spec, x, w, b, pool=None):
+        p = plan(spec, force=algo, backend="cuda")
+        if p.algorithm != algo:
+            fail(f"placement rows: {algo} refused {spec.key()}: "
+                 f"{p.explain()}")
+
+        def run():
+            y = p(x, w, b)
+            return y if pool is None else ops.pool2d(y, pool[0], pool[1:3],
+                                                     pool[3:5], pool[5:7])
+        return run
+
+    cases = [(f"googlenet.{name}", (n, hw, hw, c), (5, 5, c, m), 1, 2, (),
+              ("cuconv_pallas", "cuconv", "lax"))
+             for name, (hw, c, m) in GOOGLENET_5X5.items()]
+    cases += [("stem", (n, 224, 224, 3), (7, 7, 3, 64), 2, 3, STEM_POOL,
+               ("cuconv_pallas", "lax")),
+              ("googlenet.conv3", (n, 56, 56, 64), (3, 3, 64, 192), 1, 1,
+               STEM_POOL, ("winograd_pallas", "winograd"))]
+    rows = []
+    for label, in_shape, fshape, stride, pad, pool, algos in cases:
+        kh, kw, c, m = fshape
+        x = rand(*in_shape)
+        w = rand(*fshape, scale=(2.0 / (kh * kw * c)) ** 0.5)
+        b = rand(m, scale=0.1)
+        spec = ConvSpec(in_shape, fshape, (stride,) * 2, (pad,) * 2,
+                        epilogue="bias_relu")
+        ms, outs = {}, {}
+        for i, algo in enumerate(algos):
+            # the new placement runs the pool after the kernel; the old
+            # ones ran it folded (the plain executors apply it after
+            # the conv all the same)
+            if i == 0:
+                fn = planned(algo, spec, x, w, b, pool or None)
+            else:
+                fn = planned(algo, dataclasses.replace(
+                    spec, fused_pool=pool), x, w, b)
+            outs[algo] = fn()
+            ms[algo] = autotune.device_ms(fn)
+        new, old = outs[algos[0]], outs[algos[-1]]
+        err = ((new - old).abs().max()
+               / max(1.0, old.abs().max().item())).item()
+        if err > EXAMPLES_TOL:
+            fail(f"placement rows: {label} on {algos[0]} is {err:.3g} "
+                 f"from {algos[-1]} (tolerance {EXAMPLES_TOL})")
+        _, oh, ow, _ = spec.out_shape
+        flop = 2.0 * n * oh * ow * kh * kw * c * m
+        row = {"label": label, "in": list(in_shape), "filter": list(fshape),
+               "stride": stride, "pool": list(pool), "ms": ms,
+               "gflop": flop / 1e9, "rel_err": err,
+               "tflop_per_s": {a: flop / t / 1e9 for a, t in ms.items()}}
+        rows.append(row)
+        print(f"  {label:18s} {in_shape} {kh}x{kw}/{stride} m{m:<4d} "
+              + "  ".join(f"{a} {t:.6f} ms ({row['tflop_per_s'][a]:.1f} "
+                          f"TFLOP/s)" for a, t in ms.items())
+              + f"  err {err:.2e}")
+    five = [r for r in rows if r["label"].startswith("googlenet.i")]
+    sums = {a: sum(r["ms"][a] for r in five)
+            for a in ("cuconv_pallas", "cuconv", "lax")}
+    print(f"  the nine 5x5 convs at n = {n}: "
+          + ", ".join(f"{a} {t:.6f} ms" for a, t in sums.items()))
+    report["placement"] = {"batch": n, "rows": rows, "five_by_five_ms": sums}
 
 
 def analysis_phase(dev, report, launches, get_config) -> None:
@@ -3974,6 +4072,7 @@ def main() -> None:
         print(f"  stage2_tap_sum {c['label']} (T = {temps.shape[0]}): "
               f"unrolled {ms[True]} ms, runtime-T loop {ms[False]} ms")
     report["kernels"] = line
+    placement_rows(dev, report)
 
     # -- 6. launch-config check: the fused, direct and two-stage kernels'
     # geometry is their own, so every feasible candidate of their

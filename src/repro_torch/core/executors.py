@@ -143,6 +143,9 @@ class Executor:
     #: the hand-written CUDA kernels one execution launches (empty for
     #: library calls and plain PyTorch); names of ``_build.LAUNCHES``
     kernels: Tuple[str, ...] = ()
+    #: a library's conv (cuDNN on the card) rather than plain PyTorch,
+    #: where ``kernels`` is empty
+    library: bool = False
     #: whether the launch config sizes the launch; False where the kernel
     #: picks its own geometry from the shape (``launch_key``)
     config_sizes_launch: bool = True
@@ -439,6 +442,16 @@ def supporting(spec) -> Tuple[str, ...]:
     return tuple(n for n, ex in _REGISTRY.items() if ex.supports(spec)[0])
 
 
+def fusing(spec, kind: str) -> Tuple[str, ...]:
+    """Names of the executors that absorb fusion ``kind`` ("add",
+    "pool") of ``spec`` inside their kernel and can run it exactly; the
+    non-fusing executors, which run the fused op after the bare conv,
+    are not among them."""
+    return tuple(n for n, ex in _REGISTRY.items()
+                 if ex.fuses_epilogue and kind in ex.fusions(spec)
+                 and ex.supports(spec)[0])
+
+
 # ---------------------------------------------------------------------------
 # built-in executors (the paper's algorithm family)
 
@@ -447,6 +460,7 @@ class LaxExecutor(Executor):
     of the paper's comparison, and the only grouped-conv executor."""
     name = "lax"
     supports_groups = True
+    library = True
 
     def _supports(self, spec):
         if spec.groups != 1:
@@ -815,6 +829,10 @@ class FusedPallasExecutor(Executor):
             return 80, "1x1: fused GEMM + epilogue"
         if _is_small(spec):
             return 80, "small batch/spatial: cuConv region"
+        if spec.filter_shape[:2] != (3, 3):
+            # the K x K convs the Winograd kernel cannot run (5x5, 7x7):
+            # one launch, not plain cuConv's tap GEMMs and adds
+            return 80, "unit-stride KxK: fused kernel on the card"
         return None
 
     def fallback(self, spec):

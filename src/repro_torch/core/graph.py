@@ -99,8 +99,15 @@ class PrecisionPolicy:
 
 
 # Persisted graph-plan entry schema (the JAX package's v2):
-# {"schema": 2, "algorithms": {node_name: algo}}
+# {"schema": 2, "rules": PLAN_RULES, "algorithms": {node_name: algo}}
 GRAPH_SCHEMA = 2
+# The version of the rules that fold and place conv nodes: an entry
+# persisted under other rules is re-resolved, not replayed (its
+# algorithms may still be capable, only no longer chosen).  Kept apart
+# from GRAPH_SCHEMA, which is part of ``Graph.signature()``.
+# 2: a pool folds only into a kernel that fuses it; unit-stride KxK
+# convs outside 3x3 claim the fused kernel on the card.
+PLAN_RULES = 2
 
 # graph-level plan cache: {f"{backend}/{signature}": entry}
 _STORE = JsonCache("graphplans.json")
@@ -583,13 +590,16 @@ def fuse_graph(graph: Graph, backend: Optional[str] = None
       pool  A ``PoolOp`` whose single-consumer conv producer has no
             existing fusion folds into the conv as ``fused_pool``.
 
-    A rewrite only fires when some registered executor ``supports()``
-    the fused spec and no persisted measurement has ruled the fusion a
-    loss (``autotune.fusion_verdict``).  No ``plan()`` resolution
-    happens here.  Returns ``(fused_graph, provenance)`` where
-    provenance maps each fused conv node name to ``"add:<consumed>"`` /
-    ``"pool:<consumed>"``; the original graph object comes back
-    unchanged when nothing fuses.
+    An add only fires when some registered executor ``supports()`` the
+    fused spec, a pool only when some executor fuses it in its kernel
+    (``executors.fusing``): the others run the pool after the bare conv,
+    so the fold would gain nothing and keep the conv off the kernels
+    that run it unfused.  Neither fires where a persisted measurement
+    has ruled the fusion a loss (``autotune.fusion_verdict``).  No
+    ``plan()`` resolution happens here.  Returns ``(fused_graph,
+    provenance)`` where provenance maps each fused conv node name to
+    ``"add:<consumed>"`` / ``"pool:<consumed>"``; the original graph
+    object comes back unchanged when nothing fuses.
     """
     from repro_torch.core import autotune, executors
     backend = backend or default_backend()
@@ -657,7 +667,8 @@ def fuse_graph(graph: Graph, backend: Optional[str] = None
                 kind = "pool"
             else:
                 continue
-            if not executors.supporting(spec):
+            if not (executors.fusing(spec, "pool") if kind == "pool"
+                    else executors.supporting(spec)):
                 continue
             if autotune.fusion_verdict(spec, backend) is False:
                 continue
@@ -704,11 +715,44 @@ class GraphPlan:
         """Conv-node plans in graph order."""
         return tuple(self.conv_plans[n.name] for n in self.graph.conv_nodes)
 
+    def placement(self) -> Dict[str, object]:
+        """Where the conv nodes run: ``kernel`` counts those whose
+        executor launches the port's kernels, ``library`` those on a
+        library's conv (``lax``), ``plain`` those on plain PyTorch;
+        ``pools_unfolded`` names the pools the fusion pass left beside
+        a conv it could have folded them into (no kernel fuses them, or
+        a measurement ruled the fold a loss)."""
+        out: Dict[str, object] = {"kernel": 0, "library": 0, "plain": 0}
+        for p in self.conv_plans.values():
+            ex = p.executor
+            out["kernel" if ex.kernels else
+                "library" if ex.library else "plain"] += 1
+        unfolded = []
+        if self.base_graph is not None:
+            nodes = {n.name: n for n in self.graph.nodes}
+            consumers: Dict[str, int] = {self.graph.output: 1}
+            for n in self.graph.nodes:
+                for e in n.inputs:
+                    consumers[e] = consumers.get(e, 0) + 1
+            for n in self.graph.nodes:
+                prod = nodes.get(n.inputs[0])
+                if (isinstance(n, PoolOp) and isinstance(prod, ConvOp)
+                        and consumers[prod.name] == 1
+                        and not prod.spec.has_fusion):
+                    unfolded.append(n.name)
+        out["pools_unfolded"] = unfolded
+        return out
+
     def explain(self) -> str:
         """One aligned table for the whole network (every IR node):
-        geometry, dtype, and executor provenance."""
+        geometry, dtype, and executor provenance; the header counts the
+        placement (``placement()``)."""
+        pl = self.placement()
         lines = [f"GraphPlan[{self.source}] backend={self.backend} "
-                 f"sig={self.graph.signature()} nodes={len(self.graph)}"]
+                 f"sig={self.graph.signature()} nodes={len(self.graph)} "
+                 f"placement=kernel:{pl['kernel']},library:{pl['library']},"
+                 f"plain:{pl['plain']} pools_unfolded="
+                 f"{','.join(pl['pools_unfolded']) or '-'}"]
         for node in self.graph.nodes:
             if isinstance(node, ConvOp):
                 p = self.conv_plans[node.name]
@@ -937,8 +981,9 @@ def plan_graph(graph: GraphLike, *, backend: Optional[str] = None,
     persisted cache in both directions.  Otherwise a persisted entry
     keyed by backend + the PRE-fusion graph signature reconstructs the
     program with zero per-node plan() resolutions; entries that are
-    unversioned, carry a foreign schema, or name unknown or no-longer-
-    capable algorithms are dropped and re-resolved.
+    unversioned, carry a foreign schema or other ``PLAN_RULES``, or name
+    unknown or no-longer-capable algorithms are dropped and
+    re-resolved.
     """
     graph = _as_ir(graph)
     backend = backend or default_backend()
@@ -979,7 +1024,7 @@ def _persist(graph: Graph, backend: str, plans: Mapping[str, ConvPlan],
              alias: Optional[Graph] = None) -> None:
     # ``graph`` is the addressing identity (the pre-fusion IR); the fused
     # program gets the same entry under its own signature
-    entry = {"schema": GRAPH_SCHEMA,
+    entry = {"schema": GRAPH_SCHEMA, "rules": PLAN_RULES,
              "algorithms": {name: p.algorithm
                             for name, p in plans.items()}}
     _STORE.put(_graph_key(graph, backend), entry)
@@ -999,6 +1044,8 @@ def _plans_from_cache(graph: Graph, backend: str,
         return None
     if entry.get("schema") != GRAPH_SCHEMA:
         return None       # unversioned / foreign-schema entry: never decode
+    if entry.get("rules") != PLAN_RULES:
+        return None       # placed under other rules: re-resolve
     algos = entry.get("algorithms")
     conv_nodes = graph.conv_nodes
     if (not isinstance(algos, dict)

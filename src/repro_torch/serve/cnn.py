@@ -189,7 +189,8 @@ class BucketPrograms:
     ``dispatch.pack``, ``dispatch.copy`` (the copy's issue; on the CPU the
     synchronous ``put``), ``dispatch.copy_wait`` (on the card) and
     ``dispatch.launch``, and the batch's counters; ``warmup`` records
-    ``warmup`` with ``warmup.plan`` for each bucket, then its
+    each bucket's placement (``GraphPlan.placement()``) and ``warmup``
+    with ``warmup.plan`` for each bucket, then its
     ``warmup.eager`` (on the CPU), or on the card ``warmup.eager`` and
     ``warmup.capture`` for each mesh device whose graph is captured
     anew, then ``warmup.slots`` (on the card).
@@ -564,6 +565,7 @@ class BucketPrograms:
             if rec is not None:
                 t1 = clock()
                 rec.add_span("warmup.plan", ts, t1)
+                rec.placements[b] = self._plans[b].placement()
             x = np.zeros((b, H, W, C), self.input_dtype())
             t0 = time.perf_counter()
             if not on_card:

@@ -15,13 +15,16 @@ deadline-miss counts, overlap counters.
 ``trace=True`` (``AsyncServeFrontend(..., trace=True)``): then
 ``spans`` lists one ``Span`` per host step of the serving path, in the
 order they opened, and ``counters`` holds per batch what its dispatch
-packed, replayed, captured and read out early (``COUNTERS``).  A span's
-``batch`` is the ``BatchTrace.seq`` of the batch it served, and each
-``RequestTrace`` names the batches that carried it, so spans, batches
-and requests share identifiers.  The serving code reads the clock for a
-span's edges only when tracing, and where a ``BatchTrace`` time and a
-span edge coincide they are the same read.  Off, ``spans`` and
-``counters`` are None and nothing is recorded.
+packed, replayed, captured and read out early (``COUNTERS``), and
+``placements`` per bucket where its plan put the conv nodes
+(``GraphPlan.placement()``: on the port's kernels, a library or plain
+PyTorch, and the pools left unfolded).  A span's ``batch`` is the
+``BatchTrace.seq`` of the batch it served, and each ``RequestTrace``
+names the batches that carried it, so spans, batches and requests share
+identifiers.  The serving code reads the clock for a span's edges only
+when tracing, and where a ``BatchTrace`` time and a span edge coincide
+they are the same read.  Off, ``spans``, ``counters`` and
+``placements`` are None and nothing is recorded.
 
 The module is deliberately model-free: it imports neither torch nor
 anything else of the port, so any serving layer can record into it.
@@ -164,6 +167,9 @@ class Telemetry:
         self.spans: Optional[List[Span]] = [] if trace else None
         #: batch seq -> {counter: count} (``COUNTERS``), when tracing
         self.counters: Optional[Dict[int, Dict[str, int]]] = (
+            {} if trace else None)
+        #: bucket -> its plan's ``GraphPlan.placement()``, when tracing
+        self.placements: Optional[Dict[int, Dict[str, object]]] = (
             {} if trace else None)
         self._open: List[int] = []      # open spans, innermost last
 

@@ -66,6 +66,12 @@ def _randn(gen, shape, dtype):
     (1, 7, 7, 48, 5, 5, 128, (1, 1), (2, 2), 128, 7, "bias_relu"),
     (2, 34, 70, 16, 3, 3, 24, (1, 1), (1, 1), 16, 2, "maxpool"),
     (1, 40, 40, 3, 3, 3, 16, (1, 1), (1, 1), 16, 8, "avgpool"),
+    # GoogLeNet's 5x5 convs (i3ab3, i4bb3, i5bb3) and the 7x7/2 stem it
+    # shares with ResNet-50, as the planner places them at reduced N
+    (2, 28, 28, 16, 5, 5, 32, (1, 1), (2, 2), 128, 1, "bias_relu"),
+    (2, 14, 14, 24, 5, 5, 64, (1, 1), (2, 2), 128, 1, "bias_relu"),
+    (4, 7, 7, 48, 5, 5, 128, (1, 1), (2, 2), 128, 1, "bias_relu"),
+    (2, 224, 224, 3, 7, 7, 64, (2, 2), (3, 3), 128, 1, "bias_relu"),
 ])
 def test_cuconv_fused_kernel_matches_plain(geom, dtype):
     N, H, W, C, KH, KW, M, stride, pad, tm, rows, epi = geom

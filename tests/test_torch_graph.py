@@ -63,6 +63,34 @@ def test_graph_cache_replay_resolves_nothing():
         == "resolved"
 
 
+def test_graph_cache_entry_of_other_plan_rules_is_re_resolved():
+    """An entry persisted under older placement rules names algorithms
+    that are still capable (plain ``winograd`` for an unfused 3x3) but
+    no longer chosen: it is re-resolved, and the new entry replays."""
+    shape = (4, 32, 32, 3)
+    gp = resnet_like().graph_plan(shape, backend="cuda")
+    key = tgraph._graph_key(gp.base_graph, "cuda")
+    entry = tgraph._STORE.get(key)
+    assert entry["rules"] == tgraph.PLAN_RULES
+    old = dict(entry, rules=tgraph.PLAN_RULES - 1,
+               algorithms=dict(entry["algorithms"], b1c1="winograd"))
+    tgraph._STORE.put(key, old)
+    tgraph.clear_cache()
+    tcs.reset_plan_stats()
+    gp2 = resnet_like().graph_plan(shape, backend="cuda")
+    assert gp2.source == "resolved"
+    assert tcs.PLAN_STATS["resolutions"] == len(gp2.conv_plans)
+    assert gp2.conv_plans["b1c1"].algorithm == "winograd_pallas"
+    assert tgraph._STORE.get(key)["rules"] == tgraph.PLAN_RULES
+    tgraph.clear_cache()
+    tcs.reset_plan_stats()
+    gp3 = resnet_like().graph_plan(shape, backend="cuda")
+    assert gp3.source == "graph_cache"
+    assert tcs.PLAN_STATS["resolutions"] == 0
+    assert ({n: p.algorithm for n, p in gp3.conv_plans.items()}
+            == {n: p.algorithm for n, p in gp.conv_plans.items()})
+
+
 def test_explain_covers_every_node_and_names_fusions():
     gp = resnet_like().graph_plan((1, 32, 32, 3), backend="cuda")
     txt = gp.explain()
