@@ -2,9 +2,11 @@
 
 ``run_cell`` reads the cell from ``BENCHMARK.json``, its configuration
 from ``configs/`` and its traffic mix from ``traffic/``, both by name;
-the configuration's ``system`` names the adapter in ``systems/`` and its
-``reference`` the plain reference in ``reference/``; each per-layer
-metric is the ``read`` function of ``metrics/<name>.py``.
+the configuration's ``system`` names the adapter in ``systems/`` (its
+``check`` refuses a node list the program cannot run, its ``Served``
+serves one) and its ``reference`` the plain reference in
+``reference/``; each per-layer metric is the ``read`` function of
+``metrics/<name>.py``.
 
 Set-up (``setup_s``, from the process's start): weights and an image
 pool drawn from the seed on the first card, the program planned (its
@@ -76,8 +78,12 @@ def reader(name: str) -> Callable:
 class Window:
     """What the per-layer readers read: the cell, the requests due in
     the window (``loadgen.Request``), the front end's batch records of
-    the traced region, each bucket's nodes on the port's conv kernels,
-    and the trace (``tracing.Trace``; None untraced)."""
+    the traced region, each bucket's nodes on the port's conv kernels
+    (``kernel_nodes``) and each conv node's executor's kernels
+    (``node_kernels``, by launch name; none where a window is made
+    without them), and the trace (``tracing.Trace``; None untraced)."""
+
+    node_kernels: Dict[int, Dict[str, tuple]] = {}
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -115,6 +121,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     dev0 = devices[0]
     system = importlib.import_module(f"bench.systems.{cfg['system']}")
     reference = importlib.import_module(f"bench.reference.{cfg['reference']}")
+    system.check(cfg)
     pool_n = int(pool or traffic["pool"])
 
     gen = torch.Generator(device=dev0).manual_seed(int(seed))
@@ -181,7 +188,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
                  image=tuple(image or cfg["image"]), requests=requests,
                  t0=t0, t_close=t_close, t_region=t_region,
                  batches=served.batches[n_batch0:],
-                 kernel_nodes=served.kernel_nodes(), trace=None)
+                 kernel_nodes=served.kernel_nodes(),
+                 node_kernels=served.node_kernels(), trace=None)
     if trace:
         t_parse = clock()
         win.trace = tracing.Trace(prof, spans, (t0, t_region))

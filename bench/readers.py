@@ -26,26 +26,54 @@ def device_ms_per_image(w) -> Optional[float]:
     return 1e3 * busy / _images(w) if busy else None
 
 
+def _least_s(w, take) -> float:
+    """The least time of the conv nodes on the port's kernels whose
+    executor's kernels (launch names) ``take`` accepts, over the traced
+    region's batches: each batch of bucket ``b`` runs every card's plan
+    at ``b / cards``."""
+    least, per_bucket = 0.0, {}
+    for b in w.batches:
+        if b.bucket not in per_bucket:
+            nodes = w.kernel_nodes[b.bucket]
+            kernels = w.node_kernels.get(b.bucket, {})
+            per_bucket[b.bucket] = w.cards * sum(
+                c["least_s"] for c in counts.conv_nodes(
+                    w.cfg, b.bucket // w.cards, w.image)
+                if c["name"] in nodes and take(kernels.get(c["name"], ())))
+        least += per_bucket[b.bucket]
+    return least
+
+
+def _known(kernels) -> bool:
+    return all(k in counts.KERNEL_OF_LAUNCH for k in kernels)
+
+
 def conv_roofline(w) -> Optional[float]:
     """The least time of the conv nodes that ran on the port's conv
     kernels, over the device time of those kernels alone (a library's
-    conv kernels run the nodes left out of the numerator): each batch of
-    bucket ``b`` runs every card's plan at ``b / cards``."""
+    conv kernels run the nodes left out of the numerator).  A node whose
+    executor launches a kernel that ``counts.KERNEL_OF_LAUNCH`` does not
+    know is left out, as that kernel's time is."""
     if w.trace is None:
         return None
     spent = w.trace.kernel_s(counts.is_port_conv_kernel)
     if not spent:
         return None
-    least = 0.0
-    per_bucket = {}
-    for b in w.batches:
-        if b.bucket not in per_bucket:
-            nodes = w.kernel_nodes[b.bucket]
-            per_bucket[b.bucket] = w.cards * sum(
-                c["least_s"] for c in counts.conv_nodes(
-                    w.cfg, b.bucket // w.cards, w.image)
-                if c["name"] in nodes)
-        least += per_bucket[b.bucket]
+    return 100.0 * _least_s(w, _known) / spent
+
+
+def kernel_roofline(w, launch: str) -> Optional[float]:
+    """``conv_roofline`` of one port kernel: the least time of the conv
+    nodes whose executor launches kernel ``launch`` alone, over that
+    kernel's device time.  Over kernels that each run their nodes alone,
+    the shares recombine to ``conv_roofline``: the sum of their least
+    times over the sum of their times."""
+    if w.trace is None:
+        return None
+    spent = w.trace.kernel_s(counts.kernel_of(launch))
+    least = _least_s(w, lambda kernels: tuple(kernels) == (launch,))
+    if not spent or not least:
+        return None
     return 100.0 * least / spent
 
 

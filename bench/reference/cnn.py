@@ -1,10 +1,12 @@
 """The plain reference of a node-list CNN (``bench/netlist.py``).
 
-``F.conv2d``, ``F.max_pool2d`` and a matmul in fp32, NCHW, with TF32
-off for both cuDNN and cuBLAS.  It reads the same params and images the
-harness hands the program, and derives its own layouts from them (HWIO
-filters to OIHW).  ``operands`` rounds every conv and dense operand
-before the product: ``"tf32"`` (10 mantissa bits, to nearest even) is
+``F.conv2d`` (grouped where the node says), ``F.max_pool2d``, exact
+``F.gelu``, ``F.layer_norm`` over the channels and a matmul in fp32,
+NCHW, with TF32 off for both cuDNN and cuBLAS.  It reads the same params
+and images the harness hands the program, and derives its own layouts
+from them (HWIO filters to OIHW; a norm on a channels-last view).
+``operands`` rounds every conv and dense operand before the product,
+and nothing else: ``"tf32"`` (10 mantissa bits, to nearest even) is
 the control one precision step below fp32, ``"bf16"`` the step below
 that.  Products of TF32 operands are exact in fp32, so the TF32 control
 computes what a TF32 tensor core does.
@@ -45,6 +47,27 @@ def exact_fp32():
         torch.backends.cuda.matmul.allow_tf32 = mm
 
 
+ACTIVATIONS = {"none": lambda y: y, "relu": torch.relu,
+               "gelu": lambda y: F.gelu(y, approximate="none")}
+
+
+def activation(n: dict, y: torch.Tensor) -> torch.Tensor:
+    act = n.get("act", "none")
+    if act not in ACTIVATIONS:
+        raise ValueError(f"node {n['name']!r}: act {act!r}")
+    return ACTIVATIONS[act](y)
+
+
+def layer_norm(x: torch.Tensor, p: Dict, eps: float) -> torch.Tensor:
+    """LayerNorm over the channels of NCHW ``x`` (a channels-last view),
+    or over the last axis of ``(N, C)``."""
+    c = (x.shape[1],)
+    if x.dim() == 2:
+        return F.layer_norm(x, c, p["w"], p["b"], eps)
+    return F.layer_norm(x.permute(0, 2, 3, 1), c, p["w"], p["b"],
+                        eps).permute(0, 3, 1, 2)
+
+
 def logits(cfg: dict, params: Dict[str, Dict], images: torch.Tensor,
            operands: Optional[str] = None) -> torch.Tensor:
     """``(N, classes)`` fp32 logits of NHWC ``images``."""
@@ -59,20 +82,23 @@ def logits(cfg: dict, params: Dict[str, Dict], images: torch.Tensor,
                 w = params[name]["w"].permute(3, 2, 0, 1)
                 y = F.conv2d(q(x), q(w), params[name]["b"],
                              stride=n.get("stride", 1),
-                             padding=n.get("pad", 0))
-                if n["act"] == "relu":
-                    y = torch.relu(y)
+                             padding=n.get("pad", 0),
+                             groups=n.get("groups", 1))
+                y = activation(n, y)
             elif op == "pool":
+                if n["kind"] != "max":
+                    raise ValueError(f"node {name!r}: pool {n['kind']!r}")
                 y = F.max_pool2d(x, n["k"], n.get("stride", 1),
                                  n.get("pad", 0))
             elif op == "add":
                 y = x
                 for e in ins[1:]:
                     y = y + values[e]
-                if n.get("act") == "relu":
-                    y = torch.relu(y)
+                y = activation(n, y)
             elif op == "concat":
                 y = torch.cat([values[e] for e in ins], dim=1)
+            elif op == "norm":
+                y = layer_norm(x, params[name], n["eps"])
             elif op == "gap":
                 y = x.mean(dim=(2, 3))
             elif op == "dense":
